@@ -12,6 +12,14 @@ SRC = os.path.join(REPO, "src")
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (skipped where torch.cuda.is_available() "
+        "is False)",
+    )
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--update-golden", action="store_true", default=False,
