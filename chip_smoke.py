@@ -7,8 +7,9 @@ Phases, each printing one JSON object on a line of its own:
 
 1. ``device``     card name and power limit as ``nvidia-smi`` gives them,
                   torch / CUDA / nvcc versions;
-2. ``build``      ``nvcc`` builds ``libconv2d_stream.so`` from the source in
-                  the checkout (seconds taken);
+2. ``build``      ``nvcc`` builds ``libconv2d_stream.so`` and
+                  ``libflash_attention.so`` from the sources in the
+                  checkout, both at once (seconds taken);
 3. ``kernel_check``  the hand-written streaming-conv kernel against its plain
                   PyTorch version on the card: integer dtypes bit-exact
                   (int32 wrap-around included), f32 within atol 1e-4 /
@@ -27,18 +28,35 @@ Phases, each printing one JSON object on a line of its own:
                   and for f32 data (bit-exact both);
 5. ``serve``      ``ServeEngine`` answers 256 requests per zoo model (16 for
                   ``deep_cascade_224``) from the open-loop load generator;
-                  every answer must equal the direct run.
+                  every answer must equal the direct run;
+6. ``attn_check`` the hand-written flash-attention kernel against its plain
+                  PyTorch version on the card, f32 within atol = rtol =
+                  2e-5 and bf16 within 3e-2 (the reference's tolerances),
+                  over the llama3.2-1b / qwen2-0.5b prefill shapes (B 4,
+                  S 1024), D 128 (yi-9b), causal and not, a query offset,
+                  ragged lengths (100, 1000) and B 1 S 1; then timed at the
+                  model shapes beside the plain version, the roofline bound
+                  and ``F.scaled_dot_product_attention`` as yardstick;
+7. ``lm_serve``   the LM server at full width: llama3.2-1b and qwen2-0.5b
+                  (random bf16 weights from a seed, on the card) generate
+                  32 tokens greedily for 4 prompts of 1024; prefill logits
+                  are held against the same engine with
+                  ``attn_impl="blockwise"``; five prefills under the
+                  profiler split the card's time between attention,
+                  matmuls and the rest, beside their own wall time.
 
-The launch counters are zeroed just before phase 4 and read just after
-phase 5; the run fails if the kernel was never launched there, or if its
-plain version ever ran on a CUDA tensor in those phases.  Then the
-``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; with no
-CUDA device the script exits 2 and prints no result.
+The conv kernel's launch counters are zeroed just before phase 4 and read
+just after phase 5, the attention kernel's just before and after phase 7;
+the run fails if a kernel was never launched on its path, or if a plain
+version ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line,
+the ``{"kernels": [...]}`` summary and, last, ``{"ok": true, "device":
+{...}}``.  Any failed phase exits non-zero; with no CUDA device the script
+exits 2 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import signal
@@ -47,7 +65,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernel_check", "main_path", "serve")
+PHASES = ("device", "build", "kernel_check", "main_path", "serve",
+          "attn_check", "lm_serve")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -55,6 +74,8 @@ HBM_BYTES_PER_S = 3.35e12
 #: figure is used for int32 multiply-adds (no published integer peak; the
 #: integer pipe is not faster, so the bound stays a lower bound on time).
 CUDA_CORE_OPS_PER_S = 67e12
+#: dense bf16 tensor-core rate — the least time bf16 attention could take
+TENSOR_CORE_BF16_OPS_PER_S = 989e12
 
 #: (name, batch, H, W, Cin, Cout, K, stride) — the main path's conv shapes
 MAIN_SHAPES = (
@@ -452,6 +473,251 @@ def serve(torch, arts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the flash-attention kernel vs its plain version on the card
+# ---------------------------------------------------------------------------
+
+#: (name, B, Hq, Hkv, Sq, Sk, D, causal, q_offset) — checked in f32 and bf16
+ATTN_CASES = (
+    ("llama3.2-1b.prefill", 4, 32, 8, 1024, 1024, 64, True, 0),
+    ("qwen2-0.5b.prefill", 4, 14, 2, 1024, 1024, 64, True, 0),
+    ("yi-9b.d128", 2, 32, 4, 1024, 1024, 128, True, 0),
+    ("llama3.2-1b.noncausal", 4, 32, 8, 1024, 1024, 64, False, 0),
+    ("offset.sq256.sk1024", 2, 32, 8, 256, 1024, 64, True, 768),
+    ("ragged.s100", 3, 14, 2, 100, 100, 64, True, 0),
+    ("ragged.s1000", 2, 14, 2, 1000, 1000, 64, True, 0),
+    ("ragged.s1000.noncausal.d40", 1, 8, 2, 1000, 1000, 40, False, 0),
+    ("b1.s1", 1, 32, 8, 1, 1, 64, True, 0),
+    ("b1.s1.offset", 1, 32, 8, 1, 77, 128, True, 76),
+)
+#: timed shapes: the prefill attention of the two served models
+ATTN_TIMED = ("llama3.2-1b.prefill", "qwen2-0.5b.prefill", "yi-9b.d128")
+ATTN_HEADLINE = ("llama3.2-1b.prefill", "bfloat16")
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs the mask lets through — the work this input
+    needs, not the most it could."""
+    if not causal:
+        return sq * sk
+    return sum(max(0, min(sk, r + q_offset + 1)) for r in range(sq))
+
+
+def attn_check(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator().manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    shapes = []
+    for name, b, hq, hkv, sq, sk, d, causal, q_offset in ATTN_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            q = (torch.randn(b * hq, sq, d, generator=gen)
+                 * d ** -0.5).to(dtype).cuda()
+            k = torch.randn(b * hkv, sk, d, generator=gen).to(dtype).cuda()
+            v = torch.randn(b * hkv, sk, d, generator=gen).to(dtype).cuda()
+            kw = dict(heads_q=hq, heads_kv=hkv, causal=causal,
+                      q_offset=q_offset)
+            run = lambda: fa.flash_attention(q, k, v, **kw)
+            plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+            out, exp = run(), plain()
+            torch.cuda.synchronize()
+            what = f"{name} {dt_name}"
+            if out.shape != exp.shape or out.dtype != exp.dtype:
+                raise AssertionError(f"{what}: {out.shape} {out.dtype} vs "
+                                     f"{exp.shape} {exp.dtype}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{what}: non-finite output")
+            tol = ATTN_TOL[dt_name]
+            diff = (out.float() - exp.float()).abs()
+            if not bool((diff <= tol + tol * exp.float().abs()).all()):
+                raise AssertionError(
+                    f"{what}: max |err| {float(diff.max())} beyond atol = "
+                    f"rtol = {tol}")
+            err = float(diff.max())
+            worst[dt_name] = max(worst[dt_name], err)
+            n += 1
+            if name not in ATTN_TIMED:
+                continue
+            ms = time_ms(run, warmup=3, reps=20)
+            plain_ms = time_ms(plain, warmup=1, reps=5)
+            dev_ms = device_ms(run, reps=10, kernel="flash_attention_kernel")
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in (q, k, v, out))
+            flops = 4 * b * hq * d * _visible_pairs(sq, sk, causal, q_offset)
+            peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
+                    else CUDA_CORE_OPS_PER_S)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            # yardstick: one PyTorch call for the same function (Sq == Sk,
+            # no offset, so its causal convention is the kernel's)
+            q4 = q.view(b, hq, sq, d)
+            k4, v4 = k.view(b, hkv, sk, d), v.view(b, hkv, sk, d)
+            lib = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=1.0, enable_gqa=True)
+            lib_err = float((lib().float() - out.float().view(b, hq, sq, d))
+                            .abs().max())
+            if lib_err > tol + tol * float(exp.float().abs().max()):
+                raise AssertionError(f"{what}: SDPA differs by {lib_err}")
+            library_ms = time_ms(lib, warmup=3, reps=20)
+            shapes.append({
+                "shape": name, "dtype": dt_name,
+                "q": [b, hq, sq, d], "kv": [b, hkv, sk, d],
+                "causal": causal, "q_offset": q_offset,
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes, "flops": flops, "library_ms": library_ms,
+                "library_vs_kernel_max_abs": lib_err, "max_abs_err": err,
+            })
+    return {"comparisons": n, "max_abs_err_f32": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"], "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the LM server at full width
+# ---------------------------------------------------------------------------
+
+LM_MODELS = ("llama3.2-1b", "qwen2-0.5b")
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
+#: prefill logits, "cuda" vs "blockwise" attention, bf16 through every
+#: layer: the two sum in another order, so a few bf16 outputs of
+#: attention differ in the last bit and the difference grows layer by
+#: layer — allowed: 2 % of the largest |logit| plus 0.02
+LM_LOGIT_RTOL_OF_MAX, LM_LOGIT_ATOL = 0.02, 0.02
+
+
+#: substrings of cuBLAS' kernel names (``nvjet_*`` on Hopper with CUDA 12.8)
+MATMUL_KERNELS = ("nvjet", "gemm", "xmma", "cutlass", "gemv")
+
+
+def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5) -> dict:
+    """Where a warm prefill's time goes: the card's time in the attention
+    kernel, in matmuls and in everything else, and the wall time of the
+    same ``reps`` prefills, all under the profiler; the gap between busy
+    and wall time is the card's idle share (negative where the busy time
+    exceeds the wall, which is then flagged, not hidden).  The wall of
+    ``reps`` unprofiled prefills stands beside it, to show what the
+    profiler adds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.prefill(prompts)
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / reps
+    walls = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            eng.prefill(prompts)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    parts = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = []
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", 0.0)
+              or getattr(ev, "self_cuda_time_total", 0.0))
+        if not us:
+            continue
+        kernels.append((us / reps, ev.key))
+        key = ev.key.lower()
+        if "flash_attention_kernel" in key:
+            parts["attention"] += us
+        elif any(t in key for t in MATMUL_KERNELS):
+            parts["matmul"] += us
+        else:
+            parts["other"] += us
+    out = {f"{k}_ms": v / 1e3 / reps for k, v in parts.items()}
+    busy = sum(parts.values()) / 1e3 / reps
+    wall_ms = sum(walls) / reps
+    out.update({
+        "reps": reps, "device_busy_ms": busy, "wall_ms": wall_ms,
+        "wall_ms_each": walls, "unprofiled_wall_ms": unprofiled_ms,
+        "idle_share": 1.0 - busy / wall_ms if busy else None,
+        "busy_exceeds_wall": busy > wall_ms,
+        "top_kernels": [[name[:80], us / 1e3]
+                        for us, name in sorted(kernels, reverse=True)[:6]],
+    })
+    return out
+
+
+def lm_serve(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import ServeEngine
+
+    rows = []
+    for arch in LM_MODELS:
+        cfg = get_config(arch)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                               dtype=np.int32)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, max_len=LM_PROMPT + LM_NEW, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+
+        before = fa.launches
+        out, cold = eng.generate(prompts, max_new=LM_NEW)
+        per_prefill = fa.launches - before
+        if per_prefill != cfg.num_layers:
+            raise AssertionError(
+                f"{arch}: {per_prefill} flash launches in one prefill, want "
+                f"{cfg.num_layers} (one per layer)")
+        if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or \
+                out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: tokens {out.shape} out of range")
+        out2, warm = eng.generate(prompts, max_new=LM_NEW)
+        if not np.array_equal(out, out2):
+            raise AssertionError(f"{arch}: greedy generate not repeatable")
+
+        logits, _ = eng.prefill(prompts)
+        blockwise = ServeEngine(cfg.with_(attn_impl="blockwise"),
+                                max_len=LM_PROMPT + LM_NEW,
+                                params=eng.params)
+        ref_logits, _ = blockwise.prefill(prompts)
+        torch.cuda.synchronize()
+        if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
+                                 "not finite of the expected shape")
+        err = float((logits - ref_logits).abs().max())
+        scale = float(ref_logits.abs().max())
+        allowed = LM_LOGIT_RTOL_OF_MAX * scale + LM_LOGIT_ATOL
+        if err > allowed:
+            raise AssertionError(
+                f"{arch}: prefill logits cuda vs blockwise differ by {err} "
+                f"(allowed {allowed})")
+        same_first = float((logits.argmax(-1) == ref_logits.argmax(-1))
+                           .float().mean())
+        breakdown = _prefill_breakdown(torch, eng, prompts)
+        rows.append({
+            "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+            "init_s": init_s,
+            "cold": dataclasses.asdict(cold), "warm": dataclasses.asdict(warm),
+            "flash_launches_per_prefill": per_prefill,
+            "logits_max_abs_vs_blockwise": err, "logits_max_abs": scale,
+            "logits_allowed": allowed, "argmax_agreement": same_first,
+            "prefill_breakdown": breakdown,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        })
+        del eng, blockwise, logits, ref_logits
+        torch.cuda.empty_cache()
+    return {"models": rows}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -477,27 +743,37 @@ def main(argv=None) -> int:
               "needs one CUDA device and takes no CPU path", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
     from repro_torch.kernels import conv2d_stream as cs
+    from repro_torch.kernels import flash_attention as fa
 
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     if "device" in phases:
-        nvcc = subprocess.run([cs._nvcc(), "--version"], capture_output=True,
+        nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                               text=True).stdout.strip().splitlines()
         emit({"device": {"nvidia_smi": smi, "kind": kind,
                          "count": torch.cuda.device_count(),
                          "torch": torch.__version__,
                          "cuda": torch.version.cuda,
                          "nvcc": nvcc[-2:] if nvcc else None}})
-    # always from the checkout's source, whatever a build directory holds
-    cs.build_library(verbose=args.ptxas)
-    cs.load_library()
+    # always from the checkout's sources, whatever a build directory
+    # holds: one nvcc per kernel, all started together
+    libraries = (cs.LIBRARY, fa.LIBRARY)
+    t0 = time.perf_counter()
+    build.build_libraries(libraries, verbose=args.ptxas)
+    build_s = time.perf_counter() - t0
+    for lib in libraries:
+        lib.load()
     if "build" in phases:
-        emit({"build": {"seconds": cs.build_seconds,
-                        "library": os.path.relpath(
-                            str(cs.build_dir() / "libconv2d_stream.so"), ROOT),
-                        "flags": list(cs.NVCC_FLAGS)}})
+        emit({"build": {"seconds": build_s,
+                        "libraries": {
+                            lib.name: {"seconds": lib.build_seconds,
+                                       "path": os.path.relpath(
+                                           str(lib.path), ROOT)}
+                            for lib in libraries},
+                        "flags": list(build.NVCC_FLAGS)}})
     checked = None
     if "kernel_check" in phases:
         checked = kernel_check(torch)
@@ -519,12 +795,29 @@ def main(argv=None) -> int:
                 f"the plain version ran {plain_cuda} time(s) on a CUDA "
                 "tensor on the main path")
 
+    attn = None
+    if "attn_check" in phases:
+        attn = attn_check(torch)
+        emit({"attn_check": attn})
+    fa.reset_counts()                  # counts: zero before the LM path
+    if "lm_serve" in phases:
+        emit({"lm_serve": lm_serve(torch)})
+        fa_launches, fa_plain = fa.launches, fa.plain_cuda_calls  # read after
+        if fa_launches < 1:
+            raise AssertionError("the LM path never launched flash_attention")
+        if fa_plain:
+            raise AssertionError(
+                f"flash_attention's plain version ran {fa_plain} time(s) on "
+                "a CUDA tensor on the LM path")
+
     if set(phases) != set(PHASES):
         emit({"partial": phases,
               "seconds": round(time.perf_counter() - t_all, 1)})
         return 0
     head = next(s for s in checked["shapes"]
                 if s["shape"] == HEADLINE_SHAPE and s["dtype"] == "int32")
+    ahead = next(s for s in attn["shapes"]
+                 if (s["shape"], s["dtype"]) == ATTN_HEADLINE)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "conv2d_stream", "route": "cuda",
@@ -540,6 +833,19 @@ def main(argv=None) -> int:
                     "int32 conv; float shapes carry library_ms below)",
         "comparisons": checked["comparisons"],
         "shapes": checked["shapes"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": fa_launches,
+        "max_abs_err": max(attn["max_abs_err_f32"], attn["max_abs_err_bf16"]),
+        "ms": ahead["ms"], "plain_ms": ahead["plain_ms"],
+        "bound_ms": ahead["bound_ms"], "bound_by": ahead["bound_by"],
+        "library_ms": ahead["library_ms"],
+        "timed_at": f"{ATTN_HEADLINE[0]} {ATTN_HEADLINE[1]} (library: "
+                    "F.scaled_dot_product_attention, GQA, causal)",
+        "comparisons": attn["comparisons"],
+        "shapes": attn["shapes"],
     }], "seconds": round(time.perf_counter() - t_all, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -14,7 +14,11 @@ loads only when a kernel path actually runs)::
 Subsystems keep their own namespaces: ``repro_torch.core`` (IR, analysis,
 streaming, DSE, resource model, emit), ``repro_torch.passes`` (rewrites +
 partitioner), ``repro_torch.kernels`` (CUDA kernels, their plain versions, the
-group lowering).
+group lowering), and the LM stack: ``repro_torch.configs``,
+``repro_torch.models`` (layers, the dense-family LM) and
+``repro_torch.launch`` (serve steps, the LM server).
+``lm_params_from_numpy`` carries the reference's LM parameters across, as
+``params_from_numpy`` does a compiled design's env.
 """
 from __future__ import annotations
 
@@ -29,6 +33,10 @@ def __getattr__(name: str):
     # the single source of truth, so new api exports appear here too
     if name == "api":
         return _api()
+    if name == "lm_params_from_numpy":
+        from repro_torch.models.lm import lm_params_from_numpy
+
+        return lm_params_from_numpy
     api = _api()
     if name in api.__all__:
         return getattr(api, name)
@@ -36,4 +44,5 @@ def __getattr__(name: str):
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_api().__all__) | {"api"})
+    return sorted(set(globals()) | set(_api().__all__)
+                  | {"api", "lm_params_from_numpy"})

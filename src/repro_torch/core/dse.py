@@ -19,9 +19,10 @@ node's reduction trips are fully unrolled, further factors widen the
 parallel (stream) loops.  The resulting *stream width* ``κ`` must agree
 across every producer/consumer pair — Eq. (1)'s stream constraint.
 
-``plan_conv_rows`` is the runtime's counterpart on the NVIDIA H100: the
-same question (what fits the on-chip buffer?) asked of a thread block's
-shared memory; its output tiles the streaming conv kernel.
+``plan_conv_rows`` and ``plan_attention_blocks`` are the runtime's
+counterparts on the NVIDIA H100: the same question (what fits the
+on-chip buffer?) asked of a thread block's shared memory; their outputs
+tile the streaming conv and the flash-attention kernels.
 """
 from __future__ import annotations
 
@@ -474,4 +475,100 @@ def plan_conv_rows(
          "c_tile": c_tile},
         smem(rows_step, w_tile, c_tile),
         (n_wt * n_ct, -(-h_out // band), batch),
+    )
+
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100: tile selection for the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+#: fixed shape of ``kernels/csrc/flash_attention.cu``: 256 threads as a
+#: 16 × 16 grid, each holding a (block_q/16) × 4 tile of the score block
+#: and a (block_q/16) × (D/16) tile of the output; keys stream through
+#: shared memory ``ATTN_BLOCK_K`` at a time
+ATTN_BLOCK_K = 64
+#: query tiles the kernel is instantiated for, largest first
+ATTN_BLOCK_Q = (64, 32)
+#: widest head the register tile takes (8 output columns per thread)
+ATTN_MAX_HEAD_DIM = 128
+#: floats of padding after each shared-memory row (keeps 16-byte vector
+#: loads aligned and spreads the transposed stores over the banks)
+ATTN_SMEM_PAD = 4
+
+
+@dataclass
+class AttentionBlockPlan:
+    """Chosen tiling of one flash-attention launch: ``blocks`` holds
+    ``block_q`` (query rows per block) and ``block_k`` (keys per shared-
+    memory tile); ``grid`` is the number of blocks."""
+
+    kind: str
+    blocks: dict
+    smem_bytes: int
+    grid: int
+
+
+def attention_cols_per_thread(head_dim: int) -> int:
+    """Output columns one thread keeps (the kernel's ``DPT``): 2, 4 or 8,
+    so that 16 threads cover the head."""
+    return 2 if head_dim <= 32 else 4 if head_dim <= 64 else 8
+
+
+def attention_smem_bytes(*, head_dim: int, block_q: int) -> int:
+    """Shared memory one block asks for, all in f32: the query tile and
+    the key tile transposed (``D × (tile + pad)``), the value tile
+    (``block_k × 16·DPT``) and the probability tile (``block_q ×
+    (block_k + pad)``) — the formula of ``flash_attention.cu``."""
+    pad, bk = ATTN_SMEM_PAD, ATTN_BLOCK_K
+    dv = 16 * attention_cols_per_thread(head_dim)
+    return 4 * (head_dim * (block_q + pad) + head_dim * (bk + pad)
+                + bk * dv + block_q * (bk + pad))
+
+
+# the largest tile at the widest head must fit one block's shared memory
+# (119,808 B of 232,448 B), so the planner never has to refuse a head
+# the register tile takes
+assert attention_smem_bytes(head_dim=ATTN_MAX_HEAD_DIM,
+                            block_q=ATTN_BLOCK_Q[0]) <= H100.smem_per_block
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_attention_blocks(
+    *,
+    seq_q: int,
+    seq_k: int,
+    head_dim: int,
+    batch_heads: int = 1,
+) -> AttentionBlockPlan:
+    """Tile the flash-attention kernel on the H100: one block per
+    (batch·head, query tile) loops over the keys ``ATTN_BLOCK_K`` at a
+    time, holding query, key, value and probability tiles in shared
+    memory (every tile fits, see the assert above).
+
+    The largest query tile wins (each key tile loaded into shared memory
+    then serves more query rows); it halves while the launch would leave
+    SMs idle (fewer than two blocks per SM) or while it exceeds the
+    queries there are.  Raises :class:`ValueError` for a head wider than
+    the register tile (``ATTN_MAX_HEAD_DIM``).  Plans are memoized per
+    shape; treat them as read-only.
+    """
+    if not 1 <= head_dim <= ATTN_MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash attention: head_dim {head_dim} outside the kernel's "
+            f"1..{ATTN_MAX_HEAD_DIM}")
+    if seq_q < 1 or seq_k < 1 or batch_heads < 1:
+        raise ValueError(
+            f"flash attention: empty problem (seq_q {seq_q}, seq_k "
+            f"{seq_k}, batch_heads {batch_heads})")
+    tiles = ATTN_BLOCK_Q
+    i = 0
+    while i + 1 < len(tiles) and (
+            tiles[i + 1] >= seq_q
+            or batch_heads * -(-seq_q // tiles[i]) < 2 * H100.sms):
+        i += 1
+    bq = tiles[i]
+    return AttentionBlockPlan(
+        "attention", {"block_q": bq, "block_k": ATTN_BLOCK_K},
+        attention_smem_bytes(head_dim=head_dim, block_q=bq),
+        batch_heads * -(-seq_q // bq),
     )

@@ -29,6 +29,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the device to finish (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 #: NumPy dtypes without a 32-bit-or-narrower twin are narrowed at the
 #: boundary, the way the reference package's arrays are (no 64-bit types)
 _NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.int32,

@@ -28,7 +28,8 @@ thread; ``wgmma``/TMA paths for the wide float/int8 cases are later work.
 
 The library is built by ``nvcc`` from the source in this package at
 first use (a few seconds; plain C interface, bound with ``ctypes``) into
-``build/`` at the repository root, or ``$REPRO_TORCH_BUILD_DIR``.
+``build/`` at the repository root, or ``$REPRO_TORCH_BUILD_DIR``
+(``repro_torch.kernels.build``).
 
 Beside the kernel sits its plain PyTorch version,
 :func:`conv2d_stream_plain`.  :func:`conv2d_stream` takes it **only**
@@ -38,15 +39,12 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import os
-import pathlib
-import subprocess
 import threading
-import time
 
 import torch
 
 from repro_torch.core.dse import CONV_BLOCK_THREADS, plan_conv_rows
+from repro_torch.kernels.build import CudaLibrary
 
 #: fused-epilogue kinds the conv path supports, applied to the int32/f32
 #: accumulator before the store (zero extra device-memory traffic) →
@@ -64,15 +62,7 @@ _DTYPE_CODES = {
 #: one; a comparison harness does).  Guarded by ``_LOCK``.
 launches = 0
 plain_cuda_calls = 0
-#: seconds the last ``nvcc`` build took (None until one ran here)
-build_seconds: float | None = None
-
 _LOCK = threading.Lock()
-_LIB = None
-
-_SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "conv2d_stream.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
 def line_buffer_rows(kh: int, stride: int) -> int:
@@ -86,66 +76,18 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return (torch.float32 if dtype.is_floating_point else torch.int32)
 
 
-def build_dir() -> pathlib.Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return pathlib.Path(env)
-    return _SOURCE.parents[4] / "build"
+def _declare(lib) -> None:
+    fn = lib.conv2d_stream_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.conv2d_stream_error_string.argtypes = [ctypes.c_int]
+    lib.conv2d_stream_error_string.restype = ctypes.c_char_p
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(cuda_home) / "bin" / "nvcc"
-    return str(cand) if cand.exists() else "nvcc"
-
-
-def build_library(*, verbose: bool = False) -> pathlib.Path:
-    """Compile ``csrc/conv2d_stream.cu`` into ``libconv2d_stream.so``
-    (always rebuilds; :func:`load_library` calls it when the library is
-    missing or older than the source).  Raises when ``nvcc`` fails."""
-    global build_seconds
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libconv2d_stream.so"
-    tmp = out_dir / f".libconv2d_stream.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
-    return so
-
-
-def load_library():
-    """The ``ctypes`` handle of the kernel library, built on first use.
-    One handle per process, created under the module lock (the serve
-    worker thread and the main thread may race here)."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            so = build_dir() / "libconv2d_stream.so"
-            if (not so.exists()
-                    or so.stat().st_mtime < _SOURCE.stat().st_mtime):
-                so = build_library()
-            lib = ctypes.CDLL(str(so))
-            fn = lib.conv2d_stream_launch
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            lib.conv2d_stream_error_string.argtypes = [ctypes.c_int]
-            lib.conv2d_stream_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+#: ``csrc/conv2d_stream.cu`` → ``build/libconv2d_stream.so``, built by
+#: ``nvcc`` at first use
+LIBRARY = CudaLibrary("conv2d_stream", _declare)
 
 
 def reset_counts() -> None:
@@ -298,7 +240,7 @@ def conv2d_stream(
     w = w.contiguous()
     out = torch.empty((b, h_out, w_out, cout), dtype=acc_dtype(x.dtype),
                       device=x.device)
-    lib = load_library()
+    lib = LIBRARY.load()
     (pt, _), (pl, _) = pads
     def launch() -> int:
         return lib.conv2d_stream_launch(

@@ -7,6 +7,10 @@ every conv on a CUDA tensor, batched or not, integer or float, goes
 through that kernel.  ``conv2d_same_mm`` (per-tap shifted-window
 products) stays as a CPU function the tests hold bit-exact against it.
 
+``flash_attention`` is the LM path's attention entry point: it scales
+``q`` and hands ``(B·H, S, D)`` views to the hand-written CUDA kernel
+(``repro_torch.kernels.flash_attention``).
+
 ``lower_group`` / ``run_compiled`` / ``run_compiled_batched`` are the
 device duals of the HLS emitter: they consume the *same*
 :class:`repro_torch.core.compile_driver.CompiledDesign` the FPGA path
@@ -54,8 +58,9 @@ from repro_torch.core.analysis import (
     window_geometry,
 )
 from repro_torch.core.ir import PayloadKind
-from repro_torch.device import env_to_device, resolve_device
+from repro_torch.device import env_to_device, resolve_device, synchronize
 from . import conv2d_stream as _conv
+from . import flash_attention as _flash
 from . import ref as _ref
 
 
@@ -519,12 +524,6 @@ def lower_group(group, *, batch: int | None = None):
     return fn
 
 
-def _sync(device: torch.device) -> None:
-    """Wait for the device to finish (nothing to wait for on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _cache_outcome(before: dict) -> str:
     return "hit" if exec_cache_stats["hits"] > before["hits"] else "miss"
 
@@ -571,7 +570,7 @@ def run_compiled(design, env, *, device=None,
         t0 = time.perf_counter()
         with tracer.span(f"run:{g.name}", cat="runtime") as sargs:
             out = lower_group(g)(env)
-            _sync(dev)
+            synchronize(dev)
             env.update(out)
             row = {"group": g.name, "jit_cache": _cache_outcome(g_before)}
             if idx < len(transitions):
@@ -657,7 +656,7 @@ def run_compiled_batched(design, env, batch: int, *, device=None,
             t0 = time.perf_counter()
             with tracer.span(f"run:{g.name}", cat="runtime") as sargs:
                 out = fn(chunk_env)
-                _sync(dev)
+                synchronize(dev)
                 chunk_env.update(out)
                 row = group_rows.setdefault(
                     g.name, {"group": g.name, "wall_ms": 0.0, "samples": 0}
@@ -703,3 +702,57 @@ def run_compiled_batched(design, env, batch: int, *, device=None,
             "dma_read_bytes": sum(r for _, r in transitions) * batch,
         })
     return result
+
+
+# ---------------------------------------------------------------------------
+# flash attention (GQA, causal, decode offset)
+# ---------------------------------------------------------------------------
+
+
+def scale_in_dtype(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x * scale`` in ``x.dtype`` with ``scale`` first rounded to that
+    dtype — the product a framework that casts a Python scalar to the
+    array's type computes (for bf16 that differs from multiplying by the
+    exact scale before one rounding)."""
+    return x * float(torch.tensor(scale, dtype=x.dtype))
+
+
+def flash_attention(
+    q: torch.Tensor,        # (B, Hq, Sq, D)
+    k: torch.Tensor,        # (B, Hkv, Sk, D)
+    v: torch.Tensor,        # (B, Hkv, Sk, D)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    q_offset: int = 0,
+    block_q: int | None = None,
+    block_k: int | None = None,
+) -> torch.Tensor:
+    """GQA flash attention → ``(B, Hq, Sq, D)`` in ``q.dtype``, through the
+    hand-written kernel on a CUDA tensor (its plain version on a CPU one).
+
+    ``q`` is scaled in ``q.dtype`` before the kernel.  ``block_q`` and
+    ``block_k`` are only checked — ``Sq``/``Sk`` must be multiples of
+    them, so the inputs that the TPU wrapper refuses raise here too — and
+    change nothing: the kernel tiles with
+    :func:`repro_torch.core.dse.plan_attention_blocks` and masks ragged
+    edges itself.  ``None`` (or 0, as in the TPU wrapper) checks nothing:
+    there the TPU wrapper picks a divisor of the length."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(
+            f"flash_attention: {hq} query heads over {hkv} KV heads")
+    scale = scale if scale is not None else d ** -0.5
+
+    if (block_q and sq % block_q) or (block_k and sk % block_k):
+        raise ValueError(
+            f"flash_attention: Sq {sq} / Sk {sk} are not multiples of "
+            f"block_q {block_q} / block_k {block_k}")
+
+    qf = scale_in_dtype(q, scale).reshape(b * hq, sq, d)
+    kf = k.reshape(b * hkv, sk, d)
+    vf = v.reshape(b * hkv, sk, d)
+    out = _flash.flash_attention(qf, kf, vf, heads_q=hq, heads_kv=hkv,
+                                 causal=causal, q_offset=q_offset)
+    return out.reshape(b, hq, sq, d)

@@ -7,7 +7,8 @@ and epilogue primitives below it are shared by the DFG interpreter
 semantics.  Everything here works on integer tensors on the CPU and on
 the card: pooling is ``unfold`` + ``amax``/``sum`` because
 ``F.max_pool2d`` / ``F.avg_pool2d`` reject integer CUDA tensors, and
-integer averages are *floor* divisions.
+integer averages are *floor* divisions.  ``attention`` is the oracle of
+the LM path's attention (dense softmax, f32).
 """
 from __future__ import annotations
 
@@ -211,3 +212,37 @@ def apply_epilogue(out: torch.Tensor, epilogue, env) -> torch.Tensor:
         else:
             out = binary(e.kind, out, env[e.operand])
     return out
+
+
+# ---------------------------------------------------------------------------
+# multi-head / grouped-query attention
+# ---------------------------------------------------------------------------
+
+
+def attention(
+    q: torch.Tensor,          # (B, Hq, Sq, D)
+    k: torch.Tensor,          # (B, Hkv, Sk, D)
+    v: torch.Tensor,          # (B, Hkv, Sk, D)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """GQA attention oracle.  Hq must be a multiple of Hkv; q_offset is the
+    absolute position of q[0] (decode: q_offset = cache_len).  Masked
+    scores are ``-inf``, so a row that sees no key is NaN."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"attention: {hq} query heads over {hkv} KV heads")
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = torch.where(qpos >= kpos, logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)

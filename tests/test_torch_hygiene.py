@@ -32,7 +32,12 @@ COPIED = [
     "analyze/stream_skew.py", "instrument/tracer.py",
     "instrument/metrics.py", "instrument/snapshot.py",
     "instrument/provenance.py", "api/builder.py", "serve/cache.py",
-    "serve/loadgen.py",
+    "serve/loadgen.py", "configs/__init__.py", "configs/registry.py",
+    "configs/llama3_2_1b.py", "configs/qwen2_0_5b.py",
+    "configs/nemotron_4_15b.py", "configs/yi_9b.py",
+    "configs/seamless_m4t_medium.py", "configs/jamba_1_5_large_398b.py",
+    "configs/qwen2_vl_72b.py", "configs/olmoe_1b_7b.py",
+    "configs/granite_moe_1b_a400m.py", "configs/mamba2_1_3b.py",
 ]
 
 
@@ -163,14 +168,16 @@ class TestNoSilentCpu:
 
 
 def test_cpu_conv_never_builds_or_loads_the_library(monkeypatch):
+    from repro_torch.kernels import build
     from repro_torch.kernels import conv2d_stream as cs
 
     def boom(*a, **k):
         raise AssertionError("the CPU path reached for the CUDA library")
 
-    monkeypatch.setattr(cs, "load_library", boom)
-    monkeypatch.setattr(cs, "build_library", boom)
-    monkeypatch.setattr(cs.subprocess, "run", boom)
+    monkeypatch.setattr(cs.LIBRARY, "load", boom)
+    monkeypatch.setattr(cs.LIBRARY, "build", boom)
+    monkeypatch.setattr(build, "build_libraries", boom)
+    monkeypatch.setattr(build.subprocess, "Popen", boom)
     before = (cs.launches, cs.plain_cuda_calls)
     x = torch.arange(2 * 6 * 6 * 3, dtype=torch.int32).reshape(2, 6, 6, 3)
     w = torch.ones(3, 3, 3, 4, dtype=torch.int32)
