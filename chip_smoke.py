@@ -7,9 +7,10 @@ Phases, each printing one JSON object on a line of its own:
 
 1. ``device``     card name and power limit as ``nvidia-smi`` gives them,
                   torch / CUDA / nvcc versions;
-2. ``build``      ``nvcc`` builds ``libconv2d_stream.so`` and
-                  ``libflash_attention.so`` from the sources in the
-                  checkout, both at once (seconds taken);
+2. ``build``      ``nvcc`` builds ``libconv2d_stream.so``,
+                  ``libflash_attention.so``, ``libfused_mlp.so`` and
+                  ``libmamba2_ssd.so`` from the sources in the checkout,
+                  all at once (seconds taken);
 3. ``kernel_check``  the hand-written streaming-conv kernel against its plain
                   PyTorch version on the card: integer dtypes bit-exact
                   (int32 wrap-around included), f32 within atol 1e-4 /
@@ -37,19 +38,43 @@ Phases, each printing one JSON object on a line of its own:
                   ragged lengths (100, 1000) and B 1 S 1; then timed at the
                   model shapes beside the plain version, the roofline bound
                   and ``F.scaled_dot_product_attention`` as yardstick;
-7. ``lm_serve``   the LM server at full width: llama3.2-1b and qwen2-0.5b
+7. ``mlp_check``  the hand-written fused-MLP kernel against its plain
+                  PyTorch version on the card, f32 within atol = rtol = 5e-4
+                  and bf16 within 1e-2, gated and ungated, the four
+                  activations, M 1-4096, D 896-8192 (its limit; one past it
+                  must raise); then timed at llama3.2-1b's prefill and
+                  decode shapes beside the plain version, the roofline bound
+                  and the dense MLP (three cuBLAS matmuls) as yardstick;
+8. ``ssd_check``  the hand-written SSD kernel against its plain version on
+                  the card, f32 within 1e-3 and bf16 within 1e-2 (final
+                  state 1e-3), chunks 1-128, L 37-1024, B 1-4, the state
+                  carried across two calls; then timed at mamba2-1.3b's
+                  prefill shape (no library call computes an SSD scan);
+9. ``lm_serve``   the LM server at full width: llama3.2-1b and qwen2-0.5b
                   (random bf16 weights from a seed, on the card) generate
                   32 tokens greedily for 4 prompts of 1024; prefill logits
                   are held against the same engine with
                   ``attn_impl="blockwise"``; five prefills under the
                   profiler split the card's time between attention,
-                  matmuls and the rest, beside their own wall time.
+                  matmuls and the rest, beside their own wall time;
+                  llama3.2-1b also runs one prefill and 8 decode steps
+                  with ``mlp_impl="streamed"`` (the fused-MLP kernel, one
+                  launch per layer and call), logits held against the
+                  dense engine;
+10. ``ssm_serve`` mamba2-1.3b at full width and depth (random bf16 weights
+                  from a seed) generates 32 tokens greedily for 4 prompts of
+                  1024 (one SSD launch per layer of a prefill); one decode
+                  step after a 1023-token prefill is held against a
+                  1024-token prefill (the kernel's final state against the
+                  recurrence), and at depth 2 the card's prefill logits
+                  against the port's own CPU run on the same weights.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
-just after phase 5, the attention kernel's just before and after phase 7;
-the run fails if a kernel was never launched on its path, or if a plain
-version ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line,
-the ``{"kernels": [...]}`` summary and, last, ``{"ok": true, "device":
+just after phase 5, the attention and fused-MLP kernels' just before and
+after phase 9, the SSD kernel's just before and after phase 10; the run
+fails if a kernel was never launched on its path, or if a plain version
+ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
+``{"kernels": [...]}`` summary and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero; with no CUDA device the script
 exits 2 and prints no result.
 """
@@ -66,7 +91,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_check", "main_path", "serve",
-          "attn_check", "lm_serve")
+          "attn_check", "mlp_check", "ssd_check", "lm_serve", "ssm_serve")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -127,8 +152,9 @@ def time_ms(fn, *, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, *, reps: int, kernel: str):
-    """Mean milliseconds the card spends inside ``kernel`` per call, from
+def device_ms(fn, *, reps: int, kernel):
+    """Mean milliseconds the card spends inside ``kernel`` (a name, or a
+    tuple of names whose times add up) per call, from
     ``torch.profiler``'s device trace — ``ms`` from :func:`time_ms` also
     holds the host's time to enqueue a call, which is what shows at small
     shapes.  ``None`` where the profiler records no device time."""
@@ -144,9 +170,10 @@ def device_ms(fn, *, reps: int, kernel: str):
         events = prof.key_averages()
     except RuntimeError:      # no device tracing on this machine
         return None
+    names = (kernel,) if isinstance(kernel, str) else kernel
     total_us = 0.0
     for ev in events:
-        if kernel in ev.key:
+        if any(k in ev.key for k in names):
             total_us += (getattr(ev, "self_device_time_total", 0.0)
                          or getattr(ev, "self_cuda_time_total", 0.0))
     return total_us / reps / 1e3 if total_us else None
@@ -579,7 +606,272 @@ def attn_check(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the LM server at full width
+# phase 7: the fused-MLP kernel vs its plain version on the card
+# ---------------------------------------------------------------------------
+
+#: (name, M, D, F, gated, act) — checked in f32 and bf16
+MLP_CASES = (
+    ("llama3.2-1b.prefill", 4096, 2048, 8192, True, "silu"),
+    ("llama3.2-1b.decode", 4, 2048, 8192, True, "silu"),
+    ("qwen2-0.5b.prefill", 4096, 896, 4864, True, "silu"),
+    ("qwen2-0.5b.m100", 100, 896, 4864, True, "silu"),
+    ("yi-9b.m1", 1, 4096, 11008, True, "silu"),
+    ("d4096.m100.ungated", 100, 4096, 2048, False, "gelu"),
+    ("d8192.limit", 4, 8192, 1024, True, "silu"),
+    ("odd.d895.f999", 37, 895, 999, True, "gelu"),   # element-wise loads
+) + tuple(
+    (f"{act}.{'gated' if gated else 'ungated'}.f1000", 100, 896, 1000,
+     gated, act)
+    for act in ("silu", "gelu", "relu", "squared_relu")
+    for gated in (True, False))
+#: timed shapes: the streamed MLP of llama3.2-1b at prefill and decode
+MLP_TIMED = ("llama3.2-1b.prefill", "llama3.2-1b.decode")
+MLP_HEADLINE = ("llama3.2-1b.prefill", "bfloat16")
+#: f32: the reference's 5e-4 (tests/test_kernels.py:159); bf16: the
+#: output is rounded to bf16 (one step is 2^-8 relative), 1e-2 allows it
+MLP_TOL = {"float32": 5e-4, "bfloat16": 1e-2}
+
+
+def _mlp_dense(torch, x, wg, wu, wd, act):
+    """The yardstick: ``mlp_impl="dense"``'s three cuBLAS products plus
+    the activation, in the input dtype — several calls, not one."""
+    from repro_torch.kernels import ref
+
+    up = x @ wu
+    h = ref._act(act, x @ wg) * up if wg is not None else ref._act(act, up)
+    return h @ wd
+
+
+def mlp_check(torch) -> dict:
+    from repro_torch.core import dse
+    from repro_torch.kernels import fused_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator().manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    shapes = []
+    for name, m, d, f, gated, act in MLP_CASES:
+        x32 = torch.randn(m, d, generator=gen)
+        w32 = [torch.randn(d, f, generator=gen) * d ** -0.5 if gated
+               else None,
+               torch.randn(d, f, generator=gen) * d ** -0.5,
+               torch.randn(f, d, generator=gen) * f ** -0.5]
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            x = x32.to(dtype).cuda()
+            wg, wu, wd = (None if w is None else w.to(dtype).cuda()
+                          for w in w32)
+            run = lambda: fm.fused_mlp(x, wg, wu, wd, act=act)
+            plain = lambda: fm.fused_mlp_plain(x, wg, wu, wd, act=act)
+            out, exp = run(), plain()
+            torch.cuda.synchronize()
+            what = f"{name} {dt_name}"
+            if out.shape != exp.shape or out.dtype != exp.dtype:
+                raise AssertionError(f"{what}: {out.shape} {out.dtype} vs "
+                                     f"{exp.shape} {exp.dtype}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{what}: non-finite output")
+            tol = MLP_TOL[dt_name]
+            diff = (out.float() - exp.float()).abs()
+            if not bool((diff <= tol + tol * exp.float().abs()).all()):
+                raise AssertionError(
+                    f"{what}: max |err| {float(diff.max())} beyond atol = "
+                    f"rtol = {tol}")
+            err = float(diff.max())
+            worst[dt_name] = max(worst[dt_name], err)
+            n += 1
+            if name not in MLP_TIMED:
+                continue
+            plan = dse.plan_mlp_blocks(m=m, d=d, f=f)
+            ms = time_ms(run, warmup=2, reps=10)
+            plain_ms = time_ms(plain, warmup=1, reps=5)
+            dev_ms = device_ms(run, reps=5, kernel=("fused_mlp_kernel",
+                                                    "sum_partials_kernel"))
+            lib = lambda: _mlp_dense(torch, x, wg, wu, wd, act)
+            lib_err = float((lib().float() - exp.float()).abs().max())
+            library_ms = time_ms(lib, warmup=2, reps=10)
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in (x, wg, wu, wd, out) if t is not None)
+            flops = 2 * m * d * f * (3 if gated else 2)
+            peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
+                    else CUDA_CORE_OPS_PER_S)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            shapes.append({
+                "shape": name, "dtype": dt_name, "m": m, "d": d, "f": f,
+                "gated": gated, "act": act, "plan": plan.blocks,
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes, "flops": flops,
+                "library_ms": library_ms,
+                "library_is": "dense MLP: 3 cuBLAS matmuls + activation",
+                "library_vs_plain_max_abs": lib_err, "max_abs_err": err,
+            })
+    # weights that are contiguous views one element into their storage:
+    # pairs of elements are not aligned, the kernel loads them one by one
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        m, d, f = 5, 256, 320
+        stores = [(torch.randn(d * f + 1, generator=gen) * 0.06).to(
+            dtype).cuda() for _ in range(3)]
+        wg, wu = stores[0][1:].view(d, f), stores[1][1:].view(d, f)
+        wd = stores[2][1:].view(f, d)
+        x = torch.randn(m, d, generator=gen).to(dtype).cuda()
+        out = fm.fused_mlp(x, wg, wu, wd, act="relu")
+        exp = fm.fused_mlp_plain(x, wg, wu, wd, act="relu")
+        torch.cuda.synchronize()
+        tol = MLP_TOL[dt_name]
+        diff = (out.float() - exp.float()).abs()
+        if not bool((diff <= tol + tol * exp.float().abs()).all()):
+            raise AssertionError(f"offset views {dt_name}: max |err| "
+                                 f"{float(diff.max())}")
+        worst[dt_name] = max(worst[dt_name], float(diff.max()))
+        n += 1
+    # the register accumulator's limit: one D past it raises, never runs
+    too_wide = torch.zeros(1, dse.MLP_MAX_D + 256).cuda()
+    w_up = torch.zeros(dse.MLP_MAX_D + 256, 64).cuda()
+    try:
+        fm.fused_mlp(too_wide, None, w_up, w_up.T.contiguous())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fused_mlp took a D past its limit")
+    return {"comparisons": n, "max_abs_err_f32": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"], "d_limit": dse.MLP_MAX_D,
+            "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the SSD kernel vs its plain version on the card
+# ---------------------------------------------------------------------------
+
+#: (name, B, L, H, P, N, chunk) — checked in f32 and bf16 (x, b, c; dt and
+#: a f32, as the model passes them)
+SSD_CASES = (
+    ("mamba2-1.3b.prefill", 4, 1024, 64, 64, 128, 64),
+    ("chunk1.prime.l37", 1, 37, 8, 64, 128, 1),
+    ("chunk8.l200", 4, 200, 8, 64, 128, 8),
+    ("chunk33.l1023", 1, 1023, 8, 64, 128, 33),
+    ("chunk64.l1024.b1", 1, 1024, 8, 64, 128, 64),
+    ("chunk128.l512", 4, 512, 8, 64, 128, 128),
+    ("smoke.p16.n16", 2, 64, 8, 16, 16, 8),
+    ("test.p8.n8.h3", 3, 32, 3, 8, 8, 4),
+)
+SSD_TIMED = ("mamba2-1.3b.prefill",)
+SSD_HEADLINE = ("mamba2-1.3b.prefill", "bfloat16")
+#: f32: the reference's 1e-3 (tests/test_kernels.py:212); bf16: y is
+#: rounded to bf16 (2^-8 relative) from the same bf16 inputs, 1e-2
+SSD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+
+
+def _ssd_inputs(torch, gen, b, l, h, p, n):
+    """The reference test's distributions: dt = softplus(N(0, 1)), a =
+    -exp(0.3 N(0, 1)), b and c 0.5 N(0, 1)."""
+    x = torch.randn(b, l, h, p, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(b, l, h, generator=gen))
+    a = -torch.exp(torch.randn(h, generator=gen) * 0.3)
+    bm = torch.randn(b, l, n, generator=gen) * 0.5
+    cm = torch.randn(b, l, n, generator=gen) * 0.5
+    return x, dt, a, bm, cm
+
+
+def _ssd_work(b, l, h, p, n, q):
+    """Operations of one scan with tiles of ``q`` positions: per tile the
+    causal half of c.b^T once (shared by the heads), and per head the
+    causal intra term, the carried-state term and the state update."""
+    flops = 0
+    for l0 in range(0, l, q):
+        qv = min(q, l - l0)
+        tri = qv * (qv + 1) // 2
+        flops += 2 * b * (tri * n + h * (tri * p + 2 * qv * n * p))
+    return flops
+
+
+def _close(out, exp, tol, what):
+    import torch
+
+    if out.shape != exp.shape or out.dtype != exp.dtype:
+        raise AssertionError(f"{what}: {tuple(out.shape)} {out.dtype} vs "
+                             f"{tuple(exp.shape)} {exp.dtype}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (out.float() - exp.float()).abs()
+    if not bool((diff <= tol + tol * exp.float().abs()).all()):
+        raise AssertionError(f"{what}: max |err| {float(diff.max())} beyond "
+                             f"atol = rtol = {tol}")
+    return float(diff.max())
+
+
+def ssd_check(torch) -> dict:
+    from repro_torch.core import dse
+    from repro_torch.kernels import mamba2_ssd as ms
+
+    gen = torch.Generator().manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cmp = 0
+    shapes = []
+    for name, b, l, h, p, n, chunk in SSD_CASES:
+        x32, dt, a, bm32, cm32 = _ssd_inputs(torch, gen, b, l, h, p, n)
+        dt, a = dt.cuda(), a.cuda()
+        s0 = torch.zeros(b, h, p, n).cuda()
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            x, bm, cm = (v.to(dtype).cuda() for v in (x32, bm32, cm32))
+            run = lambda: ms.mamba2_ssd(x, dt, a, bm, cm, s0, chunk=chunk)
+            plain = lambda: ms.mamba2_ssd_plain(x, dt, a, bm, cm, s0,
+                                                chunk=chunk)
+            (y, sf), (ye, se) = run(), plain()
+            torch.cuda.synchronize()
+            tol = SSD_TOL[dt_name]
+            err = max(_close(y, ye, tol, f"{name} {dt_name} y"),
+                      _close(sf, se, SSD_TOL["float32"],
+                             f"{name} {dt_name} state"))
+            n_cmp += 1
+            if l % (2 * chunk) == 0 and l >= 2 * chunk:
+                # the state carries across two calls as through one
+                half = l // 2
+                y1, s1 = ms.mamba2_ssd(x[:, :half], dt[:, :half], a,
+                                       bm[:, :half], cm[:, :half], s0,
+                                       chunk=chunk)
+                y2, s2 = ms.mamba2_ssd(x[:, half:], dt[:, half:], a,
+                                       bm[:, half:], cm[:, half:], s1,
+                                       chunk=chunk)
+                torch.cuda.synchronize()
+                err = max(err, _close(torch.cat([y1, y2], 1), ye, tol,
+                                      f"{name} {dt_name} carried y"),
+                          _close(s2, se, SSD_TOL["float32"],
+                                 f"{name} {dt_name} carried state"))
+                n_cmp += 1
+            worst[dt_name] = max(worst[dt_name], err)
+            if name not in SSD_TIMED:
+                continue
+            ms_ = time_ms(run, warmup=2, reps=20)
+            plain_ms = time_ms(plain, warmup=1, reps=5)
+            dev_ms = device_ms(run, reps=10, kernel=("mamba2_ssd_kernel",))
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in (x, dt, a, bm, cm, s0, y, sf))
+            flops = _ssd_work(b, l, h, p, n, dse.SSD_BLOCK_L)
+            peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
+                    else CUDA_CORE_OPS_PER_S)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            shapes.append({
+                "shape": name, "dtype": dt_name, "b": b, "l": l, "h": h,
+                "p": p, "n": n, "chunk": chunk, "ms": ms_,
+                "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes, "flops": flops, "library_ms": None,
+                "max_abs_err": err,
+            })
+    return {"comparisons": n_cmp, "max_abs_err_f32": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"], "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the LM server at full width
 # ---------------------------------------------------------------------------
 
 LM_MODELS = ("llama3.2-1b", "qwen2-0.5b")
@@ -591,13 +883,22 @@ LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
 LM_LOGIT_RTOL_OF_MAX, LM_LOGIT_ATOL = 0.02, 0.02
 
 
+#: the dense model that also serves with ``mlp_impl="streamed"`` (the
+#: fused-MLP kernel): one prefill and STREAMED_STEPS decode steps, logits
+#: held against the ``"dense"`` engine by the rule above
+STREAMED_ARCH, STREAMED_STEPS = "llama3.2-1b", 8
+
+
 #: substrings of cuBLAS' kernel names (``nvjet_*`` on Hopper with CUDA 12.8)
 MATMUL_KERNELS = ("nvjet", "gemm", "xmma", "cutlass", "gemv")
 
 
-def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5) -> dict:
-    """Where a warm prefill's time goes: the card's time in the attention
-    kernel, in matmuls and in everything else, and the wall time of the
+def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5,
+                       classes=(("attention", "flash_attention_kernel"),)
+                       ) -> dict:
+    """Where a warm prefill's time goes: the card's time in each class of
+    hand-written kernel (``classes``: (name, kernel-name piece) pairs), in
+    matmuls and in everything else, and the wall time of the
     same ``reps`` prefills, all under the profiler; the gap between busy
     and wall time is the card's idle share (negative where the busy time
     exceeds the wall, which is then flagged, not hidden).  The wall of
@@ -618,7 +919,8 @@ def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5) -> dict:
             eng.prefill(prompts)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-    parts = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
+    parts = {name: 0.0 for name, _ in classes}
+    parts.update(matmul=0.0, other=0.0)
     kernels = []
     for ev in prof.key_averages():
         us = (getattr(ev, "self_device_time_total", 0.0)
@@ -627,8 +929,9 @@ def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5) -> dict:
             continue
         kernels.append((us / reps, ev.key))
         key = ev.key.lower()
-        if "flash_attention_kernel" in key:
-            parts["attention"] += us
+        cls = next((name for name, piece in classes if piece in key), None)
+        if cls is not None:
+            parts[cls] += us
         elif any(t in key for t in MATMUL_KERNELS):
             parts["matmul"] += us
         else:
@@ -699,6 +1002,8 @@ def lm_serve(torch) -> dict:
         same_first = float((logits.argmax(-1) == ref_logits.argmax(-1))
                            .float().mean())
         breakdown = _prefill_breakdown(torch, eng, prompts)
+        streamed = (_streamed_mlp(torch, eng, cfg, prompts)
+                    if arch == STREAMED_ARCH else None)
         rows.append({
             "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "heads": [cfg.num_heads, cfg.num_kv_heads],
@@ -709,12 +1014,203 @@ def lm_serve(torch) -> dict:
             "flash_launches_per_prefill": per_prefill,
             "logits_max_abs_vs_blockwise": err, "logits_max_abs": scale,
             "logits_allowed": allowed, "argmax_agreement": same_first,
-            "prefill_breakdown": breakdown,
+            "prefill_breakdown": breakdown, "streamed_mlp": streamed,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         })
         del eng, blockwise, logits, ref_logits
         torch.cuda.empty_cache()
     return {"models": rows}
+
+
+def _logit_gap(a, b, rtol_of_max, atol, what):
+    """max |a - b| against ``rtol_of_max`` × max |b| + ``atol``; raises
+    beyond it or on non-finite logits."""
+    import torch
+
+    if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{what}: logits {tuple(a.shape)} not finite "
+                             f"of the shape {tuple(b.shape)}")
+    err = float((a.float() - b.float()).abs().max())
+    scale = float(b.float().abs().max())
+    allowed = rtol_of_max * scale + atol
+    if err > allowed:
+        raise AssertionError(f"{what}: logits differ by {err} (allowed "
+                             f"{allowed})")
+    return {"max_abs": err, "max_logit": scale, "allowed": allowed}
+
+
+def _prefill_ms(torch, eng, prompts, reps: int = 3) -> float:
+    eng.prefill(prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.prefill(prompts)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _streamed_mlp(torch, eng, cfg, prompts) -> dict:
+    """``mlp_impl="streamed"`` on the engine's weights: one prefill and
+    STREAMED_STEPS decode steps, fused-MLP launches counted per call,
+    logits held against the ``"dense"`` engine step by step (both fed the
+    dense engine's greedy tokens), and warm prefill / decode-step times
+    beside the dense ones."""
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.launch.serve import ServeEngine
+
+    st = ServeEngine(cfg.with_(mlp_impl="streamed"),
+                     max_len=LM_PROMPT + LM_NEW, params=eng.params)
+    bsz, plen = prompts.shape
+    gaps = []
+    with torch.inference_mode():
+        before = fm.launches
+        ls, cs_ = st.prefill(prompts)
+        torch.cuda.synchronize()
+        per_prefill = fm.launches - before
+        ld, cd = eng.prefill(prompts)
+        gaps.append(_logit_gap(ls, ld, LM_LOGIT_RTOL_OF_MAX, LM_LOGIT_ATOL,
+                               "streamed prefill"))
+        cache_s = st._expand_cache(cs_, bsz, plen)
+        cache_d = eng._expand_cache(cd, bsz, plen)
+        tok = ld.argmax(-1).to(torch.int32)
+        per_step, step_ms = [], {"streamed": [], "dense": []}
+        for i in range(STREAMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = fm.launches
+            ls, cache_s = st._decode_step(st.params, cache_s, tok, plen + i)
+            torch.cuda.synchronize()
+            per_step.append(fm.launches - before)
+            t1 = time.perf_counter()
+            ld, cache_d = eng._decode_step(eng.params, cache_d, tok, plen + i)
+            torch.cuda.synchronize()
+            step_ms["streamed"].append((t1 - t0) * 1e3)
+            step_ms["dense"].append((time.perf_counter() - t1) * 1e3)
+            gaps.append(_logit_gap(ls, ld, LM_LOGIT_RTOL_OF_MAX,
+                                   LM_LOGIT_ATOL, f"streamed decode {i}"))
+            tok = ld.argmax(-1).to(torch.int32)
+    if per_prefill != cfg.num_layers or per_step != [cfg.num_layers] * \
+            STREAMED_STEPS:
+        raise AssertionError(
+            f"streamed MLP: {per_prefill} fused-MLP launches per prefill, "
+            f"{per_step} per decode step; want {cfg.num_layers} each")
+    return {
+        "fused_mlp_launches_per_prefill": per_prefill,
+        "fused_mlp_launches_per_step": per_step,
+        "logit_gaps_vs_dense": gaps,
+        "prefill_ms": {"streamed": _prefill_ms(torch, st, prompts),
+                       "dense": _prefill_ms(torch, eng, prompts)},
+        "decode_step_ms": step_ms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the Mamba-2 server at full width
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+#: one decode step after an (L-1)-token prefill against an L-token
+#: prefill, bf16 through all 48 layers: the recurrent step and the scan
+#: round in other places, and the gap grows layer by layer — allowed: 5 %
+#: of the largest |logit| plus 0.05
+SSM_DECODE_RTOL_OF_MAX, SSM_DECODE_ATOL = 0.05, 0.05
+#: the card against the port's own CPU run, same weights, at full width
+#: and this depth and batch (bf16 on both; the CPU's products sum in
+#: another order): the rule of the dense models' blockwise check
+SSM_CPU_LAYERS, SSM_CPU_BATCH = 2, 2
+
+
+def ssm_serve(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import mamba2_ssd as ms
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = get_config(SSM_ARCH)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           dtype=np.int32)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, max_len=LM_PROMPT + LM_NEW, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    before = ms.launches
+    out, cold = eng.generate(prompts, max_new=LM_NEW)
+    per_prefill = ms.launches - before
+    if per_prefill != cfg.num_layers:
+        raise AssertionError(
+            f"{SSM_ARCH}: {per_prefill} SSD launches in one generate, want "
+            f"{cfg.num_layers} (one per layer of the prefill)")
+    if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or \
+            out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{SSM_ARCH}: tokens {out.shape} out of range")
+    out2, warm = eng.generate(prompts, max_new=LM_NEW)
+    if not np.array_equal(out, out2):
+        raise AssertionError(f"{SSM_ARCH}: greedy generate not repeatable")
+
+    # the kernel's final state against the recurrence: decode the last
+    # prompt token after an (L-1)-token prefill (chunk 33, a ragged tile)
+    with torch.inference_mode():
+        full, _ = eng.prefill(prompts)
+        short, caches = eng.prefill(prompts[:, :-1])
+        cache = eng._expand_cache(caches, LM_BATCH, LM_PROMPT - 1)
+        last = torch.as_tensor(prompts[:, -1], dtype=torch.int32,
+                               device=eng.device)
+        stepped, _ = eng._decode_step(eng.params, cache, last, LM_PROMPT - 1)
+    torch.cuda.synchronize()
+    if tuple(full.shape) != (LM_BATCH, cfg.vocab_size):
+        raise AssertionError(f"{SSM_ARCH}: logits {tuple(full.shape)}")
+    decode_gap = _logit_gap(stepped, full, SSM_DECODE_RTOL_OF_MAX,
+                            SSM_DECODE_ATOL, f"{SSM_ARCH} decode vs prefill")
+    decode_gap["argmax_agreement"] = float(
+        (stepped.argmax(-1) == full.argmax(-1)).float().mean())
+
+    breakdown = _prefill_breakdown(torch, eng, prompts,
+                                   classes=(("ssd", "mamba2_ssd_kernel"),))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng, full, short, caches, cache, stepped
+    torch.cuda.empty_cache()
+
+    # full width, depth 2: the card against the port's own CPU run
+    cfg2 = cfg.with_(num_layers=SSM_CPU_LAYERS)
+    sub = prompts[:SSM_CPU_BATCH]
+    card = ServeEngine(cfg2, max_len=LM_PROMPT, seed=1)
+    card_logits, _ = card.prefill(sub)
+    cpu_params = _tree_to(card.params, "cpu")
+    t0 = time.perf_counter()
+    host = ServeEngine(cfg2, device="cpu", max_len=LM_PROMPT,
+                       params=cpu_params)
+    cpu_logits, _ = host.prefill(sub)
+    cpu_s = time.perf_counter() - t0
+    cpu_gap = _logit_gap(card_logits.cpu(), cpu_logits, LM_LOGIT_RTOL_OF_MAX,
+                         LM_LOGIT_ATOL, f"{SSM_ARCH} depth 2 card vs cpu")
+    agree = card_logits.argmax(-1).cpu() == cpu_logits.argmax(-1)
+    if not bool(agree.all()):
+        raise AssertionError(f"{SSM_ARCH} depth 2: argmax differs between "
+                             f"the card and the CPU ({agree.tolist()})")
+    s = cfg.ssm
+    return {
+        "arch": SSM_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "ssm": {"heads": s.num_heads(cfg.d_model), "head_dim": s.head_dim,
+                "state_dim": s.state_dim, "chunk": s.chunk},
+        "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+        "init_s": init_s, "cold": dataclasses.asdict(cold),
+        "warm": dataclasses.asdict(warm),
+        "ssd_launches_per_prefill": per_prefill,
+        "decode_vs_prefill": decode_gap,
+        "depth2_card_vs_cpu": dict(cpu_gap, batch=SSM_CPU_BATCH,
+                                   cpu_seconds=cpu_s, argmax_agrees=True),
+        "prefill_breakdown": breakdown, "peak_mem_gb": peak,
+    }
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -746,6 +1242,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import conv2d_stream as cs
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mamba2_ssd as ms
 
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
@@ -760,7 +1258,7 @@ def main(argv=None) -> int:
                          "nvcc": nvcc[-2:] if nvcc else None}})
     # always from the checkout's sources, whatever a build directory
     # holds: one nvcc per kernel, all started together
-    libraries = (cs.LIBRARY, fa.LIBRARY)
+    libraries = (cs.LIBRARY, fa.LIBRARY, fm.LIBRARY, ms.LIBRARY)
     t0 = time.perf_counter()
     build.build_libraries(libraries, verbose=args.ptxas)
     build_s = time.perf_counter() - t0
@@ -795,20 +1293,38 @@ def main(argv=None) -> int:
                 f"the plain version ran {plain_cuda} time(s) on a CUDA "
                 "tensor on the main path")
 
-    attn = None
+    attn = mlp = ssd = None
     if "attn_check" in phases:
         attn = attn_check(torch)
         emit({"attn_check": attn})
+    if "mlp_check" in phases:
+        mlp = mlp_check(torch)
+        emit({"mlp_check": mlp})
+    if "ssd_check" in phases:
+        ssd = ssd_check(torch)
+        emit({"ssd_check": ssd})
+
+    def read_after(mod, name: str, path: str) -> int:
+        """The counts of ``mod`` after ``path`` ran; fails if its kernel
+        never launched there or its plain version ran on a CUDA tensor."""
+        if mod.launches < 1:
+            raise AssertionError(f"the {path} path never launched {name}")
+        if mod.plain_cuda_calls:
+            raise AssertionError(
+                f"{name}'s plain version ran {mod.plain_cuda_calls} time(s) "
+                f"on a CUDA tensor on the {path} path")
+        return mod.launches
+
     fa.reset_counts()                  # counts: zero before the LM path
+    fm.reset_counts()
     if "lm_serve" in phases:
         emit({"lm_serve": lm_serve(torch)})
-        fa_launches, fa_plain = fa.launches, fa.plain_cuda_calls  # read after
-        if fa_launches < 1:
-            raise AssertionError("the LM path never launched flash_attention")
-        if fa_plain:
-            raise AssertionError(
-                f"flash_attention's plain version ran {fa_plain} time(s) on "
-                "a CUDA tensor on the LM path")
+        fa_launches = read_after(fa, "flash_attention", "LM")   # after
+        fm_launches = read_after(fm, "fused_mlp", "LM")
+    ms.reset_counts()                  # counts: zero before the SSM path
+    if "ssm_serve" in phases:
+        emit({"ssm_serve": ssm_serve(torch)})
+        ms_launches = read_after(ms, "mamba2_ssd", "SSM")       # after
 
     if set(phases) != set(PHASES):
         emit({"partial": phases,
@@ -818,6 +1334,10 @@ def main(argv=None) -> int:
                 if s["shape"] == HEADLINE_SHAPE and s["dtype"] == "int32")
     ahead = next(s for s in attn["shapes"]
                  if (s["shape"], s["dtype"]) == ATTN_HEADLINE)
+    mhead = next(s for s in mlp["shapes"]
+                 if (s["shape"], s["dtype"]) == MLP_HEADLINE)
+    shead = next(s for s in ssd["shapes"]
+                 if (s["shape"], s["dtype"]) == SSD_HEADLINE)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "conv2d_stream", "route": "cuda",
@@ -846,6 +1366,33 @@ def main(argv=None) -> int:
                     "F.scaled_dot_product_attention, GQA, causal)",
         "comparisons": attn["comparisons"],
         "shapes": attn["shapes"],
+    }, {
+        "name": "fused_mlp", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",
+        "replaces": "src/repro/kernels/fused_mlp.py:37",
+        "launches": fm_launches,
+        "max_abs_err": max(mlp["max_abs_err_f32"], mlp["max_abs_err_bf16"]),
+        "ms": mhead["ms"], "plain_ms": mhead["plain_ms"],
+        "bound_ms": mhead["bound_ms"], "bound_by": mhead["bound_by"],
+        "library_ms": mhead["library_ms"],
+        "timed_at": f"{MLP_HEADLINE[0]} {MLP_HEADLINE[1]} (library: "
+                    "mlp_impl='dense', three cuBLAS matmuls + activation, "
+                    "not one call)",
+        "comparisons": mlp["comparisons"],
+        "shapes": mlp["shapes"],
+    }, {
+        "name": "mamba2_ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd.py:26",
+        "launches": ms_launches,
+        "max_abs_err": max(ssd["max_abs_err_f32"], ssd["max_abs_err_bf16"]),
+        "ms": shead["ms"], "plain_ms": shead["plain_ms"],
+        "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
+        "library_ms": None,
+        "timed_at": f"{SSD_HEADLINE[0]} {SSD_HEADLINE[1]} (no PyTorch call "
+                    "computes an SSD scan)",
+        "comparisons": ssd["comparisons"],
+        "shapes": ssd["shapes"],
     }], "seconds": round(time.perf_counter() - t_all, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -15,7 +15,7 @@ Subsystems keep their own namespaces: ``repro_torch.core`` (IR, analysis,
 streaming, DSE, resource model, emit), ``repro_torch.passes`` (rewrites +
 partitioner), ``repro_torch.kernels`` (CUDA kernels, their plain versions, the
 group lowering), and the LM stack: ``repro_torch.configs``,
-``repro_torch.models`` (layers, the dense-family LM) and
+``repro_torch.models`` (layers, Mamba-2, the dense and SSM LM) and
 ``repro_torch.launch`` (serve steps, the LM server).
 ``lm_params_from_numpy`` carries the reference's LM parameters across, as
 ``params_from_numpy`` does a compiled design's env.

@@ -19,10 +19,11 @@ node's reduction trips are fully unrolled, further factors widen the
 parallel (stream) loops.  The resulting *stream width* ``κ`` must agree
 across every producer/consumer pair — Eq. (1)'s stream constraint.
 
-``plan_conv_rows`` and ``plan_attention_blocks`` are the runtime's
-counterparts on the NVIDIA H100: the same question (what fits the
-on-chip buffer?) asked of a thread block's shared memory; their outputs
-tile the streaming conv and the flash-attention kernels.
+``plan_conv_rows``, ``plan_attention_blocks``, ``plan_mlp_blocks`` and
+``plan_ssd_blocks`` are the runtime's counterparts on the NVIDIA H100:
+the same question (what fits the on-chip buffer?) asked of a thread
+block's shared memory and registers; their outputs tile the streaming
+conv, flash-attention, fused-MLP and SSD kernels.
 """
 from __future__ import annotations
 
@@ -571,4 +572,148 @@ def plan_attention_blocks(
         "attention", {"block_q": bq, "block_k": ATTN_BLOCK_K},
         attention_smem_bytes(head_dim=head_dim, block_q=bq),
         batch_heads * -(-seq_q // bq),
+    )
+
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100: tile selection for the fused-MLP kernel
+# ---------------------------------------------------------------------------
+
+#: fixed shape of ``kernels/csrc/fused_mlp.cu``: 256 threads; a block
+#: walks the hidden axis ``MLP_BLOCK_F`` columns at a time
+MLP_THREADS = 256
+MLP_BLOCK_F = 64
+#: (rows per block, output columns per thread) the kernel is instantiated
+#: for: rows × columns = 64 f32 accumulators a thread, rows capped at 16
+MLP_TILES = ((16, 1), (16, 2), (16, 4), (8, 8), (4, 16), (2, 32))
+#: widest model dimension the register accumulator takes
+MLP_MAX_D = MLP_THREADS * MLP_TILES[-1][1]
+
+
+@dataclass
+class MlpBlockPlan:
+    """Chosen tiling of one fused-MLP launch: ``blocks`` holds ``rows``
+    (rows of x per block), ``cols`` (output columns per thread),
+    ``block_f`` (hidden columns per step), ``splits`` (blocks the hidden
+    axis is split over; 1 = no partials, no summing pass) and
+    ``tiles_per_split``; ``grid`` is the number of blocks of the main
+    pass."""
+
+    kind: str
+    blocks: dict
+    smem_bytes: int
+    grid: int
+
+
+def mlp_smem_bytes(*, rows: int, d: int) -> int:
+    """Shared memory one block asks for, all in f32: the x rows
+    (``d × rows``), the four partial up/gate sums (``2 × 4 × block_f ×
+    rows``) and the hidden tile (``block_f × rows``) — the formula of
+    ``fused_mlp.cu``."""
+    slices = MLP_THREADS // MLP_BLOCK_F
+    return 4 * (d * rows + 2 * slices * MLP_BLOCK_F * rows
+                + MLP_BLOCK_F * rows)
+
+
+# the x rows of every tile at its widest D fit one block's shared memory
+assert all(mlp_smem_bytes(rows=r, d=MLP_THREADS * c) <= H100.smem_per_block
+           for r, c in MLP_TILES)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_mlp_blocks(*, m: int, d: int, f: int) -> MlpBlockPlan:
+    """Tile the fused-MLP kernel on the H100.
+
+    The output columns per thread follow from ``d`` (the fewest tile whose
+    256 × columns cover it), and with them the rows per block.  When the
+    row tiles give fewer than two blocks per SM (decode: a few rows), the
+    hidden axis is split across blocks until they do, as far as its
+    ``block_f`` tiles go; no split is left empty.  Raises
+    :class:`ValueError` above ``MLP_MAX_D`` (the register accumulator's
+    limit) and for an empty problem.  Plans are memoized per shape; treat
+    them as read-only."""
+    if m < 1 or d < 1 or f < 1:
+        raise ValueError(
+            f"fused MLP: empty problem (M {m}, D {d}, F {f})")
+    if d > MLP_MAX_D:
+        raise ValueError(
+            f"fused MLP: d_model {d} exceeds the kernel's limit "
+            f"{MLP_MAX_D} (its (rows, D) accumulator lives in registers)")
+    rows, cols = next((r, c) for r, c in MLP_TILES if MLP_THREADS * c >= d)
+    m_tiles = -(-m // rows)
+    f_tiles = -(-f // MLP_BLOCK_F)
+    want = -(-2 * H100.sms // m_tiles)
+    splits = max(1, min(f_tiles, want))
+    per_split = -(-f_tiles // splits)
+    splits = -(-f_tiles // per_split)
+    return MlpBlockPlan(
+        "fused_mlp",
+        {"rows": rows, "cols": cols, "block_f": MLP_BLOCK_F,
+         "splits": splits, "tiles_per_split": per_split},
+        mlp_smem_bytes(rows=rows, d=d), m_tiles * splits,
+    )
+
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100: tile selection for the Mamba-2 SSD kernel
+# ---------------------------------------------------------------------------
+
+#: fixed shape of ``kernels/csrc/mamba2_ssd.cu``: 256 threads as 16 × 16;
+#: a block walks the positions ``SSD_BLOCK_L`` at a time.  32 positions:
+#: two blocks then share an SM (79 KB of shared memory each at P 64, N
+#: 128, against 133 KB at 64), which was faster on the card at
+#: mamba2-1.3b's prefill
+SSD_BLOCK_L = 32
+#: widest head and state the register tiles cover
+SSD_MAX_HEAD_DIM = 64
+SSD_MAX_STATE_DIM = 128
+
+
+@dataclass
+class SsdBlockPlan:
+    """Tiling of one SSD launch: ``blocks`` holds ``block_l`` (positions
+    per tile); ``grid`` is the number of blocks, one per (batch, head)."""
+
+    kind: str
+    blocks: dict
+    smem_bytes: int
+    grid: int
+
+
+def ssd_smem_bytes(*, head_dim: int, state_dim: int) -> int:
+    """Shared memory one block asks for, all in f32: c and b of a tile
+    (``2 × block_l × pitch``), x of the tile (``block_l × P``), the gated
+    c·b tile (``block_l × (block_l + 1)``), the state (``P × pitch``) and
+    four per-position vectors plus one scalar; the pitch of a state row is
+    ``N`` made odd — the formula of ``mamba2_ssd.cu``."""
+    q, p = SSD_BLOCK_L, head_dim
+    pitch = state_dim if state_dim % 2 else state_dim + 1
+    return 4 * (2 * q * pitch + q * p + q * (q + 1) + p * pitch + 4 * q + 1)
+
+
+# the widest head and state fit one block's shared memory (78,980 B)
+assert ssd_smem_bytes(head_dim=SSD_MAX_HEAD_DIM,
+                      state_dim=SSD_MAX_STATE_DIM) <= H100.smem_per_block
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
+                    state_dim: int) -> SsdBlockPlan:
+    """Tile the SSD kernel on the H100: one block per (batch, head) walks
+    the sequence ``SSD_BLOCK_L`` positions at a time with the head's state
+    in shared memory (it fits, see the assert above).  Raises
+    :class:`ValueError` for a head wider than ``SSD_MAX_HEAD_DIM``, a
+    state wider than ``SSD_MAX_STATE_DIM`` or an empty problem."""
+    if min(batch, length, heads, head_dim, state_dim) < 1:
+        raise ValueError(
+            f"SSD: empty problem (B {batch}, L {length}, H {heads}, "
+            f"P {head_dim}, N {state_dim})")
+    if head_dim > SSD_MAX_HEAD_DIM or state_dim > SSD_MAX_STATE_DIM:
+        raise ValueError(
+            f"SSD: head_dim {head_dim} / state_dim {state_dim} exceed the "
+            f"kernel's {SSD_MAX_HEAD_DIM} / {SSD_MAX_STATE_DIM}")
+    return SsdBlockPlan(
+        "mamba2_ssd", {"block_l": SSD_BLOCK_L},
+        ssd_smem_bytes(head_dim=head_dim, state_dim=state_dim),
+        batch * heads,
     )

@@ -9,7 +9,10 @@ products) stays as a CPU function the tests hold bit-exact against it.
 
 ``flash_attention`` is the LM path's attention entry point: it scales
 ``q`` and hands ``(B·H, S, D)`` views to the hand-written CUDA kernel
-(``repro_torch.kernels.flash_attention``).
+(``repro_torch.kernels.flash_attention``).  ``fused_mlp`` and
+``mamba2_ssd`` fold and check their inputs as the reference's wrappers do
+and hand them to the hand-written fused-MLP and SSD kernels
+(``repro_torch.kernels.fused_mlp`` / ``mamba2_ssd``).
 
 ``lower_group`` / ``run_compiled`` / ``run_compiled_batched`` are the
 device duals of the HLS emitter: they consume the *same*
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 import time
 
@@ -61,6 +65,8 @@ from repro_torch.core.ir import PayloadKind
 from repro_torch.device import env_to_device, resolve_device, synchronize
 from . import conv2d_stream as _conv
 from . import flash_attention as _flash
+from . import fused_mlp as _mlp
+from . import mamba2_ssd as _ssd
 from . import ref as _ref
 
 
@@ -756,3 +762,80 @@ def flash_attention(
     out = _flash.flash_attention(qf, kf, vf, heads_q=hq, heads_kv=hkv,
                                  causal=causal, q_offset=q_offset)
     return out.reshape(b, hq, sq, d)
+
+
+# ---------------------------------------------------------------------------
+# fused MLP
+# ---------------------------------------------------------------------------
+
+
+def fused_mlp(
+    x: torch.Tensor,                  # (..., D)
+    w_gate: torch.Tensor | None,      # (D, F) or None
+    w_up: torch.Tensor,               # (D, F)
+    w_down: torch.Tensor,             # (F, D)
+    *,
+    act: str = "silu",
+    block_m: int | None = None,
+    block_f: int | None = None,
+) -> torch.Tensor:
+    """The (gated) MLP over the last axis of ``x`` → ``x.shape`` in
+    ``x.dtype``, through the hand-written kernel on a CUDA tensor (its
+    plain version on a CPU one).  Leading axes fold into rows.
+
+    ``block_m`` and ``block_f`` are only checked — the row count and
+    ``F`` must be multiples of them, so the inputs the TPU wrapper refuses
+    raise ValueError here too — and change nothing: the kernel tiles with
+    :func:`repro_torch.core.dse.plan_mlp_blocks`.  ``None`` checks
+    nothing (there the TPU wrapper picks a divisor)."""
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    f = w_up.shape[1]
+    m = math.prod(lead) if lead else 1
+    if (block_m and m % block_m) or (block_f and f % block_f):
+        raise ValueError(
+            f"fused_mlp: M {m} / F {f} are not multiples of block_m "
+            f"{block_m} / block_f {block_f}")
+    out = _mlp.fused_mlp(x.reshape(m, d), w_gate, w_up, w_down, act=act)
+    return out.reshape(*lead, d)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
+
+
+def _pick_block(size: int, target: int) -> int:
+    """Largest divisor of ``size`` that is ≤ ``target`` (≥ 1)."""
+    return max(c for c in range(1, min(size, target) + 1) if size % c == 0)
+
+
+def mamba2_ssd(
+    x: torch.Tensor,            # (B, L, H, P)
+    dt: torch.Tensor,           # (B, L, H)
+    a: torch.Tensor,            # (H,)
+    b_mat: torch.Tensor,        # (B, L, N)
+    c_mat: torch.Tensor,        # (B, L, N)
+    *,
+    init_state: torch.Tensor | None = None,
+    chunk: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD chunked scan → (y (B, L, H, P) in ``x.dtype``, final state
+    (B, H, P, N) f32), through the hand-written kernel on a CUDA tensor
+    (its plain version, ``ref.ssd_chunked``, on a CPU one).
+
+    ``chunk`` defaults to the largest divisor of ``L`` up to 128 and must
+    divide ``L`` (ValueError, where the reference asserts); the kernel
+    walks the sequence in its own tiles, so it only gates the call and
+    sets the plain version's chunk.  The initial state defaults to zeros
+    (f32)."""
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    if chunk is None:
+        chunk = _pick_block(l, 128)
+    if chunk < 1 or l % chunk:
+        raise ValueError(f"mamba2_ssd: chunk {chunk} does not divide L {l}")
+    s0 = (init_state if init_state is not None
+          else torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                           device=x.device))
+    return _ssd.mamba2_ssd(x, dt, a, b_mat, c_mat, s0, chunk=chunk)

@@ -8,7 +8,10 @@ semantics.  Everything here works on integer tensors on the CPU and on
 the card: pooling is ``unfold`` + ``amax``/``sum`` because
 ``F.max_pool2d`` / ``F.avg_pool2d`` reject integer CUDA tensors, and
 integer averages are *floor* divisions.  ``attention`` is the oracle of
-the LM path's attention (dense softmax, f32).
+the LM path's attention (dense softmax, f32), ``mlp`` that of the fused
+MLP, and ``ssd`` / ``ssd_chunked`` / ``ssd_decode_step`` those of the
+Mamba-2 scan (``src/repro/kernels/ref.py:217-378``, with its f32 casts
+and its rounding of ``y`` to the input dtype).
 """
 from __future__ import annotations
 
@@ -246,3 +249,154 @@ def attention(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused (optionally gated) MLP
+# ---------------------------------------------------------------------------
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """silu / gelu (tanh form, as ``jax.nn.gelu``'s default) / relu /
+    squared relu."""
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "relu":
+        return torch.relu(x)
+    if name == "squared_relu":
+        r = torch.clamp_min(x, 0.0)
+        return r * r
+    raise ValueError(name)
+
+
+def mlp(
+    x: torch.Tensor,                  # (M, D)
+    w_gate: torch.Tensor | None,      # (D, F) or None for ungated
+    w_up: torch.Tensor,               # (D, F)
+    w_down: torch.Tensor,             # (F, D)
+    *,
+    act: str = "silu",
+) -> torch.Tensor:
+    """out = (act(x@Wg) * (x@Wu)) @ Wd, or act(x@Wu)@Wd when ungated.
+    Every product in f32, the output cast back to ``x.dtype``."""
+    xf = x.float()
+    up = xf @ w_up.float()
+    if w_gate is not None:
+        h = _act(act, xf @ w_gate.float()) * up
+    else:
+        h = _act(act, up)
+    return (h @ w_down.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality)
+# ---------------------------------------------------------------------------
+
+
+def _init_state(init_state, bsz, h, p, n, device) -> torch.Tensor:
+    if init_state is not None:
+        return init_state.float()
+    return torch.zeros((bsz, h, p, n), dtype=torch.float32, device=device)
+
+
+def ssd(
+    x: torch.Tensor,        # (B, L, H, P)
+    dt: torch.Tensor,       # (B, L, H)  softplus-activated step sizes
+    a: torch.Tensor,        # (H,)       negative decay rates
+    b_mat: torch.Tensor,    # (B, L, N)  input gate (ngroups 1)
+    c_mat: torch.Tensor,    # (B, L, N)  output gate (ngroups 1)
+    *,
+    init_state: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact recurrence, one position at a time (the oracle)::
+
+        S_t = exp(dt_t * a) * S_{t-1} + dt_t * x_t ⊗ b_t
+        y_t = S_t @ c_t
+
+    Returns (y (B, L, H, P) in ``x.dtype``, final state (B, H, P, N) f32)."""
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    state = _init_state(init_state, bsz, h, p, n, x.device)
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf = b_mat.float(), c_mat.float()
+    ys = []
+    for t in range(l):
+        dt_t = dtf[:, t]                                     # (B, H)
+        decay = torch.exp(dt_t * af[None, :])
+        upd = torch.einsum("bhp,bn->bhpn", xf[:, t] * dt_t[..., None],
+                           bf[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), state
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    *,
+    chunk: int = 16,
+    init_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (the algorithm the SSD kernel implements): per chunk
+    the intra-chunk causal term, the contribution of the carried state,
+    and the state update.  Must match :func:`ssd`; ``chunk`` must divide
+    ``L`` (ValueError otherwise).  Like the reference it takes ``exp`` of
+    the whole (t, s) difference and drops the upper triangle afterwards."""
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    if chunk < 1 or l % chunk:
+        raise ValueError(f"ssd_chunked: chunk {chunk} does not divide L {l}")
+    nc = l // chunk
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    af = a.float()
+    bf = b_mat.float().reshape(bsz, nc, chunk, n)
+    cf = c_mat.float().reshape(bsz, nc, chunk, n)
+    cum = torch.cumsum(dtf * af[None, None, None, :], dim=2)  # inclusive
+    state = _init_state(init_state, bsz, h, p, n, x.device)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    ys = []
+    for ci in range(nc):
+        xq, dq, bq, cq = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci]
+        cumq = cum[:, ci]                                     # (B, Q, H)
+        rel = cumq[:, :, None, :] - cumq[:, None, :, :]       # (B, t, s, H)
+        gate = torch.where(tri[None, :, :, None], torch.exp(rel), 0.0)
+        cb = torch.einsum("btn,bsn->bts", cq, bq)
+        w = cb[..., None] * gate * dq[:, None, :, :]
+        y_intra = torch.einsum("btsh,bshp->bthp", w, xq)
+        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cq, state,
+                               torch.exp(cumq))
+        dec_chunk = torch.exp(cumq[:, -1])                    # (B, H)
+        carry_gate = torch.exp(cumq[:, -1, None, :] - cumq)   # (B, Q, H)
+        upd = torch.einsum("bqhp,bqn->bhpn",
+                           xq * (dq * carry_gate)[..., None], bq)
+        state = state * dec_chunk[..., None, None] + upd
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, l, h, p)
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(
+    state: torch.Tensor,    # (B, H, P, N)
+    x_t: torch.Tensor,      # (B, H, P)
+    dt_t: torch.Tensor,     # (B, H)
+    a: torch.Tensor,        # (H,)
+    b_t: torch.Tensor,      # (B, N)
+    c_t: torch.Tensor,      # (B, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step (the decode path): returns (y (B, H, P) in
+    ``x_t.dtype``, new state f32)."""
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * a.float()[None])
+    upd = torch.einsum("bhp,bn->bhpn", x_t.float() * dtf[..., None],
+                       b_t.float())
+    new = state.float() * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new, c_t.float())
+    return y.to(x_t.dtype), new

@@ -5,17 +5,20 @@ A small but real engine on one card:
 * ``ServeEngine`` holds the parameters on the device and runs the
   prefill / decode steps of ``repro_torch.launch.steps`` eagerly.  There
   is no mesh: one card serves (the distributed launch is ROADMAP §A
-  item 5).
+  item 6).
 * Requests are processed in *waves* (static-batch continuous batching):
   a wave of B prompts is prefilled together — through the hand-written
-  flash-attention kernel, one launch per layer — then decoded lock-step
-  against caches padded to ``max_len``.
+  flash-attention kernel (dense family) or SSD kernel (Mamba-2), one
+  launch per layer — then decoded lock-step against caches padded to
+  ``max_len`` (KV caches) or carried as they are (conv line buffer and
+  SSD state).
 * Greedy or temperature sampling; deterministic under a seed.
 
 Usage::
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 \\
       --prompt-len 1024 --max-new 32            # on the card
+  python -m repro_torch.launch.serve --arch mamba2-1.3b    # on the card
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
       --batch 4 --prompt-len 64 --max-new 32 --device cpu
 """
@@ -62,7 +65,7 @@ class ServeEngine:
         if int8_weights:
             raise NotImplementedError(
                 "int8 weights wait for the port of quant/ptq.py (ROADMAP §A "
-                "item 4)")
+                "item 5)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = max_len
@@ -146,13 +149,20 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
     def _expand_cache(self, prefill_caches: dict, bsz: int, plen: int):
-        """Prefill returns tight (…, plen, …) caches; decode needs the
-        bounded max_len layout — copy into the zeroed decode cache."""
+        """Prefill returns tight caches; decode needs the bounded max_len
+        layout.  As in the reference, a leaf whose shape differs from the
+        decode cache's (k / v: ``plen`` positions of ``max_len``) fills
+        the leading corner of the zeroed leaf; a leaf of the same shape
+        (the conv line buffer, the SSD state) is copied whole."""
         full = ST.model_init_cache(self.cfg, bsz, self.max_len,
                                    device=self.device)
-        for name, kvs in full.items():
-            for kv, dst in kvs.items():
-                dst[:, :, :, :plen] = prefill_caches[name][kv]
+        for name, leaves in full.items():
+            for leaf, dst in leaves.items():
+                src = prefill_caches[name][leaf]
+                if src.shape != dst.shape:
+                    dst[tuple(slice(0, s) for s in src.shape)] = src
+                else:
+                    dst.copy_(src)
         return full
 
 

@@ -6,8 +6,8 @@ so the launchers stay family-agnostic:
   ``prefill_step(params, batch)             -> (logits, caches)``
   ``decode_step(params, cache, token, pos)  -> (logits, cache)``
 
-The train step comes with training (ROADMAP §A item 3); the
-encoder–decoder family with ROADMAP §A item 2.
+The train step comes with training (ROADMAP §A item 4); the
+encoder–decoder family with ROADMAP §A item 3.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ def _no_encdec(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(
             "the encoder-decoder family is not ported yet (ROADMAP §A "
-            "item 2)")
+            "item 3)")
 
 
 def model_init(gen: torch.Generator, cfg: ModelConfig) -> dict:

@@ -14,6 +14,11 @@ Decode (Sq == 1) always uses the bounded-KV-cache path: one new token
 against a position-masked cache, plain PyTorch, like every projection
 (``@``) — the reference computes them outside any kernel too.
 
+The MLP is ``"dense"`` (three ``@`` products, the default) or
+``"streamed"``: the hand-written fused-MLP kernel (``ops.fused_mlp``),
+which never writes the ``(tokens, d_ff)`` hidden out, in prefill and
+decode alike.
+
 Shapes, layouts and the places where bf16 rounds follow the reference's
 ``models/layers.py``: RMSNorm normalises in f32, casts, then multiplies
 by the weight in the activation dtype; RoPE computes in f32 and casts
@@ -24,7 +29,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
@@ -356,45 +360,29 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
-def _act(name: str, x: torch.Tensor) -> torch.Tensor:
-    if name == "silu":
-        return F.silu(x)
-    if name == "gelu":
-        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
-    if name == "relu":
-        return F.relu(x)
-    if name == "squared_relu":
-        r = torch.clamp_min(x, 0.0)
-        return r * r
-    raise ValueError(name)
-
-
 def mlp_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_impl == "streamed":
         return _mlp_streamed(p, cfg, x)
     up = x @ p["wu"]
     if cfg.gated_mlp:
-        h = _act(cfg.act, x @ p["wg"]) * up
+        h = ref._act(cfg.act, x @ p["wg"]) * up
     else:
-        h = _act(cfg.act, up)
+        h = ref._act(cfg.act, up)
     return h @ p["wd"]
 
 
 def _mlp_streamed(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   block_f: int = 2048) -> torch.Tensor:
-    """A loop over d_ff tiles, so only a (tokens, block_f) slice of the
-    hidden exists at a time; partial products summed in f32."""
-    f = cfg.d_ff
-    bf = min(block_f, f)
-    if f % bf:
-        raise ValueError(f"d_ff {f} is not a multiple of block_f {bf}")
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for t in range(f // bf):
-        sl = slice(t * bf, (t + 1) * bf)
-        up = x @ p["wu"][:, sl]
-        if cfg.gated_mlp:
-            h = _act(cfg.act, x @ p["wg"][:, sl]) * up
-        else:
-            h = _act(cfg.act, up)
-        acc = acc + h @ p["wd"][sl]
-    return acc.to(x.dtype)
+    """The hidden streamed in ``d_ff`` tiles so that the ``(tokens,
+    d_ff)`` activation never exists whole: one call of the fused-MLP
+    kernel (``ops.fused_mlp``; its plain version on a CPU tensor).
+
+    As in the reference, ``block_f`` is clamped to ``d_ff`` and must
+    divide it (ValueError naming ``block_f`` otherwise); the kernel tiles
+    by itself.  One difference of rounding: the kernel keeps the hidden
+    and the sum over tiles in f32, where the reference's graph-level loop
+    (``src/repro/models/layers.py:536-554``) rounds each tile's products
+    to the activation dtype — equal in f32, slightly more exact in bf16."""
+    bf = min(block_f, cfg.d_ff)
+    return ops.fused_mlp(x, p["wg"] if cfg.gated_mlp else None, p["wu"],
+                         p["wd"], act=cfg.act, block_f=bf)

@@ -1,4 +1,5 @@
-"""Decoder-only LM of the dense family, in PyTorch: the serving half.
+"""Decoder-only LM of the dense and SSM families, in PyTorch: the
+serving half.
 
 Parameters keep the reference's *stacked* layout — ``{"blocks": {"b0":
 {...}}, "final_norm", "embed", "lm_head"?}`` with a leading layer axis
@@ -13,8 +14,10 @@ Entry points:
                      in place)
   ``init_cache``   — zeroed caches shaped as the decode step wants them
 
-The MoE, SSM and hybrid families, and the training loss, come with later
-slices of the port (``ROADMAP.md``).
+A layer's mixer is attention (dense, vlm, audio) or a Mamba-2 block
+(ssm); its cache is ``{"k", "v"}`` or ``{"conv", "ssm"}``.  The MoE and
+hybrid families, and the training loss, come with later slices of the
+port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
 from . import layers as L
+from . import mamba2 as M
 
 
 # ---------------------------------------------------------------------------
@@ -36,17 +40,21 @@ from . import layers as L
 
 @dataclass(frozen=True)
 class LayerSpec:
-    mixer: str            # "attn"
-    ffn: Optional[str]    # "mlp"
+    mixer: str            # "attn" | "mamba"
+    ffn: Optional[str]    # "mlp" | None
 
 
 def superblock_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     if cfg.family in ("dense", "vlm", "audio"):
         return [LayerSpec("attn", "mlp")]
-    if cfg.family in ("moe", "ssm", "hybrid"):
+    if cfg.family == "ssm":
+        return [LayerSpec("mamba", None)]
+    if cfg.family == "moe":
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP §A item 2: "
-            "the MoE, SSM and hybrid families)")
+            "the moe family is not ported yet (ROADMAP §A item 1)")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the hybrid family is not ported yet (ROADMAP §A item 2)")
     raise ValueError(cfg.family)
 
 
@@ -64,11 +72,19 @@ def num_superblocks(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _init_blocks(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+def _init_blocks(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                 n: int) -> dict:
+    """``n`` stacked layers of one pattern position."""
     d, dt = cfg.d_model, cfg.param_dtype
-    ones = torch.ones((n, d), dtype=dt, device=gen.device)
-    return {"ln1": ones, "attn": L.init_attention(gen, cfg, stack=n),
-            "ln2": ones.clone(), "mlp": L.init_mlp(gen, cfg, stack=n)}
+    p = {"ln1": torch.ones((n, d), dtype=dt, device=gen.device)}
+    if spec.mixer == "attn":
+        p["attn"] = L.init_attention(gen, cfg, stack=n)
+    else:
+        p["mamba"] = M.init_mamba(gen, cfg, stack=n)
+    if spec.ffn is not None:
+        p["ln2"] = torch.ones((n, d), dtype=dt, device=gen.device)
+        p["mlp"] = L.init_mlp(gen, cfg, stack=n)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -78,8 +94,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     nsb = num_superblocks(cfg)
     d, v, dt = cfg.d_model, cfg.padded_vocab, cfg.param_dtype
     params = {
-        "blocks": {f"b{i}": _init_blocks(gen, cfg, nsb)
-                   for i in range(len(pat))},
+        "blocks": {f"b{i}": _init_blocks(gen, cfg, spec, nsb)
+                   for i, spec in enumerate(pat)},
         "final_norm": torch.ones((d,), dtype=dt, device=gen.device),
     }
     if not cfg.tie_embeddings:
@@ -93,16 +109,21 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
                          device=None) -> dict:
     """Carry a nested dict of NumPy arrays (the reference's parameters, in
     its layout) onto ``device``.  NumPy has no bfloat16: floating arrays
-    arrive as f32 and are cast to ``cfg.param_dtype``, which rounds to
-    nearest even.  ``device=None`` means the CUDA card (and raises
-    without one)."""
+    arrive as f32.  The rule: a floating leaf is cast to
+    ``cfg.param_dtype`` (rounding to nearest even) unless its name is one
+    the reference stores in f32 whatever the config says
+    (``mamba2.F32_LEAVES``: ``a_log``, ``dt_bias``, ``skip_d``), which
+    stays f32.  ``device=None`` means the CUDA card (and raises without
+    one)."""
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, Mapping):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         t = to_tensor(np.array(node), dev)   # a copy: the source may be read-only
-        return t.to(cfg.param_dtype) if t.is_floating_point() else t
+        if not t.is_floating_point():
+            return t
+        return t.float() if name in M.F32_LEAVES else t.to(cfg.param_dtype)
 
     return conv(tree)
 
@@ -126,25 +147,42 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(p, cfg, h, positions, mrope_positions, collect_cache):
-    a, (k, v) = L.attention_layer(
-        p["attn"], cfg, L.rmsnorm(h, p["ln1"], cfg.norm_eps), positions,
-        causal=True, mrope_positions=mrope_positions,
-    )
-    cache = {"k": k, "v": v} if collect_cache else None
-    h = h + a
-    x = L.rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + L.mlp_layer(p["mlp"], cfg, x), cache
+def _ffn(p, cfg, spec: LayerSpec, h):
+    if spec.ffn is None:
+        return h
+    return h + L.mlp_layer(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
 
 
-def _apply_block_decode(p, cfg, h, pos: int, cache: dict):
-    a, k_new, v_new = L.attention_decode(
-        p["attn"], cfg, L.rmsnorm(h, p["ln1"], cfg.norm_eps), pos,
-        cache["k"], cache["v"],
-    )
-    h = h + a
-    x = L.rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + L.mlp_layer(p["mlp"], cfg, x), {"k": k_new, "v": v_new}
+def _apply_block(p, cfg, spec: LayerSpec, h, positions, mrope_positions,
+                 collect_cache):
+    x = L.rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        a, (k, v) = L.attention_layer(
+            p["attn"], cfg, x, positions, causal=True,
+            mrope_positions=mrope_positions,
+        )
+        cache = {"k": k, "v": v} if collect_cache else None
+    elif collect_cache:
+        # the conv line buffer (taken before the conv) and the final state
+        a, cache = M.mamba_layer(p["mamba"], cfg, x, return_state=True)
+    else:
+        a, cache = M.mamba_layer(p["mamba"], cfg, x), None
+    return _ffn(p, cfg, spec, h + a), cache
+
+
+def _apply_block_decode(p, cfg, spec: LayerSpec, h, pos: int, cache: dict):
+    """One layer of a decode step; ``cache`` (views of the stacked cache)
+    is updated in place."""
+    x = L.rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        a, _, _ = L.attention_decode(p["attn"], cfg, x, pos, cache["k"],
+                                     cache["v"])
+    else:
+        a, conv, ssm = M.mamba_decode(p["mamba"], cfg, x, cache["conv"],
+                                      cache["ssm"])
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+    return _ffn(p, cfg, spec, h + a)
 
 
 # ---------------------------------------------------------------------------
@@ -160,17 +198,17 @@ def backbone(params: dict, cfg: ModelConfig, h: torch.Tensor,
     for li in range(num_superblocks(cfg)):
         block_p = _layer(params["blocks"], li)
         caches = {}
-        for i in range(len(pat)):
-            h, c = _apply_block(block_p[f"b{i}"], cfg, h, positions,
+        for i, spec in enumerate(pat):
+            h, c = _apply_block(block_p[f"b{i}"], cfg, spec, h, positions,
                                 mrope_positions, collect_cache)
             caches[f"b{i}"] = c
         per_layer.append(caches)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if not collect_cache:
         return h, None
-    stacked = {name: {kv: torch.stack([c[name][kv] for c in per_layer])
-                      for kv in ("k", "v")}
-               for name in per_layer[0]}
+    stacked = {name: {leaf: torch.stack([c[name][leaf] for c in per_layer])
+                      for leaf in first}
+               for name, first in per_layer[0].items()}
     return h, stacked
 
 
@@ -187,7 +225,9 @@ def _embed_in(params: dict, cfg: ModelConfig, tokens_or_embeds):
 
 def lm_prefill(params: dict, cfg: ModelConfig, batch: dict):
     """Returns (last-token logits (B, V) f32, caches) — serving prefill.
-    Caches are stacked ``{"b0": {"k", "v": (layers, B, Hkv, S, hd)}}``."""
+    Caches are stacked per pattern position: ``{"b0": {"k", "v": (layers,
+    B, Hkv, S, hd)}}`` for attention, ``{"b0": {"conv": (layers, B, K-1,
+    conv_dim), "ssm": (layers, B, H, P, N) f32}}`` for a Mamba block."""
     x = batch["embeds"] if cfg.embeds_input else batch["tokens"]
     h = _embed_in(params, cfg, x)
     bsz, s = h.shape[0], h.shape[1]
@@ -215,9 +255,9 @@ def lm_decode(params: dict, cfg: ModelConfig, cache: dict,
         h = params["embed"][token.long()][:, None, :]          # (B, 1, D)
     for li in range(num_superblocks(cfg)):
         block_p = _layer(params["blocks"], li)
-        for i in range(len(pat)):
-            h, _ = _apply_block_decode(block_p[f"b{i}"], cfg, h, pos,
-                                       _layer(cache[f"b{i}"], li))
+        for i, spec in enumerate(pat):
+            h = _apply_block_decode(block_p[f"b{i}"], cfg, spec, h, pos,
+                                    _layer(cache[f"b{i}"], li))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = (h[:, 0] @ _head_matrix(params)).float()
     return logits[..., : cfg.vocab_size], cache
@@ -225,12 +265,29 @@ def lm_decode(params: dict, cfg: ModelConfig, cache: dict,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zeroed caches shaped as ``lm_decode`` wants them: (layers, B, Hkv,
-    max_len, hd) per attention block, on ``device`` (None: the card)."""
+    """Zeroed caches shaped as ``lm_decode`` wants them, on ``device``
+    (None: the card): per attention block k and v (layers, B, Hkv,
+    max_len, hd) in ``param_dtype``; per Mamba block the conv line buffer
+    (layers, B, K-1, conv_dim) in ``param_dtype`` and the SSD state
+    (layers, B, H, P, N) in f32 — the reference's layout and types."""
     dev = resolve_device(device)
     pat = superblock_pattern(cfg)
     nsb = num_superblocks(cfg)
-    shape = (nsb, batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
-    return {f"b{i}": {kv: torch.zeros(shape, dtype=cfg.param_dtype,
-                                      device=dev) for kv in ("k", "v")}
-            for i, _ in enumerate(pat)}
+    dt = cfg.param_dtype
+    out = {}
+    for i, spec in enumerate(pat):
+        if spec.mixer == "attn":
+            shape = (nsb, batch, cfg.num_kv_heads, max_len,
+                     cfg.resolved_head_dim)
+            out[f"b{i}"] = {kv: torch.zeros(shape, dtype=dt, device=dev)
+                            for kv in ("k", "v")}
+        else:
+            s, d = cfg.ssm, cfg.d_model
+            out[f"b{i}"] = {
+                "conv": torch.zeros((nsb, batch, s.conv_kernel - 1,
+                                     s.conv_dim(d)), dtype=dt, device=dev),
+                "ssm": torch.zeros((nsb, batch, s.num_heads(d), s.head_dim,
+                                    s.state_dim), dtype=torch.float32,
+                                   device=dev),
+            }
+    return out

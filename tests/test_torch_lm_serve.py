@@ -411,7 +411,7 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="quant"):
         tserve.ServeEngine(treg.get_config("llama3.2-1b", smoke=True),
                            int8_weights=True, **cpu)
-    for arch in ("olmoe-1b-7b", "mamba2-1.3b", "jamba-1.5-large-398b",
+    for arch in ("olmoe-1b-7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.ServeEngine(treg.get_config(arch, smoke=True), **cpu)
