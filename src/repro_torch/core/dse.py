@@ -483,54 +483,94 @@ def plan_conv_rows(
 # NVIDIA H100: tile selection for the flash-attention kernel
 # ---------------------------------------------------------------------------
 
-#: fixed shape of ``kernels/csrc/flash_attention.cu``: 256 threads as a
-#: 16 × 16 grid, each holding a (block_q/16) × 4 tile of the score block
-#: and a (block_q/16) × (D/16) tile of the output; keys stream through
-#: shared memory ``ATTN_BLOCK_K`` at a time
+#: keys per shared-memory tile, both routes of
+#: ``kernels/csrc/flash_attention.cu``
 ATTN_BLOCK_K = 64
-#: query tiles the kernel is instantiated for, largest first
+#: f32 route (CUDA cores): 256 threads as a 16 × 16 grid, each holding a
+#: (block_q/16) × 4 tile of the score block and a (block_q/16) × (D/16)
+#: tile of the output; the query tiles it is instantiated for, largest first
 ATTN_BLOCK_Q = (64, 32)
-#: widest head the register tile takes (8 output columns per thread)
+#: bf16 route (tensor cores): 4 warps of 16 query rows; the head is padded
+#: with zeros to the next of these widths (mma's k is 16)
+ATTN_MMA_BLOCK_Q = 64
+ATTN_MMA_HEAD_PADS = (16, 32, 64, 128)
+#: widest head either route takes
 ATTN_MAX_HEAD_DIM = 128
-#: floats of padding after each shared-memory row (keeps 16-byte vector
-#: loads aligned and spreads the transposed stores over the banks)
+#: floats of padding after each shared-memory row of the f32 route (keeps
+#: 16-byte vector loads aligned and spreads the transposed stores over the
+#: banks)
 ATTN_SMEM_PAD = 4
+#: the bf16 route's row padding, in bf16 elements: 16 bytes put the eight
+#: rows of one ``ldmatrix`` phase into eight bank groups
+MMA_ROW_PAD = 8
+#: f32 output accumulators a thread keeps at most, on either route
+ATTN_ACC_REGS = 64
 
 
 @dataclass
 class AttentionBlockPlan:
     """Chosen tiling of one flash-attention launch: ``blocks`` holds
-    ``block_q`` (query rows per block) and ``block_k`` (keys per shared-
-    memory tile); ``grid`` is the number of blocks."""
+    ``block_q`` (query rows per block), ``block_k`` (keys per shared-
+    memory tile) and ``head_pad`` (the head as the block holds it: the
+    head itself on the f32 route, padded to a multiple of 16 on the bf16
+    route); ``grid`` is the number of blocks."""
 
     kind: str
     blocks: dict
     smem_bytes: int
     grid: int
 
+    @property
+    def acc_regs(self) -> int:
+        """f32 output accumulators one thread keeps: a warp's 16 rows ×
+        the padded head over 32 threads (bf16 route), or (block_q/16) ×
+        the columns per thread (f32 route)."""
+        b = self.blocks
+        if self.kind == "attention_mma":
+            return 16 * b["head_pad"] // 32
+        return b["block_q"] // 16 * attention_cols_per_thread(b["head_pad"])
+
 
 def attention_cols_per_thread(head_dim: int) -> int:
-    """Output columns one thread keeps (the kernel's ``DPT``): 2, 4 or 8,
-    so that 16 threads cover the head."""
+    """Output columns one thread of the f32 route keeps (the kernel's
+    ``DPT``): 2, 4 or 8, so that 16 threads cover the head."""
     return 2 if head_dim <= 32 else 4 if head_dim <= 64 else 8
 
 
+def attention_head_pad(head_dim: int) -> int:
+    """The bf16 route's head width: the head padded with zeros to the
+    first of ``ATTN_MMA_HEAD_PADS`` that holds it."""
+    return next(w for w in ATTN_MMA_HEAD_PADS if w >= head_dim)
+
+
 def attention_smem_bytes(*, head_dim: int, block_q: int) -> int:
-    """Shared memory one block asks for, all in f32: the query tile and
-    the key tile transposed (``D × (tile + pad)``), the value tile
-    (``block_k × 16·DPT``) and the probability tile (``block_q ×
-    (block_k + pad)``) — the formula of ``flash_attention.cu``."""
+    """Shared memory one block of the f32 route asks for, all in f32: the
+    query tile and the key tile transposed (``D × (tile + pad)``), the
+    value tile (``block_k × 16·DPT``) and the probability tile
+    (``block_q × (block_k + pad)``) — the formula of
+    ``flash_attention.cu``."""
     pad, bk = ATTN_SMEM_PAD, ATTN_BLOCK_K
     dv = 16 * attention_cols_per_thread(head_dim)
     return 4 * (head_dim * (block_q + pad) + head_dim * (bk + pad)
                 + bk * dv + block_q * (bk + pad))
 
 
+def attention_mma_smem_bytes(*, head_dim: int) -> int:
+    """Shared memory one block of the bf16 route asks for, all bf16: the
+    query tile and two stages of key and value tiles, each row the padded
+    head plus ``MMA_ROW_PAD`` — the formula of ``flash_attention.cu``'s
+    ``mma_smem_bytes``."""
+    rows = ATTN_MMA_BLOCK_Q + 2 * 2 * ATTN_BLOCK_K
+    return 2 * rows * (attention_head_pad(head_dim) + MMA_ROW_PAD)
+
+
 # the largest tile at the widest head must fit one block's shared memory
-# (119,808 B of 232,448 B), so the planner never has to refuse a head
-# the register tile takes
+# on both routes (119,808 B and 87,040 B of 232,448 B), so the planner
+# never has to refuse a head the kernel takes
 assert attention_smem_bytes(head_dim=ATTN_MAX_HEAD_DIM,
                             block_q=ATTN_BLOCK_Q[0]) <= H100.smem_per_block
+assert attention_mma_smem_bytes(
+    head_dim=ATTN_MAX_HEAD_DIM) <= H100.smem_per_block
 
 
 @functools.lru_cache(maxsize=4096)
@@ -540,18 +580,20 @@ def plan_attention_blocks(
     seq_k: int,
     head_dim: int,
     batch_heads: int = 1,
+    dtype: str,
 ) -> AttentionBlockPlan:
     """Tile the flash-attention kernel on the H100: one block per
     (batch·head, query tile) loops over the keys ``ATTN_BLOCK_K`` at a
-    time, holding query, key, value and probability tiles in shared
-    memory (every tile fits, see the assert above).
+    time (every tile fits, see the asserts above).
 
-    The largest query tile wins (each key tile loaded into shared memory
-    then serves more query rows); it halves while the launch would leave
-    SMs idle (fewer than two blocks per SM) or while it exceeds the
-    queries there are.  Raises :class:`ValueError` for a head wider than
-    the register tile (``ATTN_MAX_HEAD_DIM``).  Plans are memoized per
-    shape; treat them as read-only.
+    ``dtype`` ``"bfloat16"`` takes the tensor-core route: 64-row query
+    tiles (4 warps of 16 rows), the head padded to a multiple of 16.
+    Otherwise (f32, the CUDA cores) the largest query tile wins (each key
+    tile loaded into shared memory then serves more query rows); it halves
+    while the launch would leave SMs idle (fewer than two blocks per SM)
+    or while it exceeds the queries there are.  Raises
+    :class:`ValueError` for a head wider than ``ATTN_MAX_HEAD_DIM``.
+    Plans are memoized per shape; treat them as read-only.
     """
     if not 1 <= head_dim <= ATTN_MAX_HEAD_DIM:
         raise ValueError(
@@ -561,6 +603,15 @@ def plan_attention_blocks(
         raise ValueError(
             f"flash attention: empty problem (seq_q {seq_q}, seq_k "
             f"{seq_k}, batch_heads {batch_heads})")
+    if dtype == "bfloat16":
+        bq = ATTN_MMA_BLOCK_Q
+        return AttentionBlockPlan(
+            "attention_mma",
+            {"block_q": bq, "block_k": ATTN_BLOCK_K,
+             "head_pad": attention_head_pad(head_dim)},
+            attention_mma_smem_bytes(head_dim=head_dim),
+            batch_heads * -(-seq_q // bq),
+        )
     tiles = ATTN_BLOCK_Q
     i = 0
     while i + 1 < len(tiles) and (
@@ -569,7 +620,8 @@ def plan_attention_blocks(
         i += 1
     bq = tiles[i]
     return AttentionBlockPlan(
-        "attention", {"block_q": bq, "block_k": ATTN_BLOCK_K},
+        "attention",
+        {"block_q": bq, "block_k": ATTN_BLOCK_K, "head_pad": head_dim},
         attention_smem_bytes(head_dim=head_dim, block_q=bq),
         batch_heads * -(-seq_q // bq),
     )
@@ -579,59 +631,119 @@ def plan_attention_blocks(
 # NVIDIA H100: tile selection for the fused-MLP kernel
 # ---------------------------------------------------------------------------
 
-#: fixed shape of ``kernels/csrc/fused_mlp.cu``: 256 threads; a block
+#: both routes of ``kernels/csrc/fused_mlp.cu``: 256 threads; a block
 #: walks the hidden axis ``MLP_BLOCK_F`` columns at a time
 MLP_THREADS = 256
 MLP_BLOCK_F = 64
-#: (rows per block, output columns per thread) the kernel is instantiated
-#: for: rows × columns = 64 f32 accumulators a thread, rows capped at 16
+#: f32 route (CUDA cores): (rows per block, output columns per thread) the
+#: kernel is instantiated for: rows × columns = 64 f32 accumulators a
+#: thread, rows capped at 16
 MLP_TILES = ((16, 1), (16, 2), (16, 4), (8, 8), (4, 16), (2, 32))
-#: widest model dimension the register accumulator takes
+#: widest model dimension either route takes (the f32 route's register
+#: accumulator; the bf16 route's eight CTAs of 1024 columns)
 MLP_MAX_D = MLP_THREADS * MLP_TILES[-1][1]
+#: f32 output accumulators a thread keeps, on either route
+MLP_ACC_REGS = 64
+#: bf16 route (tensor cores): the D columns one CTA of a cluster owns, the
+#: most CTAs in a (portable) cluster, and the rows of x per row tile it is
+#: instantiated for; a CTA's (rows, columns) f32 accumulator is at most
+#: ``MLP_MMA_ACC`` elements, ``MLP_ACC_REGS`` a thread
+MLP_MMA_COLS = (128, 256, 512, 1024)
+MLP_MMA_MAX_CLUSTER = 8
+MLP_MMA_ROWS = (16, 32, 64)
+MLP_MMA_ACC = MLP_ACC_REGS * MLP_THREADS
+#: the bf16 route's weight ring: stages, and rows of Wu / Wg per chunk
+MLP_MMA_STAGES = 3
+MLP_MMA_CHUNK_K = 128
 
 
 @dataclass
 class MlpBlockPlan:
     """Chosen tiling of one fused-MLP launch: ``blocks`` holds ``rows``
-    (rows of x per block), ``cols`` (output columns per thread),
-    ``block_f`` (hidden columns per step), ``splits`` (blocks the hidden
-    axis is split over; 1 = no partials, no summing pass) and
-    ``tiles_per_split``; ``grid`` is the number of blocks of the main
-    pass."""
+    (rows of x per block or cluster), ``cols`` (f32 route: output columns
+    per thread; bf16 route: the D columns of one CTA), ``cluster`` (CTAs
+    that share a row tile; 1 on the f32 route), ``block_f`` (hidden
+    columns per step), ``splits`` (blocks or clusters the hidden axis is
+    split over; 1 = no partials, no summing pass) and ``tiles_per_split``;
+    ``grid`` is the number of blocks of the main pass."""
 
     kind: str
     blocks: dict
     smem_bytes: int
     grid: int
 
+    @property
+    def acc_regs(self) -> int:
+        """f32 output accumulators one thread keeps: a CTA's ``rows ×
+        cols`` over its 256 threads (bf16 route), or ``rows × cols``
+        (f32 route)."""
+        b = self.blocks
+        if self.kind == "fused_mlp_mma":
+            return b["rows"] * b["cols"] // MLP_THREADS
+        return b["rows"] * b["cols"]
+
 
 def mlp_smem_bytes(*, rows: int, d: int) -> int:
-    """Shared memory one block asks for, all in f32: the x rows
-    (``d × rows``), the four partial up/gate sums (``2 × 4 × block_f ×
-    rows``) and the hidden tile (``block_f × rows``) — the formula of
-    ``fused_mlp.cu``."""
+    """Shared memory one block of the f32 route asks for, all in f32: the
+    x rows (``d × rows``), the four partial up/gate sums (``2 × 4 ×
+    block_f × rows``) and the hidden tile (``block_f × rows``) — the
+    formula of ``fused_mlp.cu``'s ``smem_bytes``."""
     slices = MLP_THREADS // MLP_BLOCK_F
     return 4 * (d * rows + 2 * slices * MLP_BLOCK_F * rows
                 + MLP_BLOCK_F * rows)
 
 
-# the x rows of every tile at its widest D fit one block's shared memory
+def mlp_mma_smem_bytes(*, rows: int, cols: int) -> int:
+    """Shared memory one CTA of the bf16 route asks for: the weight ring
+    (``stages × 2 × chunk_k × (block_f + 8)`` bf16), the x slice (``rows ×
+    (cols + 8)`` bf16), two h tiles of a high and a low part each (``4 ×
+    rows × (block_f + 8)`` bf16) and the up / gate partials (``2 × rows ×
+    (block_f + 4)`` f32) — the formula of ``fused_mlp.cu``'s
+    ``mma_smem_bytes``."""
+    stage = 2 * MLP_MMA_CHUNK_K * (MLP_BLOCK_F + MMA_ROW_PAD)
+    return (2 * (MLP_MMA_STAGES * stage + rows * (cols + MMA_ROW_PAD)
+                 + 4 * rows * (MLP_BLOCK_F + MMA_ROW_PAD))
+            + 4 * 2 * rows * (MLP_BLOCK_F + 4))
+
+
+# every tile fits one block's shared memory: the f32 route's x rows at
+# their widest D, and each bf16 tile the planner may pick (216,064 B at
+# most)
 assert all(mlp_smem_bytes(rows=r, d=MLP_THREADS * c) <= H100.smem_per_block
            for r, c in MLP_TILES)
+assert all(mlp_mma_smem_bytes(rows=r, cols=c) <= H100.smem_per_block
+           for r in MLP_MMA_ROWS for c in MLP_MMA_COLS if r * c <= MLP_MMA_ACC)
+assert MLP_MMA_COLS[-1] * MLP_MMA_MAX_CLUSTER >= MLP_MAX_D
+
+
+def _mlp_splits(row_tiles: int, f: int, units: int) -> tuple[int, int]:
+    """(splits, tiles per split) of the hidden axis: as many as give two
+    waves of ``units`` blocks over the SMs, at most one split per
+    ``block_f`` tile, and no split left empty."""
+    f_tiles = -(-f // MLP_BLOCK_F)
+    want = -(-2 * H100.sms // (row_tiles * units))
+    splits = max(1, min(f_tiles, want))
+    per_split = -(-f_tiles // splits)
+    return -(-f_tiles // per_split), per_split
 
 
 @functools.lru_cache(maxsize=4096)
-def plan_mlp_blocks(*, m: int, d: int, f: int) -> MlpBlockPlan:
+def plan_mlp_blocks(*, m: int, d: int, f: int, dtype: str) -> MlpBlockPlan:
     """Tile the fused-MLP kernel on the H100.
 
-    The output columns per thread follow from ``d`` (the fewest tile whose
-    256 × columns cover it), and with them the rows per block.  When the
-    row tiles give fewer than two blocks per SM (decode: a few rows), the
-    hidden axis is split across blocks until they do, as far as its
-    ``block_f`` tiles go; no split is left empty.  Raises
-    :class:`ValueError` above ``MLP_MAX_D`` (the register accumulator's
-    limit) and for an empty problem.  Plans are memoized per shape; treat
-    them as read-only."""
+    ``dtype`` ``"bfloat16"`` takes the tensor-core route: a cluster of
+    ``cluster`` CTAs splits D, each owning ``cols`` columns — the fewest
+    of ``MLP_MMA_COLS`` for which eight CTAs cover D — and a row tile of
+    ``rows`` rows: the fewest of 16, 32, 64 that hold M, as far as the
+    accumulator (``rows × cols ≤ MLP_MMA_ACC``) allows.  Otherwise (f32,
+    the CUDA cores) the output columns per thread follow from ``d`` (the
+    fewest tile whose 256 × columns cover it), and with them the rows per
+    block.  On both, when the row tiles give fewer than two waves of
+    blocks (decode: a few rows), the hidden axis is split across blocks
+    or clusters until they do, as far as its ``block_f`` tiles go; no
+    split is left empty.  Raises :class:`ValueError` above ``MLP_MAX_D``
+    and for an empty problem.  Plans are memoized per shape; treat them
+    as read-only."""
     if m < 1 or d < 1 or f < 1:
         raise ValueError(
             f"fused MLP: empty problem (M {m}, D {d}, F {f})")
@@ -639,16 +751,29 @@ def plan_mlp_blocks(*, m: int, d: int, f: int) -> MlpBlockPlan:
         raise ValueError(
             f"fused MLP: d_model {d} exceeds the kernel's limit "
             f"{MLP_MAX_D} (its (rows, D) accumulator lives in registers)")
+    if dtype == "bfloat16":
+        cols = next(c for c in MLP_MMA_COLS
+                    if -(-d // c) <= MLP_MMA_MAX_CLUSTER)
+        cluster = -(-d // cols)
+        rows = next((r for r in MLP_MMA_ROWS
+                     if r >= m and r * cols <= MLP_MMA_ACC),
+                    max(r for r in MLP_MMA_ROWS if r * cols <= MLP_MMA_ACC))
+        m_tiles = -(-m // rows)
+        splits, per_split = _mlp_splits(m_tiles, f, cluster)
+        return MlpBlockPlan(
+            "fused_mlp_mma",
+            {"rows": rows, "cols": cols, "cluster": cluster,
+             "block_f": MLP_BLOCK_F, "splits": splits,
+             "tiles_per_split": per_split},
+            mlp_mma_smem_bytes(rows=rows, cols=cols),
+            m_tiles * splits * cluster,
+        )
     rows, cols = next((r, c) for r, c in MLP_TILES if MLP_THREADS * c >= d)
     m_tiles = -(-m // rows)
-    f_tiles = -(-f // MLP_BLOCK_F)
-    want = -(-2 * H100.sms // m_tiles)
-    splits = max(1, min(f_tiles, want))
-    per_split = -(-f_tiles // splits)
-    splits = -(-f_tiles // per_split)
+    splits, per_split = _mlp_splits(m_tiles, f, 1)
     return MlpBlockPlan(
         "fused_mlp",
-        {"rows": rows, "cols": cols, "block_f": MLP_BLOCK_F,
+        {"rows": rows, "cols": cols, "cluster": 1, "block_f": MLP_BLOCK_F,
          "splits": splits, "tiles_per_split": per_split},
         mlp_smem_bytes(rows=rows, d=d), m_tiles * splits,
     )

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of this package.
 
-Each kernel is one source, ``csrc/<name>.cu``, with a plain C interface.
+Each kernel is one source, ``csrc/<name>.cu``, with a plain C interface;
+the sources share the headers ``csrc/*.cuh``.
 ``nvcc`` compiles it for ``sm_90a`` into ``lib<name>.so`` under
 ``build/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``) at
 first use — a few seconds, since no source includes PyTorch's headers —
@@ -42,39 +43,56 @@ def nvcc() -> str:
 class CudaLibrary:
     """``csrc/<name>.cu`` → ``build/lib<name>.so`` → one ``ctypes`` handle
     per process.  ``declare`` sets ``argtypes``/``restype`` of the C
-    functions on a freshly loaded handle."""
+    functions on a freshly loaded handle.  ``source`` and ``flags`` build
+    a variant of another kernel's source under a name of its own (extra
+    ``nvcc`` flags such as ``-D`` macros)."""
 
-    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
+                 *, source: pathlib.Path | None = None,
+                 flags: tuple[str, ...] = ()):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = source if source is not None else CSRC / f"{name}.cu"
+        self.flags = tuple(flags)
         self._declare = declare
         self._lock = threading.Lock()
         self._lib = None
         #: seconds the last ``nvcc`` run for this library took (None
         #: until one ran in this process)
         self.build_seconds: float | None = None
+        #: what ``nvcc`` printed in that run (with ``verbose``, ptxas'
+        #: registers, shared memory and spills per kernel)
+        self.build_log: str | None = None
 
     @property
     def path(self) -> pathlib.Path:
         return build_dir() / f"lib{self.name}.so"
 
     def build(self, *, verbose: bool = False) -> pathlib.Path:
-        """Compile the source (always; :meth:`load` builds only when the
-        library is missing or older than its source).  Raises when
+        """Compile the source (always; :meth:`load` builds only when
+        :meth:`stale`).  Raises when
         ``nvcc`` fails."""
         build_libraries([self], verbose=verbose)
         return self.path
+
+    def stale(self) -> bool:
+        """True when the library is missing or older than its source or
+        than any shared header ``csrc/*.cuh`` (a header edit must not load
+        a library built from the old one)."""
+        so = self.path
+        if not so.exists():
+            return True
+        built = so.stat().st_mtime
+        inputs = [self.source, *self.source.parent.glob("*.cuh")]
+        return any(p.stat().st_mtime > built for p in inputs)
 
     def load(self) -> ctypes.CDLL:
         """The ``ctypes`` handle, built on first use.  Created under a lock:
         the serve worker thread and the main thread may race here."""
         with self._lock:
             if self._lib is None:
-                so = self.path
-                if (not so.exists()
-                        or so.stat().st_mtime < self.source.stat().st_mtime):
+                if self.stale():
                     build_libraries([self])
-                lib = ctypes.CDLL(str(so))
+                lib = ctypes.CDLL(str(self.path))
                 self._declare(lib)
                 self._lib = lib
             return self._lib
@@ -90,7 +108,7 @@ def build_libraries(libs, *, verbose: bool = False) -> None:
     running = []
     for lib in libs:
         tmp = out_dir / f".lib{lib.name}.{os.getpid()}.so"
-        cmd = [nvcc(), *NVCC_FLAGS]
+        cmd = [nvcc(), *NVCC_FLAGS, *lib.flags]
         if verbose:
             cmd += ["-Xptxas", "-v"]
         cmd += ["-o", str(tmp), str(lib.source)]
@@ -105,8 +123,7 @@ def build_libraries(libs, *, verbose: bool = False) -> None:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                           f"\n{stdout}\n{stderr}")
             continue
-        if verbose:
-            print(stderr)
+        lib.build_log = stdout + stderr
         os.replace(tmp, lib.path)
     if failed:
         raise RuntimeError("\n".join(failed))

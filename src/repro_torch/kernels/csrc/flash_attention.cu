@@ -1,38 +1,51 @@
-// KV-streaming flash attention (forward) for NVIDIA Hopper (sm_90a),
-// CUDA cores, f32 arithmetic.  Replaces the TPU kernel
-// src/repro/kernels/flash_attention.py:25 _flash_kernel.  At the LM
-// path's shapes it is bound by operations, not bytes (each K/V tile is
-// reused by a whole query tile); the design keeps every operand in shared
-// memory and the row state in registers, and skips masked tiles.
+// KV-streaming flash attention (forward) for NVIDIA Hopper (sm_90a).
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py:25
+// _flash_kernel.  At the LM path's shapes it is bound by operations, not
+// bytes (each K/V tile is reused by a whole query tile): 17 GFLOP against
+// 42 MB at llama3.2-1b's prefill.  Two routes, chosen by the dtype code:
 //
-// q (B*Hq, Sq, D), pre-scaled; k, v (B*Hkv, Sk, D); out (B*Hq, Sq, D) in
-// q's type (f32 or bf16).  Query head bh reads KV head
-// (bh / Hq) * Hkv + (bh % Hq) / group, group = Hq / Hkv (GQA).  Under
-// `causal`, query row r (absolute position r + q_offset) sees key c iff
-// r + q_offset >= c.  Masked scores are -1e30 and their probabilities 0;
-// a row that sees no key at all writes 0 (l == 0 divides by 1).
+// bf16: the tensor cores (FA2-style, flash_attention_mma_kernel).  One
+// block of 4 warps owns (bh, 64 query rows); warp w owns rows 16w..16w+15.
+// The query tile goes to registers once as mma A fragments.  Key and value
+// tiles of 64 keys stream through shared memory as bf16 in a cp.async
+// double buffer (tile i+1 lands while tile i is used).  S = Q.K^T is
+// mma.sync m16n8k16 into f32 registers (K through ldmatrix); the online
+// softmax runs in registers, a row's max and sum over the 4 threads of a
+// quad by two xor-shuffles; P is repacked from C fragments into A
+// fragments as bf16 without touching shared memory; O += P.V by mma with V
+// through ldmatrix.trans; O, m and l stay f32 in registers.  P is rounded
+// to bf16 for P.V while l sums the f32 p (the usual FA2 choice; the
+// Pallas kernel keeps P in f32).  Heads narrower than a multiple of 16 are
+// padded with zeros in shared memory (DP = 16, 32, 64 or 128).
 //
-// One block owns (bh, tile of BQ query rows) and walks the keys BK = 64
-// at a time: the sequential KV grid axis of the TPU kernel becomes this
-// loop.  Per key tile it loads K (transposed) and V into shared memory as
-// f32, computes the BQ x BK score tile, updates each row's running max m,
-// denominator l and numerator acc (all f32, in registers), writes the
-// probabilities to shared memory and accumulates P.V.  Tiles that lie
-// wholly above the causal diagonal are never loaded: they would leave m
-// unchanged, give alpha = 1 and p = 0.  Ragged Sq / Sk edges are masked
-// here, so any length works.
+// f32: the CUDA cores (flash_attention_kernel), so that f32 keeps f32
+// accuracy (TF32 would miss 2e-5).  256 threads as 16 x 16 (ty, tx); K
+// (transposed) and V are f32 in shared memory; thread (ty, tx) owns query
+// rows ty*TM .. ty*TM+TM-1 (TM = BQ/16): of the score tile it holds keys
+// tx*4 .. tx*4+3, of the output DPT columns; a row's max and sum are 4
+// xor-shuffles within a half-warp.
 //
-// Threads: 256 as 16 x 16 (ty, tx).  Thread (ty, tx) owns query rows
-// ty*TM .. ty*TM+TM-1 (TM = BQ/16): of the score tile it holds keys
-// tx*4 .. tx*4+3, of the output DPT columns.  A row's 16 threads sit in
-// one half-warp, so its max and sum are 4 xor-shuffles.
+// Both: q (B*Hq, Sq, D), pre-scaled; k, v (B*Hkv, Sk, D); out (B*Hq, Sq,
+// D) in q's type.  Query head bh reads KV head (bh / Hq) * Hkv + (bh % Hq)
+// / group, group = Hq / Hkv (GQA).  Under `causal`, query row r (absolute
+// position r + q_offset) sees key c iff r + q_offset >= c.  Masked scores
+// are -1e30 and their probabilities 0; a row that sees no key at all
+// writes 0 (l == 0 divides by 1).  One block per (bh, query tile) walks
+// the keys BK = 64 at a time: the sequential KV grid axis of the TPU
+// kernel becomes this loop.  Key tiles wholly above the causal diagonal
+// are never loaded (they would leave m unchanged, give alpha = 1 and p =
+// 0); the diagonal tile and the ragged Sq / Sk edges are masked here, so
+// any length works; the heaviest causal tiles (last query rows) start
+// first.
 //
-// Plain C interface (loaded with ctypes): the kernel allocates nothing
-// and does not synchronise; the launcher returns cudaGetLastError().
+// Plain C interface (loaded with ctypes): the kernels allocate nothing
+// and do not synchronise; the launcher returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -48,13 +61,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even
-}
 
 // output column of a thread's j-th value: 16 threads side by side, in
 // runs of 4 (16-byte loads) once the head is 64 wide or more
@@ -239,6 +246,221 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_THREADS = 128;   // 4 warps, 16 query rows each
+constexpr int MMA_BQ = 64;         // query rows per block
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory of one block: the query tile and two stages of key and
+// value tiles, bf16, rows padded by 8 elements
+constexpr size_t mma_smem_bytes(int dp) {
+  return 2 * (size_t)(MMA_BQ + 4 * BK) * (dp + 8);
+}
+
+// heads up to 64 wide: four blocks an SM (at most 128 registers a
+// thread); 128 wide: the registers the kernel wants (faster on the card
+// than a cap that spills)
+template <int DP>
+__global__ void __launch_bounds__(MMA_THREADS, DP <= 64 ? 4 : 1)
+flash_attention_mma_kernel(const uint16_t* __restrict__ q,
+                           const uint16_t* __restrict__ k,
+                           const uint16_t* __restrict__ v,
+                           uint16_t* __restrict__ out, const Params p,
+                           const int vec) {
+  using namespace mma_bf16;
+  constexpr int PITCH = DP + 8;
+  constexpr int KD = DP / 16;   // k-steps of Q.K^T
+  constexpr int NT = DP / 8;    // 8-column blocks of O
+  constexpr int NS = BK / 8;    // 8-key blocks of S
+  extern __shared__ __align__(16) uint16_t smem_mma[];
+  uint16_t* qs = smem_mma;                  // [BQ][PITCH]
+  uint16_t* ks = qs + MMA_BQ * PITCH;       // [2][BK][PITCH]
+  uint16_t* vs = ks + 2 * BK * PITCH;       // [2][BK][PITCH]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x / p.n_qt;
+  const int qt = p.n_qt - 1 - (blockIdx.x - bh * p.n_qt);
+  const int q0 = qt * MMA_BQ;
+  const int q_rows = min(MMA_BQ, p.Sq - q0);
+  const int kvh = (bh / p.Hq) * p.Hkv + (bh % p.Hq) / p.group;
+  const uint16_t* qb = q + ((size_t)bh * p.Sq + q0) * p.D;
+  const uint16_t* kb = k + (size_t)kvh * p.Sk * p.D;
+  const uint16_t* vb = v + (size_t)kvh * p.Sk * p.D;
+  const bool vc = vec != 0;
+
+  // keys past the tile's last visible one are never loaded
+  int k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q0 + q_rows + p.q_offset);
+  const int n_kt = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+
+  load_tile<MMA_BQ, DP, MMA_THREADS>(qs, PITCH, qb, p.D, q_rows, p.D, vc,
+                                     tid);
+  if (n_kt > 0) {
+    load_tile<BK, DP, MMA_THREADS>(ks, PITCH, kb, p.D, p.Sk, p.D, vc, tid);
+    load_tile<BK, DP, MMA_THREADS>(vs, PITCH, vb, p.D, p.Sk, p.D, vc, tid);
+  }
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp's 16
+  const int row0 = q0 + warp * 16 + g;   // query index; + 8 for the second
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  uint32_t qf[KD][4];
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    const int k0 = it * BK;
+    if (it + 1 < n_kt) {       // the next tile lands while this one is used
+      const int k1 = k0 + BK;
+      uint16_t* kd = ks + (st ^ 1) * BK * PITCH;
+      uint16_t* vd = vs + (st ^ 1) * BK * PITCH;
+      load_tile<BK, DP, MMA_THREADS>(kd, PITCH, kb + (size_t)k1 * p.D, p.D,
+                                     p.Sk - k1, p.D, vc, tid);
+      load_tile<BK, DP, MMA_THREADS>(vd, PITCH, vb + (size_t)k1 * p.D, p.D,
+                                     p.Sk - k1, p.D, vc, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();        // everything but the tile just asked for
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_a(qf[kk], qs + warp * 16 * PITCH + kk * 16, PITCH, lane);
+    }
+    const uint16_t* kt = ks + st * BK * PITCH;
+    const uint16_t* vt = vs + st * BK * PITCH;
+
+    // S = Q . K^T: 16 rows x 64 keys per warp, f32
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_b_nk(b, kt + np * 16 * PITCH + kk * 16, PITCH, lane);
+        mma(s[2 * np], qf[kk], b[0], b[1]);
+        mma(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // mask the ragged edge and the causal diagonal
+    const bool edge = k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 + warp * 16 + p.q_offset);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qpos = row0 + (e >> 1) * 8 + p.q_offset;
+          if (col >= p.Sk || (p.causal && qpos < col)) s[j][e] = NEG_INF;
+        }
+    }
+
+    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      alpha[h] = exp2f((m[h] - m_new) * LOG2E);
+      const float ms = m_new * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float pr =
+              s[j][e] == NEG_INF ? 0.f : exp2f(fmaf(s[j][e], LOG2E, -ms));
+          s[j][e] = pr;
+          sum += pr;
+        }
+      l[h] = l[h] * alpha[h] + sum;   // this thread's columns; quad-summed
+      m[h] = m_new;                   // at the end
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+    }
+
+    // O += P . V, P repacked as bf16 A fragments, 16 keys per step
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_b_kn(b, vt + kk * 16 * PITCH + np * 16, PITCH, lane);
+        mma(o[2 * np], a, b[0], b[1]);
+        mma(o[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // this stage is read before the next load refills it
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    if (r >= q_rows) continue;
+    const float inv = 1.f / (l[h] > 0.f ? l[h] : 1.f);
+    uint16_t* orow = out + ((size_t)bh * p.Sq + q0 + r) * p.D;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = j * 8 + 2 * t4;
+      const float v0 = o[j][2 * h] * inv, v1 = o[j][2 * h + 1] * inv;
+      if (vc && c + 1 < p.D) {
+        *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16x2(v0, v1);
+      } else {
+        const uint32_t pk = pack_bf16x2(v0, v1);
+        if (c < p.D) orow[c] = (uint16_t)(pk & 0xffffu);
+        if (c + 1 < p.D) orow[c + 1] = (uint16_t)(pk >> 16);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               const Params& p, int n_blocks, int vec, cudaStream_t stream) {
+  auto kern = flash_attention_mma_kernel<DP>;
+  const size_t smem = mma_smem_bytes(DP);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kern<<<n_blocks, MMA_THREADS, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), p, vec);
+  return (int)cudaGetLastError();
+}
+
+// the head padded to a multiple of 16 that is instantiated
+int mma_head_pad(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
+// ---------------------------------------------------------------------------
+// f32 route: CUDA cores
+// ---------------------------------------------------------------------------
+
 template <typename T, int TM, int DPT>
 int launch(const void* q, const void* k, const void* v, void* out,
            const Params& p, int n_blocks, size_t smem, cudaStream_t stream) {
@@ -271,31 +493,44 @@ int launch_tm(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16.  block_q: 32 or 64.
+// dtype codes: 0 float32 (CUDA cores; block_q 32 or 64), 1 bfloat16
+// (tensor cores; block_q 64).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype,
     int BHq, int Sq, int Sk, int D, int Hq, int Hkv, int causal,
     int q_offset, int block_q, void* stream) {
   if (BHq < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || Hq < 1 ||
-      Hkv < 1 || Hq % Hkv || BHq % Hq || (block_q != 32 && block_q != 64) ||
-      (dtype != 0 && dtype != 1))
+      Hkv < 1 || Hq % Hkv || BHq % Hq ||
+      (dtype == 0 && block_q != 32 && block_q != 64) ||
+      (dtype == 1 && block_q != MMA_BQ) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.Sq = Sq; p.Sk = Sk; p.D = D; p.Hq = Hq; p.Hkv = Hkv;
   p.group = Hq / Hkv; p.causal = causal ? 1 : 0; p.q_offset = q_offset;
   p.n_qt = (Sq + block_q - 1) / block_q;
+  const long long n_blocks = (long long)BHq * p.n_qt;
+  if (n_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    // 16-byte pieces need 8-element rows and 16-byte aligned bases
+    const int vec = D % 8 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(q) |
+                      reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v) |
+                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    switch (mma_head_pad(D)) {
+      case 16: return launch_mma<16>(q, k, v, out, p, (int)n_blocks, vec, s);
+      case 32: return launch_mma<32>(q, k, v, out, p, (int)n_blocks, vec, s);
+      case 64: return launch_mma<64>(q, k, v, out, p, (int)n_blocks, vec, s);
+      default: return launch_mma<128>(q, k, v, out, p, (int)n_blocks, vec, s);
+    }
+  }
   const int dpt = D <= 32 ? 2 : D <= 64 ? 4 : 8;
   const size_t smem =
       4 * ((size_t)D * (block_q + PAD) + (size_t)D * (BK + PAD) +
            (size_t)BK * 16 * dpt + (size_t)block_q * (BK + PAD));
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const long long n_blocks = (long long)BHq * p.n_qt;
-  if (n_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_tm<float>(q, k, v, out, p, block_q, (int)n_blocks, smem, s);
-  return launch_tm<__nv_bfloat16>(q, k, v, out, p, block_q, (int)n_blocks,
-                                  smem, s);
+  return launch_tm<float>(q, k, v, out, p, block_q, (int)n_blocks, smem, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

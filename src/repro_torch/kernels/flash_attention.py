@@ -18,17 +18,20 @@ runs with the kernel's own tiles.
 **What bounds it on an H100.**  At the LM path's prefill shapes (B 4,
 S 1024, 32 or 14 query heads of 64) a call does ≈ 17 GFLOP against
 ≈ 42 MB of q/k/v/o: arithmetic, not bytes — 17 µs at the bf16
-tensor-core peak, 0.26 ms at the f32 CUDA-core peak this kernel runs on.
+tensor-core peak, 0.26 ms at the f32 CUDA-core peak.
 
-**What the design does about it.**  Keep every operand in shared memory
-and the row state in registers: one block per (batch·head, query tile)
-loads each key/value tile once for ``block_q`` query rows
-(``repro_torch.core.dse.plan_attention_blocks`` picks 64 or 32 rows
-under the 227 KB budget), each thread holds a (block_q/16)×4 piece of the
-score tile and a (block_q/16)×(D/16) piece of the output, a row's max
-and sum are half-warp shuffles, and the heaviest causal tiles start
-first.  The math is f32 FMA with ``expf`` on the CUDA cores for both
-input types; ``mma.sync``/``wgmma`` for bf16 is later work.
+**What the design does about it.**  bf16 runs on the tensor cores
+(FA2-style): one block of 4 warps per (batch·head, 64 query rows), the
+query tile held in registers as ``mma.sync`` fragments, key and value
+tiles of 64 keys streamed through shared memory as bf16 in a
+``cp.async`` double buffer, S = Q·Kᵀ and O += P·V by ``mma.sync`` with
+f32 accumulation, the online softmax in registers, and P repacked to
+bf16 fragments without touching shared memory (the Pallas kernel keeps P
+in f32; l sums the f32 p).  f32 keeps the CUDA-core kernel (TF32 would
+miss its 2e-5): every operand in shared memory as f32, each thread a
+(block_q/16)×4 piece of the score tile
+(``repro_torch.core.dse.plan_attention_blocks`` picks 64 or 32 rows).
+On both, the heaviest causal tiles start first.
 
 The library is built by ``nvcc`` at first use (``repro_torch.kernels.
 build``).  Beside the kernel sits its plain PyTorch version,
@@ -172,8 +175,9 @@ def flash_attention(
     _check(q, k, v, heads_q, heads_kv)
     bhq, sq, d = q.shape
     sk = k.shape[1]
-    plan = plan_attention_blocks(seq_q=sq, seq_k=sk, head_dim=d,
-                                 batch_heads=bhq)  # raises for d > 128
+    plan = plan_attention_blocks(     # raises for d > 128
+        seq_q=sq, seq_k=sk, head_dim=d, batch_heads=bhq,
+        dtype=str(q.dtype).removeprefix("torch."))
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, heads_q=heads_q,
                                      heads_kv=heads_kv, causal=causal,

@@ -4,25 +4,36 @@
 _fused_mlp_kernel`` (reached through ``fused_mlp_pallas``).  It computes
 what that kernel computes — ``down(act(x·Wg) * (x·Wu))``, or
 ``down(act(x·Wu))`` ungated, with silu / gelu (tanh form) / relu /
-squared relu, every product in f32 and only the output rounded to
+squared relu, the products summed in f32 and the output rounded to
 ``x.dtype`` — with the ``(M, F)`` hidden never written to device memory,
-but not block by block.  The TPU's sequential hidden-tile grid axis
-becomes a loop inside one block (``csrc/fused_mlp.cu``, CUDA C++ for
-``sm_90a``) whose ``(rows, D)`` f32 accumulator lives in registers.
+but not block by block: the TPU's sequential hidden-tile grid axis
+becomes a loop inside the kernel (``csrc/fused_mlp.cu``, CUDA C++ for
+``sm_90a``).
 
 **What bounds it on an H100.**  At llama3.2-1b prefill (M 4096, D 2048,
 F 8192, gated, bf16) a call does ≈ 412 GFLOP: 0.42 ms at the bf16
-tensor-core peak, 6.2 ms at the f32 CUDA-core peak this kernel runs on.
-At decode (M 4) it reads ≈ 100 MB of weights: ≈ 30 µs by bytes.
+tensor-core peak.  At decode (M 4) it reads ≈ 100 MB of weights: ≈ 30 µs
+by bytes.
 
-**What the design does about it.**  A block keeps R rows of x in shared
-memory and reads each weight element once, using it R times; the
-register accumulator bounds ``D`` at 8192 (R × columns per thread = 64).
-Where the rows alone give too few blocks to fill the card (decode), the
-hidden axis is split across blocks
-(:func:`repro_torch.core.dse.plan_mlp_blocks`), each writes an f32
-partial and a second pass of the same library sums the partials in a
-fixed order and rounds.  ``mma.sync``/``wgmma`` for bf16 is later work.
+**What the design does about it.**  bf16 runs on the tensor cores
+(``mma.sync``): a thread-block cluster of up to 8 CTAs owns a tile of up
+to 64 rows and splits D, each CTA keeping its slice of the ``(rows, D)``
+f32 accumulator in registers and its slice of x in shared memory.  Per
+64-column hidden tile the CTAs compute partial up/gate products over
+their slices, sum them through distributed shared memory in rank order,
+apply the activation, and accumulate the down product of the hidden tile
+split into a bf16 high and a bf16 low part (16 significant bits, where
+the Pallas kernel keeps f32: h in bf16 alone, as the JAX model's own
+streamed loop rounds it, has no margin left under the 1e-2 tolerance
+with squared relu); the weights stream through a three-stage
+``cp.async`` ring, each element read once per row tile for the whole
+cluster.  f32 keeps the CUDA-core kernel (TF32 would miss its 5e-4): a
+block keeps R rows of x and uses each weight element R times, its
+register accumulator bounding ``D`` at 8192 (``MLP_MAX_D``, both
+routes).  Where the row tiles alone leave the card idle (decode), the
+hidden axis is also split (:func:`repro_torch.core.dse.plan_mlp_blocks`):
+each split writes an f32 partial and a second pass of the same launch
+sums them in a fixed order and rounds.
 
 The library is built by ``nvcc`` at first use (``repro_torch.kernels.
 build``).  Beside the kernel sits its plain PyTorch version,
@@ -57,7 +68,7 @@ _LOCK = threading.Lock()
 
 def _declare(lib) -> None:
     fn = lib.fused_mlp_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
@@ -114,7 +125,8 @@ def fused_mlp_plain(
     act: str = "silu",
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version: :func:`repro_torch.kernels.ref.
-    mlp` — every product in f32, the output in ``x.dtype``."""
+    mlp` — every product in f32, the hidden kept in f32 (the bf16 kernel
+    carries it as two bf16 parts), the output in ``x.dtype``."""
     global plain_cuda_calls
     if x.is_cuda:
         with _LOCK:
@@ -142,7 +154,8 @@ def fused_mlp(
     _check(x, w_gate, w_up, w_down, act)
     m, d = x.shape
     f = w_up.shape[1]
-    plan = plan_mlp_blocks(m=m, d=d, f=f)      # raises for d > the limit
+    plan = plan_mlp_blocks(m=m, d=d, f=f,      # raises for d > the limit
+                           dtype=str(x.dtype).removeprefix("torch."))
     if not x.is_cuda:
         return fused_mlp_plain(x, w_gate, w_up, w_down, act=act)
     x, w_up, w_down = x.contiguous(), w_up.contiguous(), w_down.contiguous()
@@ -163,7 +176,7 @@ def fused_mlp(
             None if part is None else part.data_ptr(),
             _DTYPE_CODES[x.dtype], m, d, f, ACT_CODES[act],
             int(w_gate is not None), blocks["rows"], blocks["cols"],
-            blocks["tiles_per_split"], blocks["splits"],
+            blocks["cluster"], blocks["tiles_per_split"], blocks["splits"],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
 

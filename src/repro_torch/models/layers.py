@@ -379,10 +379,14 @@ def _mlp_streamed(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     As in the reference, ``block_f`` is clamped to ``d_ff`` and must
     divide it (ValueError naming ``block_f`` otherwise); the kernel tiles
-    by itself.  One difference of rounding: the kernel keeps the hidden
-    and the sum over tiles in f32, where the reference's graph-level loop
-    (``src/repro/models/layers.py:536-554``) rounds each tile's products
-    to the activation dtype — equal in f32, slightly more exact in bf16."""
+    by itself.  Rounding, in bf16: the kernel feeds the hidden to the
+    down product as a bf16 high part plus a bf16 low part (16 significant
+    bits; the Pallas kernel keeps f32), and keeps the up and gate
+    products and the sum over tiles in f32, where the reference's
+    graph-level loop (``src/repro/models/layers.py:536-554``) rounds the
+    products, the hidden and each tile's down product to bf16 — so the
+    streamed kernel is the more exact of the two; in f32 every route
+    keeps f32."""
     bf = min(block_f, cfg.d_ff)
     return ops.fused_mlp(x, p["wg"] if cfg.gated_mlp else None, p["wu"],
                          p["wd"], act=cfg.act, block_f=bf)

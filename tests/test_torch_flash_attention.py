@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
+from repro_torch.configs import registry as treg
 from repro_torch.core import dse
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tfa
@@ -199,39 +200,136 @@ def test_cpu_call_never_builds_or_loads_the_library(monkeypatch):
     assert (tfa.launches, tfa.plain_cuda_calls) == before
 
 
+#: every config with attention: (arch, query heads, head_dim)
+_ATTN_HEADS = [(a, c.num_heads, c.resolved_head_dim)
+               for a in treg.all_archs()
+               for c in [treg.get_config(a)] if c.num_heads]
+
+
 class TestPlanner:
-    def test_model_shapes_take_the_large_tile(self):
+    """The tiles of both routes: every attention of the ten configs gets
+    a plan that covers Sq, fits the H100's shared memory and the
+    registers the kernel assumes."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("seq", [1, 100, 1024, 4096])
+    @pytest.mark.parametrize("arch,heads,d", _ATTN_HEADS)
+    def test_every_config_gets_a_plan(self, arch, heads, d, seq, dtype):
+        plan = dse.plan_attention_blocks(seq_q=seq, seq_k=seq, head_dim=d,
+                                         batch_heads=4 * heads, dtype=dtype)
+        b = plan.blocks
+        assert plan.grid == 4 * heads * -(-seq // b["block_q"])
+        assert b["block_k"] == dse.ATTN_BLOCK_K
+        assert plan.smem_bytes <= dse.H100.smem_per_block
+        assert plan.acc_regs <= dse.ATTN_ACC_REGS
+        if dtype == "bfloat16":
+            assert plan.kind == "attention_mma"
+            assert b["block_q"] == dse.ATTN_MMA_BLOCK_Q
+            assert b["head_pad"] % 16 == 0 and b["head_pad"] >= d
+        else:
+            assert plan.kind == "attention" and b["head_pad"] == d
+            assert b["block_q"] in dse.ATTN_BLOCK_Q
+
+    def test_f32_tiles(self):
+        # the model shapes take the large tile; small grids and short
+        # queries the small one
         for d, bh in ((64, 128), (64, 56), (128, 128)):
             plan = dse.plan_attention_blocks(seq_q=1024, seq_k=1024,
-                                             head_dim=d, batch_heads=bh)
-            assert plan.blocks == {"block_q": 64, "block_k": 64}
-            assert plan.smem_bytes <= dse.H100.smem_per_block
-            assert plan.grid == bh * 16
-
-    def test_small_grids_and_short_queries_take_the_small_tile(self):
+                                             head_dim=d, batch_heads=bh,
+                                             dtype="float32")
+            assert plan.blocks["block_q"] == 64 and plan.grid == bh * 16
         assert dse.plan_attention_blocks(
-            seq_q=100, seq_k=100, head_dim=128,
-            batch_heads=4).blocks["block_q"] == 32
+            seq_q=100, seq_k=100, head_dim=128, batch_heads=4,
+            dtype="float32").blocks["block_q"] == 32
         assert dse.plan_attention_blocks(
-            seq_q=1, seq_k=1, head_dim=64,
-            batch_heads=1024).blocks["block_q"] == 32
+            seq_q=1, seq_k=1, head_dim=64, batch_heads=1024,
+            dtype="float32").blocks["block_q"] == 32
 
-    def test_smem_formula(self):
-        # qT + kT (D x 68) + vs (64 x 64) + ps (64 x 68), f32
+    def test_smem_formulas(self):
+        # f32: qT + kT (D x 68) + vs (64 x 64) + ps (64 x 68)
         assert dse.attention_smem_bytes(head_dim=64, block_q=64) == 4 * (
             64 * 68 + 64 * 68 + 64 * 64 + 64 * 68)
         assert dse.attention_smem_bytes(head_dim=16, block_q=32) == 4 * (
             16 * 36 + 16 * 68 + 64 * 32 + 32 * 68)
+        # bf16: the query tile and two stages of K and V, rows of the
+        # padded head + 8
+        assert dse.attention_mma_smem_bytes(head_dim=64) == 2 * (
+            64 + 4 * 64) * 72
+        assert dse.attention_mma_smem_bytes(head_dim=40) == 2 * (
+            64 + 4 * 64) * 72
+        assert dse.attention_mma_smem_bytes(head_dim=8) == 2 * (
+            64 + 4 * 64) * 24
 
-    def test_raises_beyond_the_register_tile_and_the_budget(self):
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_raises_beyond_the_widest_head(self, dtype):
         with pytest.raises(ValueError, match="head_dim"):
-            dse.plan_attention_blocks(seq_q=8, seq_k=8, head_dim=129)
-        # every head the register tile takes fits the H100's budget
-        for d in (1, 64, dse.ATTN_MAX_HEAD_DIM):
+            dse.plan_attention_blocks(seq_q=8, seq_k=8, head_dim=129,
+                                      dtype=dtype)
+        with pytest.raises(ValueError, match="empty"):
+            dse.plan_attention_blocks(seq_q=0, seq_k=8, head_dim=64,
+                                      dtype=dtype)
+        for d in (1, 40, 64, dse.ATTN_MAX_HEAD_DIM):
             plan = dse.plan_attention_blocks(seq_q=4096, seq_k=4096,
-                                             head_dim=d, batch_heads=1024)
-            assert plan.blocks["block_q"] == dse.ATTN_BLOCK_Q[0]
+                                             head_dim=d, batch_heads=1024,
+                                             dtype=dtype)
             assert plan.smem_bytes <= dse.H100.smem_per_block
+
+
+def _attention_p_in_bf16(q, k, v, *, heads_q, heads_kv, causal=True,
+                         q_offset=0, block_k=64):
+    """The bf16 kernel's arithmetic, written out: key tiles of
+    ``block_k``, the online softmax in f32, P rounded to bf16 for P·V
+    while l sums the f32 p."""
+    bhq, sq, d = q.shape
+    b, g = bhq // heads_q, heads_q // heads_kv
+    qf = q.float().reshape(b, heads_kv, g, sq, d)
+    kf = k.float().reshape(b, heads_kv, -1, d)
+    vf = v.float().reshape(b, heads_kv, -1, d)
+    sk = kf.shape[2]
+    m = torch.full((b, heads_kv, g, sq, 1), tfa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, heads_kv, g, sq, d)
+    qpos = torch.arange(sq)[:, None] + q_offset
+    for k0 in range(0, sk, block_k):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf[:, :, k0:k0 + block_k])
+        vis = torch.ones(sq, s.shape[-1], dtype=torch.bool)
+        if causal:
+            vis = qpos >= torch.arange(k0, k0 + s.shape[-1])[None, :]
+        s = torch.where(vis, s, tfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(vis, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(torch.bfloat16).float(),
+            vf[:, :, k0:k0 + block_k])
+        m = m_new
+    out = acc / torch.where(l > 0, l, 1.0)
+    return out.reshape(bhq, sq, d).to(q.dtype)
+
+
+def test_rounding_p_to_bf16_meets_the_tolerance():
+    """The bf16 kernel rounds P to bf16 for P·V (FA2's choice; the Pallas
+    kernel keeps P in f32).  Done here by hand at llama3.2-1b's heads on a
+    short prefill, on numpy-seeded bf16 inputs, it stays within
+    ``chip_smoke.ATTN_TOL`` of ``ref.attention``."""
+    import chip_smoke
+
+    tol = chip_smoke.ATTN_TOL["bfloat16"]
+    cfg = treg.get_config("llama3.2-1b")
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(12, 2, hq, hkv, 200, 200, d)
+    bf = torch.bfloat16
+    qs = tops.scale_in_dtype(torch.from_numpy(q).to(bf), d ** -0.5)
+    got = _attention_p_in_bf16(
+        qs.reshape(2 * hq, 200, d),
+        *(torch.from_numpy(a).to(bf).reshape(2 * hkv, 200, d)
+          for a in (k, v)), heads_q=hq, heads_kv=hkv)
+    want = jref.attention(*(jnp.asarray(a).astype("bfloat16")
+                            for a in (q, k, v)))
+    np.testing.assert_allclose(got.float().numpy().reshape(q.shape),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda

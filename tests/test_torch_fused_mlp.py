@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
+from repro_torch.configs import registry as treg
 from repro_torch.core import dse
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_mlp as tfm
@@ -206,34 +207,139 @@ def test_streamed_lm_matches_the_reference(monkeypatch):
         tok = np.argmax(np.asarray(jl), -1).astype(np.int32)
 
 
-class TestPlanner:
-    def test_model_shapes(self):
-        pre = dse.plan_mlp_blocks(m=4096, d=2048, f=8192)
-        assert pre.blocks["rows"] == 8 and pre.blocks["cols"] == 8
-        assert pre.blocks["splits"] == 1 and pre.grid == 512
-        dec = dse.plan_mlp_blocks(m=4, d=2048, f=8192)
-        # decode splits F until the grid covers the card
-        assert dec.blocks["splits"] == 128 and dec.grid == 128
-        assert dse.plan_mlp_blocks(m=1, d=8192, f=29568).blocks["cols"] == 32
+#: every config with an MLP: (arch, D, F)
+_MLP_WIDTHS = [(a, c.d_model, c.d_ff) for a in treg.all_archs()
+               for c in [treg.get_config(a)] if c.d_ff]
 
-    @pytest.mark.parametrize("m,d,f", [(1, 64, 64), (4, 896, 4864),
-                                       (100, 4096, 11008), (37, 200, 1000),
-                                       (4096, 896, 4864)])
-    def test_splits_cover_f_and_none_is_empty(self, m, d, f):
-        b = dse.plan_mlp_blocks(m=m, d=d, f=f).blocks
+
+class TestPlanner:
+    """The tiles of both routes: every MLP width of the ten configs gets a
+    plan that covers D and F, leaves no split empty, fits the H100's
+    shared memory and the registers the kernel assumes."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("m", [1, 4, 100, 4096])
+    @pytest.mark.parametrize("arch,d,f", _MLP_WIDTHS)
+    def test_every_config_gets_a_plan(self, arch, d, f, m, dtype):
+        plan = dse.plan_mlp_blocks(m=m, d=d, f=f, dtype=dtype)
+        b = plan.blocks
         tiles = -(-f // b["block_f"])
         assert b["splits"] * b["tiles_per_split"] >= tiles
         assert (b["splits"] - 1) * b["tiles_per_split"] < tiles
-        assert 256 * b["cols"] >= d and b["rows"] * b["cols"] <= 64
+        assert plan.smem_bytes <= dse.H100.smem_per_block
+        assert plan.acc_regs <= dse.MLP_ACC_REGS
+        m_tiles = -(-m // b["rows"])
+        if dtype == "bfloat16":
+            # the cluster's CTAs cover D and none of them is empty
+            assert plan.kind == "fused_mlp_mma"
+            assert 1 <= b["cluster"] <= dse.MLP_MMA_MAX_CLUSTER
+            assert b["cluster"] * b["cols"] >= d > (b["cluster"] - 1) * b["cols"]
+            assert b["rows"] in dse.MLP_MMA_ROWS and b["cols"] in dse.MLP_MMA_COLS
+            assert plan.grid == m_tiles * b["splits"] * b["cluster"]
+        else:
+            assert plan.kind == "fused_mlp" and b["cluster"] == 1
+            assert (b["rows"], b["cols"]) in dse.MLP_TILES
+            assert dse.MLP_THREADS * b["cols"] >= d
+            assert plan.grid == m_tiles * b["splits"]
 
-    def test_smem_formula_and_limit(self):
-        p = dse.plan_mlp_blocks(m=4096, d=2048, f=8192)
-        assert p.smem_bytes == 4 * (2048 * 8 + 2 * 4 * 64 * 8 + 64 * 8)
-        assert p.smem_bytes <= dse.H100.smem_per_block
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_raises_past_the_limit_and_for_nothing(self, dtype):
+        dse.plan_mlp_blocks(m=1, d=dse.MLP_MAX_D, f=64, dtype=dtype)
         with pytest.raises(ValueError, match="limit"):
-            dse.plan_mlp_blocks(m=1, d=dse.MLP_MAX_D + 1, f=64)
+            dse.plan_mlp_blocks(m=1, d=dse.MLP_MAX_D + 1, f=64, dtype=dtype)
         with pytest.raises(ValueError, match="empty"):
-            dse.plan_mlp_blocks(m=0, d=64, f=64)
+            dse.plan_mlp_blocks(m=0, d=64, f=64, dtype=dtype)
+
+    def test_headline_shapes(self):
+        pre = dse.plan_mlp_blocks(m=4096, d=2048, f=8192, dtype="bfloat16")
+        # eight CTAs of 256 columns share 64 rows; the card is full
+        assert pre.blocks == {"rows": 64, "cols": 256, "cluster": 8,
+                              "block_f": 64, "splits": 1,
+                              "tiles_per_split": 128}
+        dec = dse.plan_mlp_blocks(m=4, d=2048, f=8192, dtype="bfloat16")
+        # decode pads 4 rows to the mma's 16 and splits F over clusters
+        assert dec.blocks["rows"] == 16 and dec.blocks["splits"] > 1
+        assert dec.grid >= dse.H100.sms
+        # the f32 route keeps its CUDA-core tiles
+        assert dse.plan_mlp_blocks(m=4096, d=2048, f=8192,
+                                   dtype="float32").blocks["rows"] == 8
+
+    def test_smem_formulas(self):
+        p = dse.plan_mlp_blocks(m=4096, d=2048, f=8192, dtype="float32")
+        assert p.smem_bytes == 4 * (2048 * 8 + 2 * 4 * 64 * 8 + 64 * 8)
+        # ring (3 x 2 x 128 x 72) + x (64 x 264) + two h tiles of hi and
+        # lo (4 x 64 x 72), bf16; up and gate partials (2 x 64 x 68), f32
+        assert dse.mlp_mma_smem_bytes(rows=64, cols=256) == (
+            2 * (3 * 2 * 128 * 72 + 64 * 264 + 4 * 64 * 72)
+            + 4 * 2 * 64 * 68)
+        q = dse.plan_mlp_blocks(m=4096, d=2048, f=8192, dtype="bfloat16")
+        assert q.smem_bytes == dse.mlp_mma_smem_bytes(rows=64, cols=256)
+
+
+def _mlp_h_split(x, wg, wu, wd, act, *, split: bool):
+    """The bf16 kernel's arithmetic on bf16 inputs, written out: up and
+    gate in f32, h in f32, then h into the down product as bf16 — its high
+    part alone (``split=False``) or high + low parts, as the kernel does
+    (``split=True``) — the sum in f32 and the output rounded to bf16."""
+    bf = torch.bfloat16
+    x, wg, wu, wd = (None if w is None else w.to(bf).float()
+                     for w in (x, wg, wu, wd))
+    up = x @ wu
+    h = tref._act(act, x @ wg) * up if wg is not None else tref._act(act, up)
+    hi = h.to(bf).float()
+    out = hi @ wd
+    if split:
+        out = out + (h - hi).to(bf).float() @ wd
+    return out.to(bf)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_splitting_the_hidden_meets_the_tolerance(act):
+    """The bf16 kernel feeds h to the down product as a bf16 high part
+    plus a bf16 low part.  Done here by hand at llama3.2-1b's widths,
+    small M, on numpy-seeded bf16 inputs, it stays within
+    ``chip_smoke.MLP_TOL`` of ``ref.mlp``."""
+    import chip_smoke
+
+    tol = chip_smoke.MLP_TOL["bfloat16"]
+    cfg = treg.get_config("llama3.2-1b")
+    d, f = cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((4, d)).astype(np.float32)
+    ws = [(rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)
+          for s in ((d, f), (d, f), (f, d))]
+    got = _mlp_h_split(*(_t(a) for a in (x, *ws)), act, split=True)
+    want = jref.mlp(_j(x, "bfloat16"), *(_j(w, "bfloat16") for w in ws),
+                    act=act)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def test_the_hidden_in_bf16_alone_leaves_no_margin():
+    """Why the low part: at ``chip_smoke.py``'s squared-relu case (M 100,
+    D 896, F 1000, gated), over eight seeded draws, h rounded to bf16
+    alone — as the JAX model's streamed loop rounds it — comes within 10 %
+    of ``MLP_TOL`` against ``ref.mlp`` (large products amplify the
+    rounding; on the card one draw missed it), while high + low parts use
+    at most 60 % of it."""
+    import chip_smoke
+
+    tol = chip_smoke.MLP_TOL["bfloat16"]
+    m, d, f = 100, 896, 1000
+    worst = {True: 0.0, False: 0.0}
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal((m, d)).astype(np.float32)
+        ws = [(rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)
+              for s in ((d, f), (d, f), (f, d))]
+        want = _np(jref.mlp(_j(x, "bfloat16"),
+                            *(_j(w, "bfloat16") for w in ws),
+                            act="squared_relu"))
+        for split in worst:
+            got = _np(_mlp_h_split(*(_t(a) for a in (x, *ws)),
+                                   "squared_relu", split=split))
+            worst[split] = max(worst[split], float(
+                (np.abs(got - want) / (tol + tol * np.abs(want))).max()))
+    assert worst[True] <= 0.6 and worst[False] >= 0.9
 
 
 @pytest.mark.cuda
