@@ -18,12 +18,20 @@ Phases, each printing one JSON object on a line of its own:
                   are taken in another order), over dtype × kernel size,
                   odd shapes, stride 1-3 × SAME/VALID/explicit pads × both
                   epilogues × batch {1, 5, 32} × rows_per_block {1, 2,
-                  planner's}, strided weight slices and the Dense-as-1×1
-                  form; then timed by CUDA events at the main path's shapes
-                  beside the plain version, the roofline bound and, for
-                  float shapes, ``F.conv2d`` (cuDNN, TF32 off) as yardstick;
+                  planner's}, strided weight slices, the Dense-as-1×1
+                  form (Cin to 4096), Cin across the 8-channel chunks (17,
+                  33, 136, 288) × Cout off the tiles (136, 6, 10), int32
+                  wrap at the wide tiles, and every register tile × both
+                  operand routes on the same inputs (f32: the same bits
+                  under every plan); then timed by CUDA events at the main
+                  path's shapes beside the plain version, the roofline
+                  bound (int32 at the CUDA cores' integer rate) and, for
+                  float shapes, ``F.conv2d`` (cuDNN, TF32 off) as
+                  yardstick, with the planner's host time per shape;
 4. ``main_path``  compile the model zoo and the partitioned / weight-streamed
-                  showcases for KV260, run each on the card, compare with
+                  showcases for KV260, run each on the card (the showcases
+                  also five warm runs, timed, and the conv kernel's device
+                  time per run), compare with
                   the port's own ``device="cpu"`` run (bit-exact: the data is
                   int32), and batched (``vmap``) against the per-sample loop, for int32
                   and for f32 data (bit-exact both);
@@ -57,10 +65,15 @@ Phases, each printing one JSON object on a line of its own:
                   its cluster exchange, its mma or its weight loads
                   switched off (those results are wrong and unchecked);
 9. ``ssd_check``  the hand-written SSD kernel against its plain version on
-                  the card, f32 within 1e-3 and bf16 within 1e-2 (final
-                  state 1e-3), chunks 1-128, L 37-1024, B 1-4, the state
-                  carried across two calls; then timed at mamba2-1.3b's
-                  prefill shape (no library call computes an SSD scan);
+                  the card, f32 (CUDA cores) within 1e-3 and bf16 (tensor
+                  cores) within 1e-2 (final state 1e-3), chunks 1-1023, L
+                  32-1024 with ragged tiles (37, 1023), B 1-4, P 7-64, N
+                  8-128, x, b and c as strided column slices (x also off
+                  16 bytes), the state carried across two calls (a random
+                  initial state, a ragged split); then timed at
+                  mamba2-1.3b's prefill shape, bf16 also under both tiles
+                  of positions × heads a block the planner picks from (no
+                  library call computes an SSD scan);
 10. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
                   (random bf16 weights from a seed, on the card) generate
                   32 tokens greedily for 4 prompts of 1024; prefill logits
@@ -95,7 +108,8 @@ result.
 Each phase prints a compact line; its whole result (per-shape rows, the
 ``nvcc`` logs, the profiler's top kernels) goes to
 ``chiprun_out/chip_smoke/<phase>.json``.  ``--ptxas`` adds each kernel's
-registers and spills to the ``build`` line.
+registers and spills to the ``build`` line (the conv and SSD kernels'
+are always there).
 """
 from __future__ import annotations
 
@@ -115,10 +129,13 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
-#: CUDA-core rate: 67 TFLOP/s float32 outside the tensor cores.  The same
-#: figure is used for int32 multiply-adds (no published integer peak; the
-#: integer pipe is not faster, so the bound stays a lower bound on time).
+#: CUDA-core rate: 67 TFLOP/s float32 outside the tensor cores
 CUDA_CORE_OPS_PER_S = 67e12
+#: CUDA-core 32-bit integer rate: 64 multiply-adds a clock an SM at
+#: compute capability 9.0 (the CUDA C++ Programming Guide's arithmetic
+#: instruction throughput table; 128 for f32 FMA) × 132 SMs × 1.98 GHz ×
+#: 2 operations ≈ 33.4 TOP/s — the ceiling of an int32 conv
+CUDA_CORE_INT32_OPS_PER_S = 64 * 132 * 1.98e9 * 2
 #: dense bf16 tensor-core rate — the least time bf16 attention could take
 TENSOR_CORE_BF16_OPS_PER_S = 989e12
 
@@ -127,8 +144,10 @@ MAIN_SHAPES = (
     ("lenet5.conv0", 32, 32, 32, 1, 6, 5, 1),
     ("tiny_vgg_32.conv1", 32, 32, 32, 16, 16, 3, 1),
     ("resnet_mini_16.conv1", 32, 16, 16, 8, 16, 3, 2),
+    ("deep_cascade_224.conv0", 1, 224, 224, 3, 136, 3, 1),
     ("deep_cascade_224.conv1", 1, 224, 224, 136, 136, 3, 1),
     ("fat_conv_16.conv0", 1, 16, 16, 288, 288, 3, 1),
+    ("fat_cascade_16.conv", 1, 16, 16, 288, 48, 3, 1),
 )
 HEADLINE_SHAPE = "deep_cascade_224.conv1"
 
@@ -309,7 +328,90 @@ def _compare(out, exp, dtype, torch, what: str) -> float:
     return 0.0
 
 
+#: the conv's ms at the headline shape before weights streamed through
+#: shared memory (chip_smoke.py's run on an NVIDIA H100 80GB HBM3, 700.00
+#: W): constants, not measured in this run, so they go only into the
+#: phase's detail file as ``before_ms`` and never into the ``kernels`` line
+CONV_BEFORE_MS = {("deep_cascade_224.conv1", "int32"): 2.222,
+                  ("deep_cascade_224.conv1", "float32"): 2.062}
+def _conv_plan(dse, *, h_out, w_out, c_in, c_out, k, stride, batch, tile,
+               c_tile, w_tile, rows_step, streamed, band=None,
+               stage_chunks=1, threads=None):
+    """A hand-made plan of ``c_tile`` × ``w_tile`` × ``rows_step`` with a
+    ``tile`` register tile (what the planner would build for it)."""
+    tp, tc = tile
+    threads = threads or rows_step * (w_tile // tp) * (c_tile // tc)
+    band = band or rows_step
+    return dse.ConvBlockPlan(
+        "conv_rows", {"rows": band, "rows_step": rows_step,
+                      "w_tile": w_tile, "c_tile": c_tile, "tile_pixels": tp,
+                      "tile_channels": tc, "threads": threads,
+                      "streamed": streamed, "stage_chunks": stage_chunks},
+        dse.conv_smem_bytes(kh=k, kw=k, c_in=c_in, stride=stride,
+                            rows_step=rows_step, w_tile=w_tile,
+                            c_tile=c_tile, streamed=streamed,
+                            stage_chunks=stage_chunks),
+        (-(-w_out // w_tile) * -(-c_out // c_tile), -(-h_out // band),
+         batch))
+
+
+def plan_sweep(torch, gen) -> int:
+    """Every register tile × its operand routes (resident for the small
+    tiles, streamed) on the same inputs, held against the plain version;
+    and in f32 every plan must give the same bits (the sum's order is
+    fixed by the chunk)."""
+    from repro_torch.core import dse
+    from repro_torch.kernels import conv2d_stream as cs
+    from repro_torch.kernels import ops
+
+    n = 0
+    for (b, h, w_, cin, cout, k, stride) in ((2, 12, 19, 17, 10, 3, 1),
+                                             (1, 9, 16, 40, 24, 3, 2),
+                                             (3, 7, 9, 5, 6, 5, 1)):
+        pads = ops._conv_pads(h, w_, k, k, stride, "SAME")
+        h_out = (h + sum(pads[0]) - k) // stride + 1
+        w_out = (w_ + sum(pads[1]) - k) // stride + 1
+        for dtype in (torch.int32, torch.float32, torch.int8):
+            x = _rand(gen, (b, h, w_, cin), dtype, torch,
+                      big=dtype == torch.int32)
+            wt = _rand(gen, (k, k, cin, cout), dtype, torch,
+                       big=dtype == torch.int32)
+            exp = cs.conv2d_stream_plain(x, wt, stride, pads, "relu")
+            first = None
+            for tile in dse.CONV_TILES:
+                tp, tc = tile
+                for streamed in (False, True)[tp * tc >= 64:]:
+                    # (rows a step, band, chunks a stage, threads): a
+                    # resident block may carry threads that only load
+                    for rows_step, band, chunks, threads in (
+                            (1, 3, 1, None), (2, None, 1, None),
+                            (1, 3, 4, None), (2, None, 1, 96)):
+                        if (threads if streamed else chunks > 1):
+                            continue    # the routes have no such plan
+                        plan = _conv_plan(
+                            dse, h_out=h_out, w_out=w_out, c_in=cin,
+                            c_out=cout, k=k, stride=stride, batch=b,
+                            tile=tile, c_tile=2 * tc, w_tile=2 * tp,
+                            rows_step=rows_step, streamed=streamed,
+                            band=band, stage_chunks=chunks, threads=threads)
+                        got = cs.launch_plan(x, wt, stride, pads, "relu",
+                                             plan)
+                        torch.cuda.synchronize()
+                        _compare(got, exp, dtype, torch,
+                                 f"plan {plan.blocks} x{tuple(x.shape)} "
+                                 f"w{tuple(wt.shape)} {dtype}")
+                        n += 1
+                        if first is None:
+                            first = got
+                        elif not torch.equal(got, first):
+                            raise AssertionError(
+                                f"plan {plan.blocks} {dtype}: not the bits "
+                                "of the first plan")
+    return n
+
+
 def kernel_check(torch) -> dict:
+    from repro_torch.core import dse
     from repro_torch.kernels import conv2d_stream as cs
     from repro_torch.kernels import ops
 
@@ -385,6 +487,22 @@ def kernel_check(torch) -> dict:
             worst["f32"] = max(worst["f32"], _compare(
                 got, exp, dtype, torch, f"dense {m}x{kdim}x{nout} {dtype}"))
             n += 1
+    # Cin across the 8-channel chunks, Cout off the channel tiles, int32
+    # wrap-around and the narrow types at the sizes that stream
+    for cin in (17, 33, 136, 288):
+        for cout in (136, 6, 10):
+            for dtype in (torch.int32, torch.float32):
+                check(_rand(gen, (2, 11, 13, cin), dtype, torch),
+                      _rand(gen, (3, 3, cin, cout), dtype, torch),
+                      epilogue="relu", what="chunks")
+    for dtype in (torch.int8, torch.int16, torch.bfloat16):
+        check(_rand(gen, (1, 9, 20, 136), dtype, torch),
+              _rand(gen, (3, 3, 136, 10), dtype, torch), what="narrow-stream")
+    for epi in (None, "squared_relu"):
+        check(_rand(gen, (1, 16, 64, 136), torch.int32, torch, big=True),
+              _rand(gen, (3, 3, 136, 136), torch.int32, torch, big=True),
+              epilogue=epi, what="int32-wrap-wide")
+    n += plan_sweep(torch, gen)
 
     # timing at the main path's shapes
     torch.backends.cudnn.allow_tf32 = False       # the yardstick stays f32
@@ -398,6 +516,17 @@ def kernel_check(torch) -> dict:
             w = _rand(gen, (k, k, cin, cout), dtype, torch)
             pads = ops._conv_pads(h, w_, k, k, stride, "SAME")
             big = cin >= 128
+            (pt, pb), (pl, pr) = pads
+            shape = dict(h_out=(h + pt + pb - k) // stride + 1,
+                         w_out=(w_ + pl + pr - k) // stride + 1, c_in=cin,
+                         c_out=cout, kh=k, kw=k, stride=stride, batch=b)
+            plan = dse.plan_conv_rows(**shape)
+            # the planner's host time on a shape's first call (the wrapper
+            # keeps its plan per call signature after that)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                dse.plan_conv_rows.__wrapped__(**shape)
+            plan_host_ms = (time.perf_counter() - t0) * 1e3 / 20
             run = lambda: ops.conv2d_stream(x, w, stride=stride,
                                             epilogue="relu")
             plain = lambda: cs.conv2d_stream_plain(x, w, stride, pads, "relu")
@@ -416,7 +545,9 @@ def kernel_check(torch) -> dict:
                        + out.numel() * out.element_size())
             macs = out.numel() * k * k * cin
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 2 * macs / CUDA_CORE_OPS_PER_S * 1e3
+            rate = (CUDA_CORE_OPS_PER_S if dtype.is_floating_point
+                    else CUDA_CORE_INT32_OPS_PER_S)
+            t_ops = 2 * macs / rate * 1e3
             library_ms = None
             if dtype == torch.float32:
                 xn = x.permute(0, 3, 1, 2)        # NHWC storage, NCHW view
@@ -447,6 +578,9 @@ def kernel_check(torch) -> dict:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": n_bytes, "macs": macs, "library_ms": library_ms,
                 "max_abs_err": err,
+                "before_ms": CONV_BEFORE_MS.get((name, str(dtype)[6:])),
+                "plan": plan.blocks, "smem_fill_bytes": plan.smem_fill_bytes,
+                "plan_host_ms": plan_host_ms,
             })
     return {"comparisons": n, "max_abs_err_f32": worst["f32"],
             "max_abs_err_bf16": worst["bf16"], "max_abs_err_int": 0,
@@ -510,6 +644,15 @@ def main_path(torch) -> tuple[dict, dict]:
         row = {"model": name, "groups": len(art.design.groups),
                "compile_s": round(compile_s, 3), "first_run_ms": run_ms,
                "launches_per_run": launched, "equals_cpu": True}
+        if name in SHOWCASES:   # a user's warm call, host clock, 5 runs
+            t0 = time.perf_counter()
+            for _ in range(5):
+                art.run(inputs, params)
+            row["warm_run_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+            # and the card's time in the conv kernel per call
+            row["warm_conv_device_ms"] = device_ms(
+                lambda: art.run(inputs, params), reps=3,
+                kernel="conv2d_stream_kernel")
         if name in ZOO_MODELS:
             rng = np.random.default_rng(2)
             xb = {k: rng.integers(-4, 5, size=(32,) + tuple(v.shape),
@@ -541,7 +684,7 @@ def main_path(torch) -> tuple[dict, dict]:
     return {"models": rows}, arts
 
 
-def serve(torch, arts) -> dict:
+def serve(torch, arts, models=ZOO_MODELS + ("deep_cascade_224",)) -> dict:
     import numpy as np
 
     from repro_torch.serve import ServeConfig, ServeEngine, run_load
@@ -565,6 +708,8 @@ def serve(torch, arts) -> dict:
     plan.append(("deep_cascade_224", 8, 16, 200.0))
     rows = []
     for name, max_batch, requests, qps in plan:
+        if name not in models:
+            continue
         art = arts[name]
         src = art.source
         _, params = _numpy_env(src, seed=1)
@@ -957,6 +1102,7 @@ def mlp_probe(torch, probe_lib) -> dict:
 #: a f32, as the model passes them)
 SSD_CASES = (
     ("mamba2-1.3b.prefill", 4, 1024, 64, 64, 128, 64),
+    ("mamba2-1.3b.prefill.b1", 1, 1024, 64, 64, 128, 64),
     ("chunk1.prime.l37", 1, 37, 8, 64, 128, 1),
     ("chunk8.l200", 4, 200, 8, 64, 128, 8),
     ("chunk33.l1023", 1, 1023, 8, 64, 128, 33),
@@ -964,12 +1110,29 @@ SSD_CASES = (
     ("chunk128.l512", 4, 512, 8, 64, 128, 128),
     ("smoke.p16.n16", 2, 64, 8, 16, 16, 8),
     ("test.p8.n8.h3", 3, 32, 3, 8, 8, 4),
+    ("ragged.l1023.b4", 4, 1023, 8, 64, 128, 31),
+    ("ragged.l37.p8.n8", 2, 37, 5, 8, 8, 37),
+    ("odd.p7.n20.h5", 2, 100, 5, 7, 20, 4),
 )
-SSD_TIMED = ("mamba2-1.3b.prefill",)
+#: x, b and c as column slices of one (B, L, C) projection, as the model
+#: hands them in: (name, B, L, H, P, N, column offset of x).  An odd
+#: offset and an odd row length leave x and its strides off 16 bytes
+SSD_SLICES = (("slices.aligned", 2, 300, 8, 64, 128, 0),
+              ("slices.x.unaligned", 2, 300, 8, 64, 128, 1))
+#: the SSD's ms at the headline before its tensor-core redesign (bf16)
+#: and as first ported (f32; chip_smoke.py's runs on an NVIDIA H100 80GB
+#: HBM3, 700.00 W): constants, so only the detail file's ``before_ms``,
+#: never the ``kernels`` line
+SSD_BEFORE_MS = {("mamba2-1.3b.prefill", "bfloat16"): 0.9302,
+                 ("mamba2-1.3b.prefill", "float32"): 0.8774}
+SSD_TIMED = ("mamba2-1.3b.prefill", "mamba2-1.3b.prefill.b1")
 SSD_HEADLINE = ("mamba2-1.3b.prefill", "bfloat16")
 #: f32: the reference's 1e-3 (tests/test_kernels.py:212); bf16: y is
 #: rounded to bf16 (2^-8 relative) from the same bf16 inputs, 1e-2
 SSD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+#: the tile over which ``_ssd_work`` counts a scan's operations (fixed
+#: since the first SSD kernel, so that the bound reads the same work)
+SSD_WORK_TILE = 32
 
 
 def _ssd_inputs(torch, gen, b, l, h, p, n):
@@ -986,7 +1149,9 @@ def _ssd_inputs(torch, gen, b, l, h, p, n):
 def _ssd_work(b, l, h, p, n, q):
     """Operations of one scan with tiles of ``q`` positions: per tile the
     causal half of c.b^T once (shared by the heads), and per head the
-    causal intra term, the carried-state term and the state update."""
+    causal intra term, the carried-state term and the state update.  The
+    bound counts it at ``q`` = 32 (``SSD_WORK_TILE``) whatever tile a
+    kernel walks, so it reads the same work whatever implements it."""
     flops = 0
     for l0 in range(0, l, q):
         qv = min(q, l - l0)
@@ -1055,25 +1220,101 @@ def ssd_check(torch) -> dict:
                 continue
             ms_ = time_ms(run, warmup=2, reps=20)
             plain_ms = time_ms(plain, warmup=1, reps=5)
-            dev_ms = device_ms(run, reps=10, kernel=("mamba2_ssd_kernel",))
+            dev_ms = device_ms(run, reps=10, kernel=("mamba2_ssd",))
             n_bytes = sum(t.numel() * t.element_size()
                           for t in (x, dt, a, bm, cm, s0, y, sf))
-            flops = _ssd_work(b, l, h, p, n, dse.SSD_BLOCK_L)
+            flops = _ssd_work(b, l, h, p, n, SSD_WORK_TILE)
             peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
                     else CUDA_CORE_OPS_PER_S)
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
-            shapes.append({
+            plan = dse.plan_ssd_blocks(batch=b, length=l, heads=h,
+                                       head_dim=p, state_dim=n,
+                                       dtype=dt_name)
+            row = {
                 "shape": name, "dtype": dt_name, "b": b, "l": l, "h": h,
                 "p": p, "n": n, "chunk": chunk, "ms": ms_,
                 "device_ms": dev_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": n_bytes, "flops": flops, "library_ms": None,
-                "max_abs_err": err,
-            })
+                "max_abs_err": err, "plan": plan.blocks,
+                "before_ms": SSD_BEFORE_MS.get((name, dt_name)),
+            }
+            if dtype == torch.bfloat16:
+                row["tiles"] = ssd_tile_times(torch, dse, ms, x, dt, a, bm,
+                                              cm, s0, y, sf)
+            shapes.append(row)
+    n_cmp += ssd_slices_and_state(torch, gen, ms, worst)
     return {"comparisons": n_cmp, "max_abs_err_f32": worst["float32"],
             "max_abs_err_bf16": worst["bfloat16"], "shapes": shapes}
+
+
+def ssd_tile_times(torch, dse, ms, x, dt, a, bm, cm, s0, y, sf) -> list:
+    """The bf16 headline under both tiles the planner picks from
+    (``dse.SSD_MMA_NARROW`` and ``SSD_MMA_WIDE``), as hand-made plans:
+    ms by CUDA events on the same inputs, each result within f32 rounding
+    of the planner's."""
+    b, l, h, p = x.shape
+    rows = []
+    for q, hb in dse.SSD_MMA_TILES:
+        plan = dse.SsdBlockPlan(
+            "mamba2_ssd", {"route": "mma", "block_l": q,
+                           "heads_per_block": hb},
+            dse.ssd_mma_smem_bytes(block_l=q, heads_per_block=hb),
+            b * -(-h // hb))
+        run = lambda: ms.launch_plan(x, dt, a, bm, cm, s0, plan)
+        yt, st = run()
+        torch.cuda.synchronize()
+        _close(yt, y, SSD_TOL["bfloat16"], f"tile {q}x{hb} y")
+        _close(st, sf, SSD_TOL["float32"], f"tile {q}x{hb} state")
+        rows.append({"block_l": q, "heads_per_block": hb,
+                     "smem_bytes": plan.smem_bytes,
+                     "ms": time_ms(run, warmup=2, reps=20)})
+    return rows
+
+
+def ssd_slices_and_state(torch, gen, ms, worst) -> int:
+    """x, b and c as strided column slices of one projection (x off 16
+    bytes too), and a random initial state carried across two calls split
+    at a ragged point, in both dtypes, against the plain version."""
+    n_cmp = 0
+    for name, b, l, h, p, n, off in SSD_SLICES:
+        x32, dt, a, bm32, cm32 = _ssd_inputs(torch, gen, b, l, h, p, n)
+        s0 = (torch.randn(b, h, p, n, generator=gen) * 0.5).cuda()
+        dt, a = dt.cuda(), a.cuda()
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            width = off + h * p + 2 * n + off
+            proj = torch.zeros(b, l, width, dtype=dtype, device="cuda")
+            xs = proj[..., off:off + h * p]
+            xs.copy_(x32.reshape(b, l, h * p).to(dtype))
+            bs = proj[..., off + h * p:off + h * p + n]
+            cs_ = proj[..., off + h * p + n:off + h * p + 2 * n]
+            bs.copy_(bm32.to(dtype))
+            cs_.copy_(cm32.to(dtype))
+            xs = xs.reshape(b, l, h, p)
+            tol = SSD_TOL[dt_name]
+            ye, se = ms.mamba2_ssd_plain(xs.contiguous(), dt, a,
+                                         bs.contiguous(), cs_.contiguous(),
+                                         s0, chunk=l)
+            y, sf = ms.mamba2_ssd(xs, dt, a, bs, cs_, s0, chunk=l)
+            cut = 117          # two calls, split off any tile boundary
+            y1, s1 = ms.mamba2_ssd(xs[:, :cut], dt[:, :cut], a, bs[:, :cut],
+                                   cs_[:, :cut], s0, chunk=cut)
+            y2, s2 = ms.mamba2_ssd(xs[:, cut:], dt[:, cut:], a, bs[:, cut:],
+                                   cs_[:, cut:], s1, chunk=l - cut)
+            torch.cuda.synchronize()
+            worst[dt_name] = max(
+                worst[dt_name],
+                _close(y, ye, tol, f"{name} {dt_name} y"),
+                _close(sf, se, SSD_TOL["float32"], f"{name} {dt_name} state"),
+                _close(torch.cat([y1, y2], 1), ye, tol,
+                       f"{name} {dt_name} carried y"),
+                _close(s2, se, SSD_TOL["float32"],
+                       f"{name} {dt_name} carried state"))
+            n_cmp += 2
+    return n_cmp
 
 
 # ---------------------------------------------------------------------------
@@ -1382,7 +1623,7 @@ def ssm_serve(torch) -> dict:
         (stepped.argmax(-1) == full.argmax(-1)).float().mean())
 
     breakdown = _prefill_breakdown(torch, eng, prompts,
-                                   classes=(("ssd", "mamba2_ssd_kernel"),))
+                                   classes=(("ssd", "mamba2_ssd"),))
     peak = torch.cuda.max_memory_allocated() / 1e9
     del eng, full, short, caches, cache, stepped
     torch.cuda.empty_cache()
@@ -1435,7 +1676,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--ptxas", action="store_true",
-                    help="print ptxas' register / shared-memory report")
+                    help="ptxas' registers and spills of every kernel on "
+                         "the build line (the conv and SSD kernels' are "
+                         "always there)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1478,7 +1721,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.build_libraries(
         libraries + ((probe_lib,) if probe_lib is not None else ()),
-        verbose=args.ptxas)
+        verbose=True)
     build_s = time.perf_counter() - t0
     for lib in libraries:
         lib.load()
@@ -1490,9 +1733,11 @@ def main(argv=None) -> int:
                                 "log": lib.build_log}
                      for lib in libraries},
                  "flags": list(build.NVCC_FLAGS)}
-        if args.ptxas:
-            built["ptxas"] = [r for lib in libraries
-                              for r in ptxas_report(lib.build_log)]
+        # registers and spills: the redesigned kernels always, every
+        # kernel with --ptxas
+        built["ptxas"] = [r for lib in libraries
+                          if args.ptxas or lib in (cs.LIBRARY, ms.LIBRARY)
+                          for r in ptxas_report(lib.build_log)]
         emit_phase("build", built)
     checked = None
     if "kernel_check" in phases:

@@ -357,12 +357,37 @@ def solve_materialized(
 # shared-memory budget of one thread block
 # ---------------------------------------------------------------------------
 
-#: register tile of the streaming conv kernel (pixels along W x output
-#: channels per thread) and its block size — fixed in
-#: ``kernels/csrc/conv2d_stream.cu``; tiles are multiples of these
-CONV_TILE_PIXELS = 4
-CONV_TILE_CHANNELS = 4
+#: register tiles of the streaming conv kernel (output pixels along W ×
+#: output channels per thread), instantiated in
+#: ``kernels/csrc/conv2d_stream.cu``.  8 × 8 (64 accumulators) makes 10
+#: shared-memory loads per 64 multiply-adds, where a 4 × 4 tile makes 5
+#: per 16; the smaller tiles spread convs whose outputs are too few for
+#: 8 × 8 tiles to fill the card.  8 × 8 runs streamed only
+CONV_TILES = ((8, 8), (4, 4), (2, 4))
+#: most threads a block may have: one register tile per thread per step,
+#: so every thread of a block has work; at 64 accumulators a thread stays
+#: under 128 registers, so two blocks of 256 share an SM
 CONV_BLOCK_THREADS = 256
+#: Cin channels per chunk of the K loop.  A constant, never the plan's:
+#: every output's sum runs chunk by chunk, then (kh, kw, ci) within the
+#: chunk, so float results are bit-identical across plans
+CONV_CIN_CHUNK = 8
+#: pixel pitch (32-bit words) of a streamed input slab: 16-byte pixels for
+#: ``cp.async``, and 12 words apart put eight neighbouring pixels on eight
+#: bank groups
+CONV_CHUNK_PITCH = 12
+#: shared-memory stages of the streamed route (weights and input slab of
+#: one Cin chunk each): the next chunk loads while this one computes; at
+#: two, a 252-thread block of the 224²×136 conv takes 67 KB, so two
+#: blocks share an SM
+CONV_STAGES = 2
+#: Cin chunks one streamed stage may hold: a group changes no sum's
+#: order, it only spends one barrier and one wait on several chunks
+CONV_STAGE_CHUNKS = (1, 2, 4, 8)
+#: shared memory of one SM (228 KB) less the 1 KB each block reserves,
+#: split between two blocks: a plan within it leaves room for a second
+#: block on the SM
+CONV_TWO_BLOCKS_SMEM = 228 * 1024 // 2 - 1024
 
 
 @dataclass
@@ -370,13 +395,24 @@ class ConvBlockPlan:
     """Chosen tiling of one streaming-conv launch.
 
     ``blocks``: ``rows`` (output rows per band — what one block walks),
-    ``rows_step`` (output rows computed between two ring refills),
-    ``w_tile`` / ``c_tile`` (output columns / channels per block)."""
+    ``rows_step`` (output rows a step: one register tile each per
+    thread), ``w_tile`` / ``c_tile`` (output columns / channels per
+    block), ``tile_pixels`` × ``tile_channels`` (the register tile),
+    ``threads`` (one per register tile of a step, ``rows_step ·
+    w_tile/tile_pixels · c_tile/tile_channels``; a one-wave resident
+    block has ``CONV_BLOCK_THREADS``, the spare ones only loading),
+    ``streamed`` (weights and input in Cin chunks through a ring of
+    stages; else the whole weight tile and every input channel stay
+    resident) and ``stage_chunks`` (Cin chunks a streamed stage holds).
+    ``smem_fill_bytes``: bytes the launch copies into shared memory
+    (weights and input rows, halo rows and per-step weight reloads
+    included; 32-bit elements)."""
 
     kind: str
     blocks: dict
     smem_bytes: int
     grid: tuple[int, int, int]
+    smem_fill_bytes: int = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -384,13 +420,66 @@ def _round_up(x: int, m: int) -> int:
 
 
 def conv_smem_bytes(*, kh: int, kw: int, c_in: int, stride: int,
-                    rows_step: int, w_tile: int, c_tile: int) -> int:
-    """Shared memory one block of the streaming conv kernel asks for:
-    the resident weight tile plus the input-row ring, both widened to
-    the 32-bit accumulate type (the formula of ``conv2d_stream.cu``)."""
+                    rows_step: int, w_tile: int, c_tile: int,
+                    streamed: bool, stage_chunks: int = 1) -> int:
+    """Shared memory one block of the streaming conv kernel asks for, all
+    widened to the 32-bit accumulate type (the formula of
+    ``conv2d_stream.cu``).  Resident: the ``kh·kw·c_in·c_tile`` weight
+    tile plus the ring of ``(rows_step-1)·stride + kh`` input rows of
+    ``(w_tile-1)·stride + kw`` pixels, each ``c_in`` made odd wide.
+    Streamed: ``CONV_STAGES`` stages of ``stage_chunks`` Cin chunks'
+    weights and input slabs (pixels ``CONV_CHUNK_PITCH`` words apart)."""
     ring_rows = (rows_step - 1) * stride + kh
     slot_cols = (w_tile - 1) * stride + kw
+    if streamed:
+        return 4 * CONV_STAGES * stage_chunks * (
+            kh * kw * CONV_CIN_CHUNK * c_tile
+            + ring_rows * slot_cols * CONV_CHUNK_PITCH)
     return 4 * (kh * kw * c_in * c_tile + ring_rows * slot_cols * (c_in | 1))
+
+
+def _conv_fill_bytes(*, batch: int, h_out: int, n_bands: int, band: int,
+                     n_wt: int, n_ct: int, rows_step: int, w_tile: int,
+                     c_tile: int, c_in: int, kh: int, kw: int, stride: int,
+                     streamed: bool) -> int:
+    """Bytes the launch copies into shared memory (4 per element)."""
+    total = 0
+    for band_i in range(n_bands):
+        rows = min(band, h_out - band_i * band)
+        steps = -(-rows // rows_step)
+        slot_cols = (w_tile - 1) * stride + kw
+        if streamed:
+            ring_rows = (rows_step - 1) * stride + kh
+            per_block = steps * (ring_rows * slot_cols * c_in
+                                 + kh * kw * c_in * c_tile)
+        else:
+            in_rows = (rows - 1) * stride + kh
+            per_block = in_rows * slot_cols * c_in + kh * kw * c_in * c_tile
+        total += per_block
+    return 4 * total * batch * n_wt * n_ct
+
+
+def _conv_c_tile(c_out: int, tc: int, most: int) -> int:
+    """Cout in the fewest channel tiles of at most ``most`` channels,
+    each a whole number of ``tc``-channel register tiles."""
+    n = -(-c_out // most)
+    return _round_up(-(-c_out // n), tc)
+
+
+def _conv_step(*, tp: int, cgs: int, h_cap: int, w_out: int, kh: int,
+               kw: int, stride: int) -> tuple[int, int]:
+    """(pixel groups along W, rows a step) with one register tile per
+    thread: the most threads up to ``CONV_BLOCK_THREADS``, then the
+    fewest input pixels a step reads per output pixel (its halo)."""
+    best = None
+    for pgs in range(1, min(16, -(-w_out // tp)) + 1):
+        rs = max(1, min(h_cap, CONV_BLOCK_THREADS // (pgs * cgs)))
+        halo = ((rs - 1) * stride + kh) * ((pgs * tp - 1) * stride + kw) \
+            / (rs * pgs * tp)
+        key = (-rs * pgs, halo)
+        if best is None or key < best[0]:
+            best = (key, pgs, rs)
+    return best[1], best[2]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -408,75 +497,112 @@ def plan_conv_rows(
     smem_budget: int | None = None,
     spec: HopperSpec = H100,
 ) -> ConvBlockPlan:
-    """Tile the streaming conv kernel so one block's working set — the
-    ``(rows_step - 1)·stride + kh`` input rows of the ring, each
-    ``(w_tile - 1)·stride + kw`` columns × ``c_in`` wide, plus the
-    ``kh·kw·c_in·c_tile`` weight tile — fits the shared-memory budget.
+    """Tile the streaming conv kernel by four rules, the first that
+    applies winning, each from tilings timed on the card (H100, PERF.md):
 
-    The (``c_tile``, ``w_tile``) pair with the most outputs per ring step
-    wins (ties: wider channel tile — fewer re-reads of the input);
-    ``rows_step`` then grows until a step keeps every thread of the
-    block busy; the band (``rows``) starts at the whole frame — each
-    input row read once — and halves while the launch would leave SMs
-    idle.  ``rows`` pins the band instead (results never depend on it).
-    Raises :class:`ValueError` when not even the smallest tile fits.
-    Plans are memoized per shape (the conv wrapper asks on every call);
-    treat the returned plan as read-only.
+    1. **wide** — 8 × 8 tiles streamed, one Cin chunk a stage, Cout in
+       tiles of at most 48 channels, where those blocks give every SM two
+       (224²×136→136: 48 × 16 × 21 rows, 0.94 ms; 72- and 136-channel
+       tiles 1.5-5 % slower; the resident 4 × 4 kernel before, 2.2 ms);
+    2. **small** — a resident 4 × 4 tile (2 × 4 where 4 × 4 blocks
+       would not give every SM one), Cout in tiles of at most 32
+       channels, where the whole weight tile and ring leave room for a
+       second block on the SM (the zoo: Cin 1-32; no pipeline to pay);
+    3. **small and deep** — a spatial conv whose resident blocks of
+       2 × 4 tiles (8 channels × the row, up to 32 pixels, × two rows)
+       fit one block's shared memory and run in one wave: 256 threads
+       each, those past the tiles only loading (16²×288→48: 0.09 ms, the
+       same resident in other tilings 0.081-0.109, streamed 0.118-0.136);
+    4. otherwise **streamed** 2 × 4 tiles, four Cin chunks a stage, 8
+       pixels × two rows a step, Cout in tiles of at most 72 channels
+       (16²×288→288: 0.143 ms, one chunk a stage 0.160, resident 0.26 in
+       three waves; Dense layers of deep Cin), shrunk — chunks a stage,
+       rows, pixels, channels — until it fits ``smem_budget``.
+
+    In rules 1-2 the step has one thread per register tile, the most
+    threads up to ``CONV_BLOCK_THREADS``, then the least halo.  The band
+    (``rows``) starts at the whole frame — each input row read once —
+    and halves while the launch would leave SMs idle; ``rows`` pins it
+    (results never depend on it).  Raises :class:`ValueError` when not
+    even rule 4's smallest tile fits.  Plans are memoized per shape (the
+    conv wrapper asks on a shape's first call); treat the returned plan
+    as read-only.
     """
     budget = smem_budget or spec.smem_per_block
-    tp, tc = CONV_TILE_PIXELS, CONV_TILE_CHANNELS
-
-    def smem(rows_step: int, w_tile: int, c_tile: int) -> int:
-        return conv_smem_bytes(kh=kh, kw=kw, c_in=c_in, stride=stride,
-                               rows_step=rows_step, w_tile=w_tile,
-                               c_tile=c_tile)
-
-    w_cands = []
-    wt = _round_up(min(w_out, 64), tp)
-    while wt >= tp:
-        w_cands.append(wt)
-        wt = _round_up(wt // 2, tp) if wt > tp else 0
-    best = None
-    for c_tile in range(_round_up(min(c_out, 64), tc), 0, -tc):
-        for w_tile in w_cands:
-            if smem(1, w_tile, c_tile) <= budget:
-                if best is None or c_tile * w_tile > best[0] * best[1]:
-                    best = (c_tile, w_tile)
-                break
-    if best is None:
-        raise ValueError(
-            f"conv {kh}x{kw}x{c_in}->{c_out}: the smallest tile "
-            f"({smem(1, tp, tc)} B) exceeds the shared-memory budget "
-            f"({budget} B)"
-        )
-    c_tile, w_tile = best
-    n_wt = -(-w_out // w_tile)
-    n_ct = -(-c_out // c_tile)
-
     cap = h_out if rows is None else max(1, min(rows, h_out))
-    rows_step = 1
-    per_row = (w_tile // tp) * (c_tile // tc)
-    while (
-        rows_step * per_row < CONV_BLOCK_THREADS
-        and rows_step * 2 <= cap
-        and smem(rows_step * 2, w_tile, c_tile) <= budget
-    ):
-        rows_step *= 2
+    two_blocks = min(budget, CONV_TWO_BLOCKS_SMEM)
+    n_chunks = -(-c_in // CONV_CIN_CHUNK)
 
-    if rows is not None:
-        band = cap
-    else:
-        band = _round_up(h_out, rows_step)
-        others = batch * n_wt * n_ct
-        while band > rows_step and others * -(-h_out // band) < 2 * spec.sms:
-            band = max(rows_step, _round_up(-(-band // 2), rows_step))
-    return ConvBlockPlan(
-        "conv_rows",
-        {"rows": band, "rows_step": rows_step, "w_tile": w_tile,
-         "c_tile": c_tile},
-        smem(rows_step, w_tile, c_tile),
-        (n_wt * n_ct, -(-h_out // band), batch),
-    )
+    def plan(tile, c_tile, pgs, rs, streamed, stage_chunks=1, threads=None):
+        tp, tc = tile
+        w_tile = pgs * tp
+        n_wt, n_ct = -(-w_out // w_tile), -(-c_out // c_tile)
+        if rows is not None:
+            band = cap
+        else:
+            band = _round_up(h_out, rs)
+            others = batch * n_wt * n_ct
+            while band > rs and others * -(-h_out // band) < 2 * spec.sms:
+                band = max(rs, _round_up(-(-band // 2), rs))
+        smem = conv_smem_bytes(kh=kh, kw=kw, c_in=c_in, stride=stride,
+                               rows_step=rs, w_tile=w_tile, c_tile=c_tile,
+                               streamed=streamed, stage_chunks=stage_chunks)
+        fill = _conv_fill_bytes(
+            batch=batch, h_out=h_out, n_bands=-(-h_out // band), band=band,
+            n_wt=n_wt, n_ct=n_ct, rows_step=rs, w_tile=w_tile, c_tile=c_tile,
+            c_in=c_in, kh=kh, kw=kw, stride=stride, streamed=streamed)
+        return ConvBlockPlan(
+            "conv_rows",
+            dict(rows=band, rows_step=rs, w_tile=w_tile, c_tile=c_tile,
+                 tile_pixels=tp, tile_channels=tc,
+                 threads=threads or rs * pgs * (c_tile // tc),
+                 streamed=streamed, stage_chunks=stage_chunks),
+            smem, (n_wt * n_ct, -(-h_out // band), batch), fill)
+
+    def stepped(tile, most, streamed):
+        c_tile = _conv_c_tile(c_out, tile[1], most)
+        pgs, rs = _conv_step(tp=tile[0], cgs=c_tile // tile[1], h_cap=cap,
+                             w_out=w_out, kh=kh, kw=kw, stride=stride)
+        return plan(tile, c_tile, pgs, rs, streamed)
+
+    def blocks(p):
+        gx, gy, gz = p.grid
+        return gx * gy * gz
+
+    wide = stepped((8, 8), 48, True)                                 # 1
+    if wide.smem_bytes <= two_blocks and blocks(wide) >= 2 * spec.sms:
+        return wide
+    for tile in ((4, 4), (2, 4)):                                    # 2
+        small = stepped(tile, 32, False)
+        if small.smem_bytes <= two_blocks and (
+                tile == (2, 4) or blocks(small) >= spec.sms):
+            return small
+    if kh * kw > 1:                                                  # 3
+        deep = plan((2, 4), 8, min(16, -(-w_out // 2)), min(2, cap), False,
+                    threads=CONV_BLOCK_THREADS)
+        if deep.smem_bytes <= budget and blocks(deep) <= spec.sms:
+            return deep
+    c_tile = _conv_c_tile(c_out, 4, 72)                              # 4
+    pgs, rs, g = min(4, -(-w_out // 2)), min(2, cap), 4
+    while g > 1 and g // 2 >= n_chunks:
+        g //= 2
+    while True:
+        p = plan((2, 4), c_tile, pgs, rs, True, g)
+        if p.smem_bytes <= budget:
+            return p
+        if g > 1:
+            g //= 2
+        elif rs > 1:
+            rs = 1
+        elif pgs > 1:
+            pgs //= 2
+        elif c_tile > 4:
+            c_tile = 4
+        else:
+            raise ValueError(
+                f"conv {kh}x{kw}x{c_in}->{c_out}: the smallest tile "
+                f"({p.smem_bytes} B) exceeds the shared-memory budget "
+                f"({budget} B)")
 
 
 # ---------------------------------------------------------------------------
@@ -783,21 +909,35 @@ def plan_mlp_blocks(*, m: int, d: int, f: int, dtype: str) -> MlpBlockPlan:
 # NVIDIA H100: tile selection for the Mamba-2 SSD kernel
 # ---------------------------------------------------------------------------
 
-#: fixed shape of ``kernels/csrc/mamba2_ssd.cu``: 256 threads as 16 × 16;
-#: a block walks the positions ``SSD_BLOCK_L`` at a time.  32 positions:
-#: two blocks then share an SM (79 KB of shared memory each at P 64, N
-#: 128, against 133 KB at 64), which was faster on the card at
-#: mamba2-1.3b's prefill
+#: f32 route of ``kernels/csrc/mamba2_ssd.cu`` (``mamba2_ssd_kernel``,
+#: CUDA cores): 256 threads as 16 × 16; a block walks the positions
+#: ``SSD_BLOCK_L`` at a time.  32 positions: two blocks then share an SM
+#: (79 KB of shared memory each at P 64, N 128, against 133 KB at 64),
+#: which was faster on the card at mamba2-1.3b's prefill
 SSD_BLOCK_L = 32
-#: widest head and state the register tiles cover
+#: bf16 route (``mamba2_ssd_mma_kernel``, tensor cores): the (positions
+#: per tile, heads per block) pairs it is instantiated for.  At
+#: mamba2-1.3b's prefill (B 4, H 64) on the card, 64 positions and two
+#: heads a block (128 blocks of 512 threads, one an SM, sharing b and c)
+#: ran 3-4 % faster than 32 positions and one head (256 blocks, two an
+#: SM); 32 × 2 and 64 × 1 were slower than both and were dropped
+#: (PERF.md).  The wide tile is taken while its blocks keep seven in eight
+#: SMs busy, the narrow one below that (a batch of one or two)
+SSD_MMA_WIDE = (64, 2)
+SSD_MMA_NARROW = (32, 1)
+SSD_MMA_TILES = (SSD_MMA_NARROW, SSD_MMA_WIDE)
+#: widest head and state either route covers; the bf16 route holds P and
+#: N padded with zeros to these widths
 SSD_MAX_HEAD_DIM = 64
 SSD_MAX_STATE_DIM = 128
 
 
 @dataclass
 class SsdBlockPlan:
-    """Tiling of one SSD launch: ``blocks`` holds ``block_l`` (positions
-    per tile); ``grid`` is the number of blocks, one per (batch, head)."""
+    """Tiling of one SSD launch: ``blocks`` holds ``route`` (``"mma"``
+    for bf16, ``"cuda_core"`` for f32), ``block_l`` (positions per tile)
+    and ``heads_per_block``; ``grid`` is the number of blocks, one per
+    (batch row, group of heads)."""
 
     kind: str
     blocks: dict
@@ -806,29 +946,50 @@ class SsdBlockPlan:
 
 
 def ssd_smem_bytes(*, head_dim: int, state_dim: int) -> int:
-    """Shared memory one block asks for, all in f32: c and b of a tile
-    (``2 × block_l × pitch``), x of the tile (``block_l × P``), the gated
-    c·b tile (``block_l × (block_l + 1)``), the state (``P × pitch``) and
-    four per-position vectors plus one scalar; the pitch of a state row is
-    ``N`` made odd — the formula of ``mamba2_ssd.cu``."""
+    """Shared memory one block of the f32 route asks for: c and b of a
+    tile (``2 × block_l × pitch``), x of the tile (``block_l × P``), the
+    gated c·b tile (``block_l × (block_l + 1)``), the state (``P ×
+    pitch``) and four per-position vectors plus one scalar, all f32; the
+    pitch of a state row is ``N`` made odd — the formula of
+    ``mamba2_ssd.cu``."""
     q, p = SSD_BLOCK_L, head_dim
     pitch = state_dim if state_dim % 2 else state_dim + 1
     return 4 * (2 * q * pitch + q * p + q * (q + 1) + p * pitch + 4 * q + 1)
 
 
-# the widest head and state fit one block's shared memory (78,980 B)
+def ssd_mma_smem_bytes(*, block_l: int, heads_per_block: int) -> int:
+    """Shared memory one block of the bf16 route asks for (``MmaSmem`` of
+    ``mamba2_ssd.cu``): c and b tiles, two stages each, shared by the
+    block's heads, rows of ``N`` padded to 128 + 8 bf16; per head x (two
+    stages, rows of 64 + 8), the state's hi and lo parts (64 × 136 bf16
+    each), dt (two stages) and three per-position f32 vectors, plus 16
+    bytes for exp(cum_last).  P and N do not enter: the tiles are padded."""
+    q = block_l
+    pitch, xpitch = SSD_MAX_STATE_DIM + 8, SSD_MAX_HEAD_DIM + 8
+    shared = 2 * 2 * q * pitch * 2
+    head = (2 * q * xpitch + 2 * SSD_MAX_HEAD_DIM * pitch) * 2 + 5 * q * 4 + 16
+    return shared + heads_per_block * head
+
+
+# the widest head and state fit one block's shared memory on both routes
+# (f32: 78,980 B; bf16 at 32 positions and one head: 79,504 B)
 assert ssd_smem_bytes(head_dim=SSD_MAX_HEAD_DIM,
                       state_dim=SSD_MAX_STATE_DIM) <= H100.smem_per_block
+assert all(ssd_mma_smem_bytes(block_l=q, heads_per_block=hb)
+           <= H100.smem_per_block for q, hb in SSD_MMA_TILES)
 
 
 @functools.lru_cache(maxsize=4096)
 def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
-                    state_dim: int) -> SsdBlockPlan:
-    """Tile the SSD kernel on the H100: one block per (batch, head) walks
-    the sequence ``SSD_BLOCK_L`` positions at a time with the head's state
-    in shared memory (it fits, see the assert above).  Raises
-    :class:`ValueError` for a head wider than ``SSD_MAX_HEAD_DIM``, a
-    state wider than ``SSD_MAX_STATE_DIM`` or an empty problem."""
+                    state_dim: int, dtype: str) -> SsdBlockPlan:
+    """Tile the SSD kernel on the H100: a block walks the sequence for one
+    (batch row, group of heads) a tile at a time with the state on chip.
+    bf16 takes the tensor-core route (``SSD_MMA_WIDE`` where its blocks
+    keep seven in eight SMs busy, else ``SSD_MMA_NARROW``); f32 the
+    CUDA-core route (``SSD_BLOCK_L``, one head).  Results do not depend on
+    the tile beyond f32 rounding.  Raises :class:`ValueError` for a head
+    wider than ``SSD_MAX_HEAD_DIM``, a state wider than
+    ``SSD_MAX_STATE_DIM``, an empty problem or a dtype with no route."""
     if min(batch, length, heads, head_dim, state_dim) < 1:
         raise ValueError(
             f"SSD: empty problem (B {batch}, L {length}, H {heads}, "
@@ -837,8 +998,20 @@ def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
         raise ValueError(
             f"SSD: head_dim {head_dim} / state_dim {state_dim} exceed the "
             f"kernel's {SSD_MAX_HEAD_DIM} / {SSD_MAX_STATE_DIM}")
+    if dtype == "bfloat16":
+        wide = batch * -(-heads // SSD_MMA_WIDE[1]) >= 7 * H100.sms // 8
+        q, hb = SSD_MMA_WIDE if wide else SSD_MMA_NARROW
+        return SsdBlockPlan(
+            "mamba2_ssd", {"route": "mma", "block_l": q,
+                           "heads_per_block": hb},
+            ssd_mma_smem_bytes(block_l=q, heads_per_block=hb),
+            batch * -(-heads // hb),
+        )
+    if dtype != "float32":
+        raise ValueError(f"SSD: no route for {dtype}")
     return SsdBlockPlan(
-        "mamba2_ssd", {"block_l": SSD_BLOCK_L},
+        "mamba2_ssd", {"route": "cuda_core", "block_l": SSD_BLOCK_L,
+                       "heads_per_block": 1},
         ssd_smem_bytes(head_dim=head_dim, state_dim=state_dim),
         batch * heads,
     )

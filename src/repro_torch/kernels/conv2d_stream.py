@@ -14,17 +14,28 @@ output directly.
 frames, Cin 1-32, Cout 6-32) a conv moves a few hundred KB and does well
 under a GFLOP: bytes and launch latency bound it, not arithmetic.  At
 224²×136→136 (``deep_cascade_224``) it is 8.4 G multiply-adds on int32
-data, which has no tensor-core path: CUDA-core integer MACs bound it.
+data, which has no tensor-core path: the CUDA cores' integer
+multiply-add rate (64 a clock an SM, half the f32 FMA rate) bounds it at
+≈ 0.50 ms.
 
 **What the design does about it.**  One block per (sample, band of
-output rows, W tile, Cout tile) loops over its band with the input rows
-in a shared-memory ring, so each input row is read from device memory
-once per band; the weight tile stays resident in shared memory for the
-block's life; the batch is a grid axis, so a served batch is one launch
-per conv, not one per sample.  Tiles come from
-``repro_torch.core.dse.plan_conv_rows`` under the 227 KB shared-memory
-budget.  Arithmetic is CUDA-core FMA/IMAD on a 4×4 register tile per
-thread; ``wgmma``/TMA paths for the wide float/int8 cases are later work.
+output rows, W tile, Cout tile) walks its band, and every thread of it
+owns one register tile of a step — 8 pixels × 8 channels (64
+accumulators) at wide shapes, 4 × 4 or 2 × 4 where the outputs are too
+few to fill the card — held across the whole K loop (a resident block
+may carry extra threads that only load).  Small convs keep
+the whole weight tile and a ring of input rows resident in shared memory
+(each input row read once per band; a small conv with a deep Cin in one
+wave of 256-thread blocks whose spare threads only load); wide convs
+stream weights and input through two ``cp.async`` stages of 1-8 Cin
+chunks, so tiles no longer hold all of Cin: Cout 136 fits one to three
+channel tiles and two blocks share an SM.  The K loop runs in fixed
+8-channel chunks, then (kh, kw, ci), whatever the plan, so float results
+do not depend on the tiling.
+The batch is a grid axis, so a served batch is one launch per conv, not
+one per sample.  Tiles come from ``repro_torch.core.dse.plan_conv_rows``.
+``wgmma``/TMA paths for bf16/int8 and a tensor-core route for int32 are
+later work.
 
 The library is built by ``nvcc`` from the source in this package at
 first use (a few seconds; plain C interface, bound with ``ctypes``) into
@@ -39,11 +50,12 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
-from repro_torch.core.dse import CONV_BLOCK_THREADS, plan_conv_rows
+from repro_torch.core.dse import plan_conv_rows
 from repro_torch.kernels.build import CudaLibrary
 
 #: fused-epilogue kinds the conv path supports, applied to the int32/f32
@@ -78,7 +90,7 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def _declare(lib) -> None:
     fn = lib.conv2d_stream_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 23
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.conv2d_stream_error_string.argtypes = [ctypes.c_int]
@@ -98,43 +110,47 @@ def reset_counts() -> None:
         plain_cuda_calls = 0
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pads, epilogue,
+def _check(x_shape, w_shape, x_dtype, w_dtype, stride: int, pads, epilogue,
            dilation: int):
+    """The call's contract on shapes and dtypes → ``(h_out, w_out)``."""
     if dilation != 1:
         raise NotImplementedError(
             f"conv2d_stream: dilation {dilation} is not supported")
     if epilogue not in _EPILOGUE_CODES:
         raise ValueError(f"unsupported conv epilogue {epilogue!r}")
-    if x.ndim != 4 or w.ndim != 4:
+    if len(x_shape) != 4 or len(w_shape) != 4:
         raise ValueError(
             f"conv2d_stream wants x (B,H,W,Cin) and w (KH,KW,Cin,Cout); "
-            f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    if x.shape[3] != w.shape[2]:
+            f"got {tuple(x_shape)} and {tuple(w_shape)}")
+    if x_shape[3] != w_shape[2]:
         raise ValueError(
-            f"conv2d_stream: Cin mismatch, x {tuple(x.shape)} vs "
-            f"w {tuple(w.shape)}")
-    if x.dtype != w.dtype:
+            f"conv2d_stream: Cin mismatch, x {tuple(x_shape)} vs "
+            f"w {tuple(w_shape)}")
+    if x_dtype != w_dtype:
         raise TypeError(
-            f"conv2d_stream: x is {x.dtype} but w is {w.dtype}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"conv2d_stream: unsupported dtype {x.dtype}")
-    if x.device != w.device:
-        raise ValueError(
-            f"conv2d_stream: x on {x.device} but w on {w.device}")
+            f"conv2d_stream: x is {x_dtype} but w is {w_dtype}")
+    if x_dtype not in _DTYPE_CODES:
+        raise TypeError(f"conv2d_stream: unsupported dtype {x_dtype}")
     if stride < 1:
         raise ValueError(f"conv2d_stream: stride {stride} < 1")
     (pt, pb), (pl, pr) = pads
     if min(pt, pb, pl, pr) < 0:
         raise ValueError(f"conv2d_stream: negative pads {pads}")
-    b, h, wd, _ = x.shape
-    kh, kw, _, _ = w.shape
+    b, h, wd, _ = x_shape
+    kh, kw, _, _ = w_shape
     h_out = (h + pt + pb - kh) // stride + 1
     w_out = (wd + pl + pr - kw) // stride + 1
     if b < 1 or h_out < 1 or w_out < 1:
         raise ValueError(
-            f"conv2d_stream: empty output for x {tuple(x.shape)}, "
-            f"w {tuple(w.shape)}, stride {stride}, pads {pads}")
+            f"conv2d_stream: empty output for x {tuple(x_shape)}, "
+            f"w {tuple(w_shape)}, stride {stride}, pads {pads}")
     return h_out, w_out
+
+
+def _check_devices(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.device != w.device:
+        raise ValueError(
+            f"conv2d_stream: x on {x.device} but w on {w.device}")
 
 
 def conv2d_stream_plain(
@@ -217,40 +233,88 @@ def conv2d_stream(
 
     On a CUDA tensor this launches the hand-written kernel on the calling
     thread's current stream (and adds one to ``launches``) or raises: a
-    band that does not fit shared memory, an unsupported dtype, dilation
-    ≠ 1.  Only a CPU tensor takes :func:`conv2d_stream_plain`.
+    conv whose smallest tile does not fit shared memory, an unsupported
+    dtype, dilation ≠ 1.  Only a CPU tensor takes
+    :func:`conv2d_stream_plain`.
     ``rows_per_block`` pins the output rows per band (default: the
     planner's choice); results do not depend on it.  Non-contiguous
-    operands (a Cout slice of a streamed weight) are made contiguous."""
-    global launches
-    h_out, w_out = _check(x, w, stride, pads, epilogue, dilation)
+    operands (a Cout slice of a streamed weight) are made contiguous.
+    The checks and the plan are worked out once per call signature (the
+    shapes, dtype, stride, pads, epilogue and band), so a repeated call
+    only launches."""
+    (pt, pb), (pl, pr) = pads
+    if not x.is_cuda:
+        _check(x.shape, w.shape, x.dtype, w.dtype, stride, pads, epilogue,
+               dilation)
+        _check_devices(x, w)
+        if rows_per_block is not None and rows_per_block < 1:
+            raise ValueError(
+                f"rows_per_block must be >= 1, got {rows_per_block}")
+        return conv2d_stream_plain(x, w, stride, pads, epilogue)
+    args = _launch_args(x.shape, w.shape, x.dtype, w.dtype, stride,
+                        (pt, pb, pl, pr), epilogue, rows_per_block, dilation)
+    _check_devices(x, w)
+    return _launch(x, w, *args)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_args(x_shape, w_shape, x_dtype, w_dtype, stride, pads4,
+                 epilogue, rows_per_block, dilation):
+    """(output shape, output dtype, plan, the C interface's integer
+    arguments) of one call signature: its checks and its plan (raises
+    where :func:`conv2d_stream` raises; an error is not cached)."""
+    pt, pb, pl, pr = pads4
+    pads = ((pt, pb), (pl, pr))
+    h_out, w_out = _check(x_shape, w_shape, x_dtype, w_dtype, stride, pads,
+                          epilogue, dilation)
     if rows_per_block is not None and rows_per_block < 1:
         raise ValueError(f"rows_per_block must be >= 1, got {rows_per_block}")
-    if not x.is_cuda:
-        return conv2d_stream_plain(x, w, stride, pads, epilogue)
-
-    b, h, wd, cin = x.shape
-    kh, kw, _, cout = w.shape
+    b, _, _, cin = x_shape
+    kh, kw, _, cout = w_shape
     plan = plan_conv_rows(
         h_out=h_out, w_out=w_out, c_in=cin, c_out=cout, kh=kh, kw=kw,
         stride=stride, batch=b, rows=rows_per_block,
     )  # raises ValueError when no tile fits shared memory
+    return _plan_args(x_shape, w_shape, x_dtype, stride, pads, epilogue,
+                      plan, h_out, w_out)
+
+
+def _plan_args(x_shape, w_shape, x_dtype, stride, pads, epilogue, plan,
+               h_out, w_out):
+    b, h, wd, cin = x_shape
+    kh, kw, _, cout = w_shape
+    (pt, _), (pl, _) = pads
     blk = plan.blocks
+    ints = (_DTYPE_CODES[x_dtype], b, h, wd, cin, kh, kw, cout, h_out,
+            w_out, stride, pt, pl, _EPILOGUE_CODES[epilogue], blk["rows"],
+            blk["rows_step"], blk["w_tile"], blk["c_tile"],
+            blk["tile_pixels"], blk["tile_channels"], int(blk["streamed"]),
+            blk["stage_chunks"], blk["threads"])
+    return (b, h_out, w_out, cout), acc_dtype(x_dtype), plan, ints
+
+
+def launch_plan(x, w, stride, pads, epilogue, plan) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that :func:`conv2d_stream` would
+    accept, under a given ``plan`` (a harness's hand-made tiling; the
+    wrapper takes the planner's).  Adds one to ``launches``."""
+    h_out, w_out = _check(x.shape, w.shape, x.dtype, w.dtype, stride, pads,
+                          epilogue, 1)
+    _check_devices(x, w)
+    return _launch(x, w, *_plan_args(x.shape, w.shape, x.dtype, stride, pads,
+                                     epilogue, plan, h_out, w_out))
+
+
+def _launch(x, w, out_shape, out_dtype, plan, ints) -> torch.Tensor:
+    global launches
     x = x.contiguous()
     w = w.contiguous()
-    out = torch.empty((b, h_out, w_out, cout), dtype=acc_dtype(x.dtype),
-                      device=x.device)
+    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
     lib = LIBRARY.load()
-    (pt, _), (pl, _) = pads
+
     def launch() -> int:
         return lib.conv2d_stream_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[x.dtype], b, h, wd, cin, kh, kw, cout,
-            h_out, w_out, stride, pt, pl, _EPILOGUE_CODES[epilogue],
-            blk["rows"], blk["rows_step"], blk["w_tile"], blk["c_tile"],
-            CONV_BLOCK_THREADS,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), *ints,
+            torch.cuda.current_stream(x.device).cuda_stream)
 
     # a launch goes to the calling thread's current device: switch only
     # when the tensors live on another card (the switch costs host time
@@ -264,7 +328,7 @@ def conv2d_stream(
         msg = lib.conv2d_stream_error_string(rc).decode()
         raise RuntimeError(
             f"conv2d_stream launch failed: {msg} (code {rc}); "
-            f"x {tuple(x.shape)} w {tuple(w.shape)} plan {blk} "
+            f"x {tuple(x.shape)} w {tuple(w.shape)} plan {plan.blocks} "
             f"smem {plan.smem_bytes}")
     with _LOCK:
         launches += 1

@@ -7,8 +7,8 @@ exp(cum_t−cum_s)·dt_s·(c_t·b_s)·x_s``, the carried-state term
 ``exp(cum_t)·c_t·S`` and the state update; ``y`` in ``x.dtype`` and the
 final state in f32 — but not block by block.  The TPU's sequential chunk
 grid axis becomes a loop inside one block (``csrc/mamba2_ssd.cu``, CUDA
-C++ for ``sm_90a``) that keeps one head's ``(P, N)`` state in shared
-memory; heads and batch rows are the parallel blocks.  The chunked scan
+C++ for ``sm_90a``) that keeps one head's ``(P, N)`` state on chip;
+heads and batch rows are the parallel blocks.  The chunked scan
 is exact for any chunk, so the kernel walks the sequence in its own tiles
 (:func:`repro_torch.core.dse.plan_ssd_blocks`) and masks a
 ragged last tile: every ``L`` runs.  ``exp`` is taken only for ``s ≤ t``.
@@ -16,13 +16,20 @@ ragged last tile: every ``L`` runs.  ``exp`` is taken only for ``s ≤ t``.
 **What bounds it on an H100.**  At mamba2-1.3b prefill (B 4, L 1024, H 64,
 P 64, N 128, bf16) a call moves ≈ 87 MB (x, b, c, dt, the initial and
 final state, y) and does ≈ 10 GFLOP: the bound is bytes, ≈ 26 µs at
-3.35 TB/s.  This kernel runs its small matrix products
-out of shared memory on the CUDA cores, one block per (batch, head).
+3.35 TB/s.  Each block's walk is serial, so the latency of one tile's
+chain of products is what a kernel has to shorten.
 
 **What the design does about it.**  x, b and c are read once, from the
 column slices the model hands in (their batch and position strides go to
-the kernel, so nothing is copied); y is written once.  Tensor cores and
-several heads per block are later work.
+the kernel, so nothing is copied); y is written once.  In bf16 all four
+products of a tile (c·bᵀ, the gated intra term, the carried term c·Sᵀ and
+the state update) run on the tensor cores (``mma.sync`` m16n8k16, bf16 →
+f32); the (P, N) state stays in f32 accumulator registers for the whole
+walk; the f32 operands — the gated c·bᵀ, the state and x·w — enter as a
+bf16 high part plus a bf16 low part (rounding any of them to bf16 alone
+misses the tolerance); the next tile streams in by ``cp.async`` while
+this one computes.  In f32 the CUDA cores run the products out of shared
+memory (f32 keeps f32 accuracy).
 
 The library is built by ``nvcc`` at first use (``repro_torch.kernels.
 build``).  Beside the kernel sits its plain PyTorch version,
@@ -57,7 +64,8 @@ _LOCK = threading.Lock()
 def _declare(lib) -> None:
     fn = lib.mamba2_ssd_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.mamba2_ssd_error_string.argtypes = [ctypes.c_int]
     lib.mamba2_ssd_error_string.restype = ctypes.c_char_p
@@ -152,17 +160,27 @@ def mamba2_ssd(
     On a CUDA tensor this launches the hand-written kernel on the calling
     thread's current stream (and adds one to ``launches``) or raises: an
     unsupported dtype, shapes that do not fit, a head or state wider than
-    the kernel's tiles.  ``chunk`` is the plain version's; the kernel
-    tiles by itself.  Only a CPU tensor takes :func:`mamba2_ssd_plain`."""
-    global launches
+    the kernel's tiles (the planner raises, on the CPU too).  ``chunk`` is
+    the plain version's; the kernel tiles by itself.  Only a CPU tensor
+    takes :func:`mamba2_ssd_plain`."""
     _check(x, dt, a, b_mat, c_mat, init_state)
     bsz, l, h, p = x.shape
-    n = b_mat.shape[-1]
     plan = plan_ssd_blocks(batch=bsz, length=l, heads=h, head_dim=p,
-                           state_dim=n)           # raises beyond the tiles
+                           state_dim=b_mat.shape[-1],
+                           dtype=str(x.dtype).removeprefix("torch."))
     if not x.is_cuda:
         return mamba2_ssd_plain(x, dt, a, b_mat, c_mat, init_state,
                                 chunk=chunk)
+    return launch_plan(x, dt, a, b_mat, c_mat, init_state, plan)
+
+
+def launch_plan(x, dt, a, b_mat, c_mat, init_state, plan):
+    """Launch the kernel on CUDA tensors with a given ``plan`` (what
+    :func:`mamba2_ssd` does after planning; a timing harness may hand it
+    another of ``dse.SSD_MMA_TILES``).  Adds one to ``launches``."""
+    global launches
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
     x = _rows(x, (p, 1))
     b_mat, c_mat = _rows(b_mat, (1,)), _rows(c_mat, (1,))
     dtf = dt.float().contiguous()
@@ -171,6 +189,7 @@ def mamba2_ssd(
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     sf = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     lib = LIBRARY.load()
+    blk = plan.blocks
 
     def launch() -> int:
         return lib.mamba2_ssd_launch(
@@ -178,7 +197,8 @@ def mamba2_ssd(
             c_mat.data_ptr(), s0.data_ptr(), y.data_ptr(), sf.data_ptr(),
             _DTYPE_CODES[x.dtype], bsz, l, h, p, n,
             x.stride(0), x.stride(1), b_mat.stride(0), b_mat.stride(1),
-            c_mat.stride(0), c_mat.stride(1),
+            c_mat.stride(0), c_mat.stride(1), blk["block_l"],
+            blk["heads_per_block"],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
 
@@ -191,8 +211,8 @@ def mamba2_ssd(
         msg = lib.mamba2_ssd_error_string(rc).decode()
         raise RuntimeError(
             f"mamba2_ssd launch failed: {msg} (code {rc}); x "
-            f"{tuple(x.shape)} N {n} {x.dtype} plan {plan.blocks} smem "
-            f"{plan.smem_bytes}")
+            f"{tuple(x.shape)} N {n} {x.dtype} plan {blk} grid {plan.grid} "
+            f"smem {plan.smem_bytes}")
     with _LOCK:
         launches += 1
     return y, sf

@@ -162,8 +162,19 @@ class TestDeviceDescription:
     def test_plan_conv_rows_is_legal(self, shape):
         plan = tdse.plan_conv_rows(**shape)
         b = plan.blocks
-        assert b["w_tile"] % tdse.CONV_TILE_PIXELS == 0
-        assert b["c_tile"] % tdse.CONV_TILE_CHANNELS == 0
+        tp, tc = b["tile_pixels"], b["tile_channels"]
+        assert (tp, tc) in tdse.CONV_TILES
+        assert b["w_tile"] % tp == 0
+        assert b["c_tile"] % tc == 0
+        # one register tile per thread per step; only a resident block
+        # whose launch is one wave carries more threads (they only load)
+        tiles = b["rows_step"] * (b["w_tile"] // tp) * (b["c_tile"] // tc)
+        assert tiles <= b["threads"] <= tdse.CONV_BLOCK_THREADS
+        gx, gy, gz = plan.grid
+        full = b["threads"] > tiles
+        assert not full or (not b["streamed"]
+                            and b["threads"] == tdse.CONV_BLOCK_THREADS
+                            and gx * gy * gz <= trm.H100.sms)
         assert 1 <= b["rows_step"] <= b["rows"]
         if "rows" in shape:
             assert b["rows"] == shape["rows"]
@@ -173,12 +184,19 @@ class TestDeviceDescription:
         assert plan.smem_bytes == tdse.conv_smem_bytes(
             kh=shape["kh"], kw=shape["kw"], c_in=shape["c_in"],
             stride=shape.get("stride", 1), rows_step=b["rows_step"],
-            w_tile=b["w_tile"], c_tile=b["c_tile"])
-        gx, gy, gz = plan.grid
+            w_tile=b["w_tile"], c_tile=b["c_tile"], streamed=b["streamed"],
+            stage_chunks=b["stage_chunks"])
+        assert b["stage_chunks"] in tdse.CONV_STAGE_CHUNKS
+        assert b["streamed"] or b["stage_chunks"] == 1
+        if not b["streamed"] and not full:  # room for a second block
+            assert plan.smem_bytes <= tdse.CONV_TWO_BLOCKS_SMEM
         assert gy * b["rows"] >= shape["h_out"]
         assert gz == shape.get("batch", 1)
+        assert plan.smem_fill_bytes > 0
 
     def test_plan_conv_rows_raises_when_nothing_fits(self):
+        # streaming Cin in chunks fits any Cin; a 200 x 200 kernel's
+        # weight slice and input slab do not fit even one stage
         with pytest.raises(ValueError, match="shared-memory budget"):
             tdse.plan_conv_rows(h_out=4, w_out=4, c_in=100_000, c_out=4,
-                                kh=3, kw=3)
+                                kh=200, kw=200)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 
+from repro_torch.core import dse as tdse
 from repro_torch.kernels import conv2d_stream as tcs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -225,3 +226,135 @@ class TestPlainVersionAndWrapper:
 
     def test_same_mm_is_a_cpu_function(self):
         assert "CPU" in tops.conv2d_same_mm.__doc__
+
+
+class TestPlanner:
+    """``dse.plan_conv_rows`` for the kernel that streams weights through
+    shared memory in Cin chunks (its planner has no counterpart in the
+    reference: the Pallas kernel's blocks are the TPU's)."""
+
+    HEADLINE = dict(h_out=224, w_out=224, c_in=136, c_out=136, kh=3, kw=3)
+
+    @staticmethod
+    def _work_share(shape, plan):
+        """Output elements over the register-tile slots the launch runs."""
+        b = plan.blocks
+        slots = 0
+        for band_i in range(plan.grid[1]):
+            rows = min(b["rows"], shape["h_out"] - band_i * b["rows"])
+            slots += -(-rows // b["rows_step"])
+        slots *= plan.grid[0] * plan.grid[2] * b["threads"] * \
+            b["tile_pixels"] * b["tile_channels"]
+        return (shape["h_out"] * shape["w_out"] * shape["c_out"]
+                * shape.get("batch", 1)) / slots
+
+    @pytest.mark.parametrize("shape", [
+        dict(h_out=32, w_out=32, c_in=1, c_out=6, kh=5, kw=5, batch=32),
+        dict(h_out=32, w_out=32, c_in=16, c_out=16, kh=3, kw=3, batch=32),
+        dict(h_out=8, w_out=8, c_in=8, c_out=16, kh=3, kw=3, stride=2,
+             batch=32),
+        HEADLINE,
+        dict(HEADLINE, batch=4),
+        dict(h_out=16, w_out=16, c_in=288, c_out=288, kh=3, kw=3),
+        dict(h_out=1, w_out=32, c_in=4096, c_out=10, kh=1, kw=1),
+        dict(h_out=1, w_out=512, c_in=128, c_out=256, kh=1, kw=1),
+        dict(h_out=11, w_out=13, c_in=33, c_out=10, kh=3, kw=3),
+    ], ids=lambda d: "x".join(str(v) for v in d.values()))
+    def test_every_plan_fits_one_block(self, shape):
+        plan = tdse.plan_conv_rows(**shape)
+        assert plan.smem_bytes <= tdse.H100.smem_per_block
+        assert plan.blocks["threads"] <= tdse.CONV_BLOCK_THREADS
+        # the zoo's convs (Cin <= 32) stay resident, 3x3 convs of 136
+        # channels and more stream
+        if shape["c_in"] <= 32:
+            assert not plan.blocks["streamed"]
+        elif shape["kh"] == 3 and shape["c_in"] >= 136:
+            assert plan.blocks["streamed"]
+
+    def test_every_thread_has_work_at_the_headline(self):
+        plan = tdse.plan_conv_rows(**self.HEADLINE)
+        b = plan.blocks
+        assert (b["tile_pixels"], b["tile_channels"]) == (8, 8)
+        # one 8 x 8 tile per thread per step, seven full warps or more
+        assert b["threads"] >= 224
+        # and only the ragged edges of the frame and of Cout leave a
+        # thread without outputs: over 90 % of the tile slots are outputs
+        assert self._work_share(self.HEADLINE, plan) > 0.9
+
+    def test_two_blocks_fit_an_sm_at_the_headline(self):
+        plan = tdse.plan_conv_rows(**self.HEADLINE)
+        assert plan.smem_bytes <= tdse.CONV_TWO_BLOCKS_SMEM
+        assert 2 * plan.smem_bytes + 2 * 1024 <= 228 * 1024
+        # and the launch gives every SM its two blocks
+        gx, gy, gz = plan.grid
+        assert gx * gy * gz >= 2 * tdse.H100.sms
+
+    @pytest.mark.parametrize("c_out", [136, 288, 6, 10])
+    def test_cout_is_covered_without_a_mostly_padded_tile(self, c_out):
+        shape = dict(self.HEADLINE, c_out=c_out)
+        b = tdse.plan_conv_rows(**shape).blocks
+        n_ct = -(-c_out // b["c_tile"])
+        last = c_out - (n_ct - 1) * b["c_tile"]
+        assert 2 * last >= b["c_tile"]
+        if c_out == 136:          # the old planner's 4 x 32 + 8
+            assert n_ct <= 3
+
+    def test_raises_only_where_nothing_fits(self):
+        with pytest.raises(ValueError, match="shared-memory budget"):
+            tdse.plan_conv_rows(**self.HEADLINE, smem_budget=1000)
+        # the budget of one stage pair of the smallest tile is enough
+        smallest = tdse.conv_smem_bytes(kh=3, kw=3, c_in=136, stride=1,
+                                        rows_step=1, w_tile=2, c_tile=4,
+                                        streamed=True)
+        tdse.plan_conv_rows(**self.HEADLINE, smem_budget=smallest)
+
+    def test_fill_bytes_count_halo_rows_and_weights_per_step(self):
+        # one band of two 1-row steps, one tile each way: a streamed step
+        # reads its 3 input rows of 10 pixels x 16 channels and the whole
+        # 3x3x16x8 weight tile, 4 bytes an element
+        assert tdse._conv_fill_bytes(
+            batch=1, h_out=2, n_bands=1, band=2, n_wt=1, n_ct=1,
+            rows_step=1, w_tile=8, c_tile=8, c_in=16, kh=3, kw=3, stride=1,
+            streamed=True) == 4 * 2 * (3 * 10 * 16 + 9 * 16 * 8)
+        # resident: the band's 4 rows once, the weights once
+        assert tdse._conv_fill_bytes(
+            batch=1, h_out=2, n_bands=1, band=2, n_wt=1, n_ct=1,
+            rows_step=1, w_tile=8, c_tile=8, c_in=16, kh=3, kw=3, stride=1,
+            streamed=False) == 4 * (4 * 10 * 16 + 9 * 16 * 8)
+
+    def test_summation_order_is_fixed_by_the_chunk(self):
+        """The chunk of the K loop is a constant of the kernel and of the
+        planner alike, never a field of the plan: a plan only says how
+        many whole chunks a streamed stage holds."""
+        assert tdse.CONV_CIN_CHUNK == 8
+        src = (tcs.LIBRARY.source).read_text()
+        assert "constexpr int CK = 8;" in src
+        for shape in (self.HEADLINE, dict(self.HEADLINE, h_out=16, w_out=16,
+                                          c_in=288, c_out=48)):
+            assert set(tdse.plan_conv_rows(**shape).blocks) == {
+                "rows", "rows_step", "w_tile", "c_tile", "tile_pixels",
+                "tile_channels", "threads", "streamed", "stage_chunks"}
+
+    def test_a_small_deep_conv_takes_one_wave_of_full_resident_blocks(self):
+        # fat_cascade_16's convs, 16²×288→48: the whole weight tile
+        # resident, 256 threads of which those past the tiles only load,
+        # every block in one wave
+        shape = dict(h_out=16, w_out=16, c_in=288, c_out=48, kh=3, kw=3)
+        plan = tdse.plan_conv_rows(**shape)
+        b = plan.blocks
+        tiles = b["rows_step"] * (b["w_tile"] // b["tile_pixels"]) * (
+            b["c_tile"] // b["tile_channels"])
+        assert not b["streamed"] and b["threads"] == 256 > tiles
+        gx, gy, gz = plan.grid
+        assert gx * gy * gz <= tdse.H100.sms
+        # with six times the channels the launch is no longer one wave:
+        # it streams, several chunks a stage
+        wide = tdse.plan_conv_rows(**dict(shape, c_out=288)).blocks
+        assert wide["streamed"] and wide["stage_chunks"] > 1
+        # and Dense layers (1×1) keep streaming their deep Cin
+        dense = tdse.plan_conv_rows(h_out=1, w_out=32, c_in=2048, c_out=64,
+                                    kh=1, kw=1).blocks
+        assert dense["streamed"]
+        assert dense["threads"] == dense["rows_step"] * (
+            dense["w_tile"] // dense["tile_pixels"]) * (
+            dense["c_tile"] // dense["tile_channels"])

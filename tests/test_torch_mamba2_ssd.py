@@ -10,6 +10,8 @@ reference's tolerances (1e-3 kernel vs recurrence, 1e-4 oracle vs
 oracle), plus bf16 (1e-2: both round an f32 result to bf16).  The CUDA
 kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` and by the ``cuda``-marked test below."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -212,11 +214,20 @@ def test_cpu_call_never_builds_or_loads_the_library(monkeypatch):
 
 class TestPlanner:
     def test_model_shape(self):
+        # bf16, the call mamba2-1.3b makes: the tensor-core route, 64
+        # positions and two heads a block, one block an SM
         p = dse.plan_ssd_blocks(batch=4, length=1024, heads=64, head_dim=64,
-                                state_dim=128)
-        assert p.grid == 256 and p.blocks["block_l"] == dse.SSD_BLOCK_L == 32
-        # two blocks share an SM's 228 KB
-        assert p.smem_bytes == 78_980 and 2 * p.smem_bytes < 228 * 1024
+                                state_dim=128, dtype="bfloat16")
+        assert p.blocks == {"route": "mma", "block_l": 64,
+                            "heads_per_block": 2}
+        assert p.grid == 128 and p.smem_bytes == 178_720
+        assert p.smem_bytes <= dse.H100.smem_per_block
+        # f32 keeps the CUDA-core kernel: 32 positions, two blocks an SM
+        q = dse.plan_ssd_blocks(batch=4, length=1024, heads=64, head_dim=64,
+                                state_dim=128, dtype="float32")
+        assert q.grid == 256 and q.blocks["block_l"] == dse.SSD_BLOCK_L == 32
+        assert q.blocks["route"] == "cuda_core"
+        assert q.smem_bytes == 78_980 and 2 * q.smem_bytes < 228 * 1024
 
     def test_odd_pitch(self):
         even = dse.ssd_smem_bytes(head_dim=16, state_dim=16)
@@ -224,12 +235,169 @@ class TestPlanner:
         assert even == odd        # N 16 takes the pitch 17, as N 17 does
 
     def test_limits(self):
-        with pytest.raises(ValueError, match="head_dim"):
-            dse.plan_ssd_blocks(batch=1, length=8, heads=1, head_dim=65,
-                                state_dim=8)
-        with pytest.raises(ValueError, match="empty"):
-            dse.plan_ssd_blocks(batch=1, length=0, heads=1, head_dim=8,
-                                state_dim=8)
+        for dtype in ("float32", "bfloat16"):
+            with pytest.raises(ValueError, match="head_dim"):
+                dse.plan_ssd_blocks(batch=1, length=8, heads=1, head_dim=65,
+                                    state_dim=8, dtype=dtype)
+            with pytest.raises(ValueError, match="state_dim"):
+                dse.plan_ssd_blocks(batch=1, length=8, heads=1, head_dim=8,
+                                    state_dim=129, dtype=dtype)
+            with pytest.raises(ValueError, match="empty"):
+                dse.plan_ssd_blocks(batch=1, length=0, heads=1, head_dim=8,
+                                    state_dim=8, dtype=dtype)
+
+    @pytest.mark.parametrize("batch,tile", [(2, dse.SSD_MMA_NARROW),
+                                            (80, dse.SSD_MMA_WIDE)])
+    def test_every_bf16_tile_fits_one_block(self, batch, tile):
+        # the planner's own choice: two rows of three heads leave the card
+        # idle (narrow tile), eighty rows fill it (wide tile)
+        q, hb = tile
+        p = dse.plan_ssd_blocks(batch=batch, length=100, heads=3, head_dim=8,
+                                state_dim=8, dtype="bfloat16")
+        assert (p.blocks["block_l"], p.blocks["heads_per_block"]) == tile
+        # the tiles are padded: P and N do not change the footprint
+        assert p.smem_bytes == dse.ssd_mma_smem_bytes(block_l=q,
+                                                      heads_per_block=hb)
+        assert p.smem_bytes <= dse.H100.smem_per_block
+        assert p.grid == batch * -(-3 // hb)   # an odd H leaves a group idle
+
+    def test_mma_smem_formula(self):
+        # c and b, two stages of 32 x 136 bf16; per head x (two stages of
+        # 32 x 72), the state's hi and lo (64 x 136 each), dt (two stages)
+        # and three f32 vectors of 32, and 16 bytes
+        assert dse.ssd_mma_smem_bytes(block_l=32, heads_per_block=1) == (
+            2 * 2 * 32 * 136 * 2
+            + (2 * 32 * 72 + 2 * 64 * 136) * 2 + 5 * 32 * 4 + 16)
+
+    def test_small_batches_take_the_narrow_tile(self):
+        # one batch row of 64 heads in pairs is 32 blocks for 132 SMs
+        p = dse.plan_ssd_blocks(batch=1, length=1024, heads=64, head_dim=64,
+                                state_dim=128, dtype="bfloat16")
+        assert (p.blocks["block_l"], p.blocks["heads_per_block"]) == \
+            dse.SSD_MMA_NARROW and p.grid == 64
+
+    def test_tiles_the_route_lacks_raise(self):
+        with pytest.raises(ValueError, match="no route"):
+            dse.plan_ssd_blocks(batch=1, length=8, heads=1, head_dim=8,
+                                state_dim=8, dtype="float16")
+        # the launcher takes exactly the tiles the planner may pick (the
+        # bf16 kernel's instantiations, and the f32 kernel's one tile)
+        # and refuses any other plan
+        src = tms.LIBRARY.source.read_text()
+        body = src[src.index("int mamba2_ssd_launch("):]
+        bf16 = set(re.findall(r"block_l == (\d+) && heads_per_block == (\d+)",
+                              body))
+        assert {(int(q), int(hb)) for q, hb in bf16} == set(dse.SSD_MMA_TILES)
+        assert "if (block_l != QT || heads_per_block != 1) return " \
+            "(int)cudaErrorInvalidValue;" in body
+        assert re.search(r"constexpr int QT = %d;" % dse.SSD_BLOCK_L, src)
+
+
+def _tensor_core_walk(x, dt, a, b_mat, c_mat, s0, *, block_l, split):
+    """The bf16 kernel's arithmetic written out on the CPU: tiles of
+    ``block_l`` positions; c·bᵀ from the bf16 operands with f32 sums
+    (exact products); the gated c·bᵀ (G), the state (S) and x·w each fed
+    to its product as bf16 — a high part plus a low part where ``split``
+    names it, the high part alone where it does not; every sum in f32; y
+    rounded to bf16 once.  ``split=None`` feeds every operand unrounded."""
+    bf = torch.bfloat16
+
+    def feed(v, name):
+        if split is None:
+            return v
+        hi = v.to(bf).float()
+        return hi + (v - hi).to(bf).float() if name in split else hi
+
+    bsz, l, h, p = x.shape
+    xf, bf_, cf = x.float(), b_mat.float(), c_mat.float()
+    state, ys = s0.clone(), []
+    for l0 in range(0, l, block_l):
+        sl = slice(l0, min(l, l0 + block_l))
+        xq, dq, bq, cq = xf[:, sl], dt[:, sl], bf_[:, sl], cf[:, sl]
+        q = xq.shape[1]
+        cum = torch.cumsum(dq * a, 1)                          # (B, Q, H)
+        tri = torch.tril(torch.ones(q, q, dtype=torch.bool))[None, :, :, None]
+        rel = torch.where(tri, cum[:, :, None] - cum[:, None], 0.0)
+        cb = torch.einsum("btn,bsn->bts", cq, bq)
+        g = torch.where(tri, cb[..., None] * torch.exp(rel) * dq[:, None],
+                        0.0)
+        y = torch.einsum("btsh,bshp->bthp", feed(g, "G"), xq)
+        y = y + torch.einsum("btn,bhpn->bthp", cq, feed(state, "S")) \
+            * torch.exp(cum)[..., None]
+        ys.append(y)
+        w = dq * torch.exp(cum[:, -1:] - cum)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + \
+            torch.einsum("bshp,bsn->bhpn", feed(xq * w[..., None], "xw"), bq)
+    return torch.cat(ys, 1).to(x.dtype), state
+
+
+def _share_of_tolerance(got, want, tol):
+    """max |got - want| / (tol + tol·|want|): 1.0 is the limit of
+    ``chip_smoke._close``."""
+    g, w = _np(got), _np(want)
+    return float((np.abs(g - w) / (tol + tol * np.abs(w))).max())
+
+
+def _model_width_inputs(seed):
+    """mamba2-1.3b's head and state widths (P 64, N 128), few heads, a
+    sequence of 512 — chip_smoke's distributions, drawn with NumPy."""
+    arrs = _inputs(seed, b=2, l=512, h=3, p=64, n=128)
+    return arrs, _t(arrs, torch.bfloat16)
+
+
+@pytest.mark.parametrize("block_l", [32, 64])
+def test_tensor_core_rounding_meets_the_tolerance(block_l):
+    """G, S and x·w as bf16 high + low parts: y stays within 0.7 of
+    ``SSD_TOL["bfloat16"]`` of the reference's ``ref.ssd`` on the same
+    bf16 inputs (0.57-0.60 on these draws: what remains is one bf16 step
+    of y), and the final state within 0.05 of the f32 state tolerance
+    (0.004-0.008)."""
+    import chip_smoke
+
+    for seed in (20, 21):
+        arrs, (x, dt, a, bm, cm) = _model_width_inputs(seed)
+        s0 = torch.zeros(2, 3, 64, 128)
+        y, s = _tensor_core_walk(x, dt, a, bm, cm, s0, block_l=block_l,
+                                 split={"G", "S", "xw"})
+        jy, js = jref.ssd(*_j(arrs, "bfloat16"))
+        assert _share_of_tolerance(y, jy, chip_smoke.SSD_TOL["bfloat16"]) \
+            <= 0.7
+        assert _share_of_tolerance(s, js, chip_smoke.SSD_TOL["float32"]) \
+            <= 0.05
+
+
+@pytest.mark.parametrize("alone", ["G", "S", "xw"])
+def test_rounding_an_operand_to_bf16_alone_misses_the_tolerance(alone):
+    """Why every f32 operand enters as two parts: rounding any one of G,
+    S or x·w to bf16 alone (the others split) puts y (G: 1.9-2.1× its
+    tolerance, S: 0.9-1.3×) or the state (x·w: 3.2-4.9×) past its
+    tolerance against ``ref.ssd`` on at least one of two seeded draws at
+    mamba2-1.3b's widths."""
+    import chip_smoke
+
+    worst = 0.0
+    for seed in (20, 21):
+        arrs, (x, dt, a, bm, cm) = _model_width_inputs(seed)
+        s0 = torch.zeros(2, 3, 64, 128)
+        y, s = _tensor_core_walk(x, dt, a, bm, cm, s0, block_l=64,
+                                 split={"G", "S", "xw"} - {alone})
+        jy, js = jref.ssd(*_j(arrs, "bfloat16"))
+        worst = max(worst,
+                    _share_of_tolerance(y, jy, chip_smoke.SSD_TOL["bfloat16"]),
+                    _share_of_tolerance(s, js, chip_smoke.SSD_TOL["float32"]))
+    assert worst > 1.0
+
+
+def test_the_walk_without_rounding_is_the_chunked_scan():
+    """The emulation above is the chunked scan itself when nothing is
+    rounded: it matches ``ref.ssd_chunked`` in f32 (the tests of the
+    rounding measure the rounding, not a different algorithm)."""
+    arrs = _inputs(22, b=2, l=100, h=3, p=8, n=8)
+    x, dt, a, bm, cm = _t(arrs)
+    s0 = torch.zeros(2, 3, 8, 8)
+    got = _tensor_core_walk(x, dt, a, bm, cm, s0, block_l=32, split=None)
+    exact = tref.ssd_chunked(x, dt, a, bm, cm, chunk=25)
+    _close(got, exact, ORACLE_TOL)
 
 
 @pytest.mark.cuda
