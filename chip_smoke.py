@@ -38,7 +38,27 @@ Phases, each printing one JSON object on a line of its own:
 5. ``serve``      ``ServeEngine`` answers 256 requests per zoo model (16 for
                   ``deep_cascade_224``) from the open-loop load generator;
                   every answer must equal the direct run;
-6. ``attn_check`` the hand-written flash-attention kernel against its plain
+6. ``frontends``  the ONNX goldens (``tests/golden/lenet5.onnx``,
+                  ``resnet_tiny.onnx``) imported, compiled for KV260 and
+                  ZU3EG and run on the card with their weights: bit-exact
+                  with the NumPy NCHW oracles of ``tests/_onnx_fixture.py``
+                  and with the port's ``device="cpu"`` run; every zoo model
+                  through its model card, bit-exact with the builder
+                  graph's run (``card_json("lenet5")`` must be
+                  ``examples/lenet5.json``); an ONNX model at
+                  ``deep_cascade_224``'s widths (int8 input 1×3×224×224,
+                  (Conv 3×3 + bias, Relu) × 4 at 3→136→136→136→136,
+                  MaxPool 8×8, seeded weights) imported from a file,
+                  partitioned for KV260, bit-exact with its CPU run
+                  (int32, wrapping), five warm calls timed;
+7. ``cli``        ``python -m repro_torch``'s ``main`` in process: ``list``,
+                  ``zoo --export``, ``compile resnet_tiny.onnx --run``,
+                  ``compile deep_cascade_224 --emit --run --trace``, ``lint
+                  --all`` and ``profile deep_cascade_224`` for both targets
+                  (5 reps, ``--json chiprun_out/chip_smoke/profile.json``),
+                  each exiting 0; the profile measured on the card, every
+                  group above 0 ms, its provenance naming the card;
+8. ``attn_check`` the hand-written flash-attention kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
                   = rtol = 2e-5 and bf16 (tensor cores) within 3e-2 (the
                   reference's tolerances), over the llama3.2-1b /
@@ -48,7 +68,7 @@ Phases, each printing one JSON object on a line of its own:
                   S 1; then timed at the model shapes beside the plain
                   version, the roofline bound and
                   ``F.scaled_dot_product_attention`` as yardstick;
-7. ``mlp_check``  the hand-written fused-MLP kernel against its plain
+9. ``mlp_check``  the hand-written fused-MLP kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
                   = rtol = 5e-4 and bf16 (tensor cores, a cluster per row
                   tile) within 1e-2, gated and ungated, the four
@@ -58,13 +78,13 @@ Phases, each printing one JSON object on a line of its own:
                   timed at llama3.2-1b's prefill and decode shapes beside
                   the plain version, the roofline bound and the dense MLP
                   (three cuBLAS matmuls) as yardstick;
-8. ``mlp_probe``  where the bf16 fused MLP's time goes at llama3.2-1b's
+10. ``mlp_probe`` where the bf16 fused MLP's time goes at llama3.2-1b's
                   prefill and decode shapes: the whole kernel timed beside
                   a timing build of the same source (``-DFUSED_MLP_PROBE``,
                   a library of its own that only this phase loads) with
                   its cluster exchange, its mma or its weight loads
                   switched off (those results are wrong and unchecked);
-9. ``ssd_check``  the hand-written SSD kernel against its plain version on
+11. ``ssd_check`` the hand-written SSD kernel against its plain version on
                   the card, f32 (CUDA cores) within 1e-3 and bf16 (tensor
                   cores) within 1e-2 (final state 1e-3), chunks 1-1023, L
                   32-1024 with ragged tiles (37, 1023), B 1-4, P 7-64, N
@@ -74,7 +94,7 @@ Phases, each printing one JSON object on a line of its own:
                   mamba2-1.3b's prefill shape, bf16 also under both tiles
                   of positions × heads a block the planner picks from (no
                   library call computes an SSD scan);
-10. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
+12. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
                   (random bf16 weights from a seed, on the card) generate
                   32 tokens greedily for 4 prompts of 1024; prefill logits
                   are held against the same engine with
@@ -86,7 +106,7 @@ Phases, each printing one JSON object on a line of its own:
                   launch per layer and call, and one flash launch per
                   layer of the prefill), logits held against the dense
                   engine, and its prefill split the same way;
-11. ``ssm_serve`` mamba2-1.3b at full width and depth (random bf16 weights
+13. ``ssm_serve`` mamba2-1.3b at full width and depth (random bf16 weights
                   from a seed) generates 32 tokens greedily for 4 prompts of
                   1024 (one SSD launch per layer of a prefill); one decode
                   step after a 1023-token prefill is held against a
@@ -95,8 +115,10 @@ Phases, each printing one JSON object on a line of its own:
                   against the port's own CPU run on the same weights.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
-just after phase 5, the attention and fused-MLP kernels' just before and
-after phase 10, the SSD kernel's just before and after phase 11; the run
+just after phase 5, and again just before phase 6 and after phase 7 (the
+``kernels`` line adds both counts); the attention and fused-MLP kernels'
+just before and after phase 12, the SSD kernel's just before and after
+phase 13; the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -124,8 +146,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_check", "main_path", "serve",
-          "attn_check", "mlp_check", "mlp_probe", "ssd_check", "lm_serve",
-          "ssm_serve")
+          "frontends", "cli", "attn_check", "mlp_check", "mlp_probe",
+          "ssd_check", "lm_serve", "ssm_serve")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -166,7 +188,8 @@ def _timed_out(signum, frame):
 DETAIL_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 #: keys left out of the compact lines (they stay in the detail files)
 VERBOSE_KEYS = ("shapes", "top_kernels", "wall_ms_each",
-                "logit_gaps_vs_dense", "decode_step_ms", "libraries")
+                "logit_gaps_vs_dense", "decode_step_ms", "libraries",
+                "outputs")
 #: what a compact per-shape row of the ``kernels`` line keeps
 SHAPE_KEYS = ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
               "library_ms")
@@ -739,7 +762,291 @@ def serve(torch, arts, models=ZOO_MODELS + ("deep_cascade_224",)) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the flash-attention kernel vs its plain version on the card
+# phases 6 and 7: the imported and the command-line paths
+# ---------------------------------------------------------------------------
+
+#: the ONNX goldens: (file under tests/golden, NumPy NCHW oracle and its
+#: weights in tests/_onnx_fixture.py, input shape, input seed)
+ONNX_GOLDENS = (
+    ("lenet5.onnx", "lenet5_numpy", "lenet5_weights", (1, 1, 32, 32), 7),
+    ("resnet_tiny.onnx", "resnet_tiny_numpy", "resnet_tiny_weights",
+     (1, 3, 16, 16), 17),
+)
+#: an ONNX model at ``deep_cascade_224``'s widths: int8 input, (Conv 3×3
+#: SAME + int32 bias, Relu) × 4 over these channels, then MaxPool 8×8 /
+#: 8.  The head is there because an NCHW output keeps the importer's
+#: NHWC→NCHW bridge, and that transpose alone exceeds either target's
+#: BRAM at 224²×136 (a ``PartitionError`` in both packages); 28²×136
+#: fits, and each of its values reads 64 of the last conv's outputs
+WIDE_ONNX_CHANNELS = (3, 136, 136, 136, 136)
+WIDE_ONNX_SIZE = 224
+WIDE_ONNX_POOL = 8
+WIDE_ONNX_SEED = 0
+
+
+def onnx_fixture():
+    """``tests/_onnx_fixture.py`` (NumPy only): the goldens' NumPy NCHW
+    oracles and the protobuf encoder, loaded by path — nothing else of
+    ``tests/`` is imported."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "_onnx_fixture.py")
+    spec = importlib.util.spec_from_file_location("_onnx_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def wide_onnx_bytes(fx) -> bytes:
+    """The full-width model as ONNX bytes, weights in [-4, 4] (int8) and
+    biases in [-8, 8] (int32) from :data:`WIDE_ONNX_SEED`."""
+    import numpy as np
+
+    rng = np.random.default_rng(WIDE_ONNX_SEED)
+    chans = WIDE_ONNX_CHANNELS
+    nodes, inits, src = [], [], "input"
+    conv_attrs = (fx.attr_ints("kernel_shape", [3, 3]),
+                  fx.attr_ints("strides", [1, 1]),
+                  fx.attr_ints("pads", [1, 1, 1, 1]))
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        inits += [
+            fx.tensor(f"conv{i}_w", rng.integers(
+                -4, 5, (cout, cin, 3, 3)).astype(np.int8)),
+            fx.tensor(f"conv{i}_b", rng.integers(
+                -8, 9, (cout,)).astype(np.int32)),
+        ]
+        nodes += [fx.node("Conv", [src, f"conv{i}_w", f"conv{i}_b"],
+                          [f"c{i}"], f"conv{i}", conv_attrs),
+                  fx.node("Relu", [f"c{i}"], [f"r{i}"], f"relu{i}")]
+        src = f"r{i}"
+    pool, n = WIDE_ONNX_POOL, WIDE_ONNX_SIZE
+    nodes.append(fx.node("MaxPool", [src], ["pool"], "pool", (
+        fx.attr_ints("kernel_shape", [pool, pool]),
+        fx.attr_ints("strides", [pool, pool]))))
+    return fx.model(fx.graph(
+        "wide_cascade_224", nodes, inits,
+        [fx.value_info("input", (1, chans[0], n, n), fx.INT8)],
+        [fx.value_info("pool", (1, chans[-1], n // pool, n // pool),
+                       fx.INT32)]))
+
+
+def _same_bits(what: str, got, want) -> None:
+    import numpy as np
+
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {got.dtype}{got.shape} differs from "
+                             f"{want.dtype}{want.shape}")
+
+
+def frontends(torch) -> dict:
+    """(a) the ONNX goldens imported, compiled for both targets and run on
+    the card against their NumPy oracles and the port's CPU run; (b) every
+    zoo model through its model card against the builder graph; (c) an
+    ONNX model at full width against the port's CPU run."""
+    import tempfile
+
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.frontends import import_card, import_model, zoo
+    from repro_torch.kernels import conv2d_stream as cs
+
+    fx = onnx_fixture()
+    goldens = []
+    for fname, oracle, weights, shape, seed in ONNX_GOLDENS:
+        m = import_model(os.path.join(ROOT, "tests", "golden", fname))
+        x = np.random.default_rng(seed).integers(-4, 5, shape).astype(
+            np.int32)
+        xin = {m.dfg.graph_inputs[0]: x}
+        want = getattr(fx, oracle)(x.astype(np.int64),
+                                   getattr(fx, weights)(0))
+        for target in ("kv260", "zu3eg"):
+            art = repro_torch.compile_graph(m.dfg, target=target)
+            before = cs.launches
+            got = art.run(xin, m.params)                     # on the card
+            launched = cs.launches - before
+            _same_bits(f"{fname} @ {target}: card vs device='cpu'", got,
+                       art.run(xin, m.params, device="cpu"))
+            _same_bits(f"{fname} @ {target}: card vs NumPy oracle",
+                       got.astype(np.int64), want)
+            goldens.append({"model": fname, "target": target,
+                            "groups": len(art.design.groups),
+                            "launches_per_run": launched,
+                            "equals_cpu": True, "equals_oracle": True})
+
+    with open(os.path.join(ROOT, "examples", "lenet5.json")) as f:
+        if zoo.card_json("lenet5") != f.read():
+            raise AssertionError("card_json('lenet5') != examples/lenet5.json")
+    cards = []
+    for name in ZOO_MODELS:
+        built = repro_torch.compile_graph(zoo.ZOO[name](), target="kv260")
+        carded = repro_torch.compile_graph(
+            import_card(zoo.card_json(name)).dfg, target="kv260")
+        inputs, params = _numpy_env(built.source, seed=5)
+        before = cs.launches
+        got = carded.run(inputs, params)
+        launched = cs.launches - before
+        _check_output(f"{name} card", got, carded.source)
+        _same_bits(f"{name}: card import vs builder graph", got,
+                   built.run(inputs, params))
+        cards.append({"model": name, "launches_per_run": launched,
+                      "equals_builder": True})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wide_cascade_224.onnx")
+        with open(path, "wb") as f:
+            f.write(wide_onnx_bytes(fx))
+        m = import_model(path)
+    t0 = time.perf_counter()
+    art = repro_torch.compile_graph(m.dfg, target="kv260")
+    compile_s = time.perf_counter() - t0
+    if len(art.design.groups) < 2:
+        raise AssertionError("the full-width ONNX model did not partition")
+    n = WIDE_ONNX_SIZE
+    xin = {m.dfg.graph_inputs[0]: np.random.default_rng(6).integers(
+        -4, 5, (1, WIDE_ONNX_CHANNELS[0], n, n)).astype(np.int8)}
+    before = cs.launches
+    got = art.run(xin, m.params)
+    launched = cs.launches - before
+    n //= WIDE_ONNX_POOL
+    if got.shape != (1, WIDE_ONNX_CHANNELS[-1], n, n):
+        raise AssertionError(f"full-width ONNX model: shape {got.shape}")
+    t0 = time.perf_counter()
+    _same_bits("full-width ONNX model: card vs device='cpu'", got,
+               art.run(xin, m.params, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(5):
+        art.run(xin, m.params)
+    warm_ms = (time.perf_counter() - t0) * 1e3 / 5
+    wide = {"model": "wide_cascade_224.onnx", "target": "kv260",
+            "groups": len(art.design.groups), "compile_s": compile_s,
+            "launches_per_run": launched, "warm_run_ms": warm_ms,
+            "cpu_run_s": cpu_s, "equals_cpu": True,
+            "max_out": int(got.max())}
+    return {"goldens": goldens, "cards": cards,
+            "lenet5_card_equals_example": True, "full_width": wide}
+
+
+def _cli_rows(commands, main, cs):
+    """Run ``python -m repro_torch``'s ``main`` on each argv in process
+    (so the conv kernel's counters see its launches), its output
+    captured; fails on the first that does not exit 0."""
+    import contextlib
+    import io
+
+    rows = []
+    for argv in commands:
+        out, err = io.StringIO(), io.StringIO()
+        before = cs.launches
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        rows.append({"argv": argv, "rc": rc,
+                     "seconds": time.perf_counter() - t0,
+                     "conv_launches": cs.launches - before,
+                     "stdout": out.getvalue(), "stderr": err.getvalue()})
+        if rc != 0:
+            raise AssertionError(
+                f"python -m repro_torch {' '.join(argv)} exited {rc}: "
+                f"{err.getvalue()[-2000:]}")
+    return rows
+
+
+def cli(torch, smi: str, kind: str) -> dict:
+    """``python -m repro_torch``'s commands, each exiting 0; the profile
+    document of ``deep_cascade_224`` measured on the card and naming it."""
+    import tempfile
+
+    from repro_torch.__main__ import main as cli_main
+    from repro_torch.kernels import conv2d_stream as cs
+
+    os.makedirs(DETAIL_DIR, exist_ok=True)
+    profile_path = os.path.join(DETAIL_DIR, "profile.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        hls, trace = os.path.join(tmp, "hls"), os.path.join(tmp, "t.json")
+        rows = _cli_rows([
+            ["list"],
+            ["zoo", "--export", os.path.join(tmp, "cards")],
+            ["compile", os.path.join(ROOT, "tests", "golden",
+                                     "resnet_tiny.onnx"), "--run"],
+            ["compile", "deep_cascade_224", "--emit", hls, "--run",
+             "--trace", trace],
+            ["lint", "--all"],
+            ["profile", "deep_cascade_224", "--target", "kv260", "--target",
+             "zu3eg", "--reps", "5", "--json", profile_path],
+        ], cli_main, cs)
+        emitted = sorted(os.listdir(hls))
+        with open(trace) as f:
+            trace_events = len(json.load(f)["traceEvents"])
+        cards = sorted(os.listdir(os.path.join(tmp, "cards")))
+        for row in rows:      # paths of this run, as the detail file shows
+            row["argv"] = [a.replace(tmp, "<tmp>").replace(ROOT + "/", "")
+                           for a in row["argv"]]
+    for row in rows[2:4]:
+        if "ran OK" not in row["stdout"]:
+            raise AssertionError(f"{row['argv']}: no 'ran OK'")
+    if "host_schedule.cpp" not in emitted or not trace_events:
+        raise AssertionError("compile --emit/--trace wrote nothing")
+    if cards != [f"{m}.json" for m in sorted(ZOO_MODELS)]:
+        raise AssertionError(f"zoo --export wrote {cards}")
+
+    with open(profile_path) as f:
+        doc = json.load(f)
+    card = doc["provenance"].get("device") or {}
+    if card.get("name") != kind or card.get("nvidia_smi") != smi:
+        raise AssertionError(f"the profile's provenance names {card}, "
+                             f"not {kind!r} / {smi!r}")
+    measured = {}
+    for prof in doc["profiles"]:
+        if prof["device"] != "cuda":
+            raise AssertionError(f"profile measured on {prof['device']}")
+        if any(g["measured_ms"] <= 0 for g in prof["groups"]):
+            raise AssertionError(f"{prof['target']}: a group measured 0 ms")
+        measured[prof["target"]] = [
+            {"group": g["group"], "measured_ms": g["measured_ms"],
+             "modeled_ms": g["modeled_ms"], "ratio": g["ratio"]}
+            for g in prof["groups"]]
+    return {
+        "commands": [{k: r[k] for k in ("argv", "rc", "seconds",
+                                        "conv_launches")} for r in rows],
+        "outputs": [{"stdout": r["stdout"], "stderr": r["stderr"]}
+                    for r in rows],
+        "emitted": emitted, "trace_events": trace_events,
+        "profile": os.path.relpath(profile_path, ROOT),
+        "profile_device": card, "measured_vs_modeled": measured,
+        "env_copy": env_copy(torch, "deep_cascade_224"),
+    }
+
+
+def env_copy(torch, name: str) -> dict:
+    """The host→card move of the env a profiled run binds (its inputs and
+    weights, ``random_env`` drawn on the host): ``CompiledArtifact.run``
+    makes it before the first group, so no group's ``measured_ms`` holds
+    it.  Min of 5, host clock, the device synchronized on both sides."""
+    import repro_torch
+    from repro_torch.device import env_to_device, synchronize
+    from repro_torch.passes import interp
+
+    src = repro_torch.compile_graph(repro_torch.suite()[name](),
+                                    target="kv260").source
+    host = interp.random_env(src, seed=0, device="cpu")
+    card = torch.device("cuda")
+    times = []
+    for _ in range(5):
+        synchronize(card)
+        t0 = time.perf_counter()
+        env_to_device(host, card)
+        synchronize(card)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"model": name, "entries": len(host),
+            "bytes": sum(v.numel() * v.element_size() for v in host.values()),
+            "ms": min(times)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the flash-attention kernel vs its plain version on the card
 # ---------------------------------------------------------------------------
 
 #: (name, B, Hq, Hkv, Sq, Sk, D, causal, q_offset) — checked in f32 and bf16
@@ -861,7 +1168,7 @@ def attn_check(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the fused-MLP kernel vs its plain version on the card
+# phase 9: the fused-MLP kernel vs its plain version on the card
 # ---------------------------------------------------------------------------
 
 #: (name, M, D, F, gated, act) — checked in f32 and bf16
@@ -1095,7 +1402,7 @@ def mlp_probe(torch, probe_lib) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the SSD kernel vs its plain version on the card
+# phase 11: the SSD kernel vs its plain version on the card
 # ---------------------------------------------------------------------------
 
 #: (name, B, L, H, P, N, chunk) — checked in f32 and bf16 (x, b, c; dt and
@@ -1318,7 +1625,7 @@ def ssd_slices_and_state(torch, gen, ms, worst) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the LM server at full width
+# phase 12: the LM server at full width
 # ---------------------------------------------------------------------------
 
 LM_MODELS = ("llama3.2-1b", "qwen2-0.5b")
@@ -1560,7 +1867,7 @@ def _streamed_mlp(torch, eng, cfg, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the Mamba-2 server at full width
+# phase 13: the Mamba-2 server at full width
 # ---------------------------------------------------------------------------
 
 SSM_ARCH = "mamba2-1.3b"
@@ -1751,14 +2058,28 @@ def main(argv=None) -> int:
         emit_phase("main_path", result)
     if "serve" in phases:
         emit_phase("serve", serve(torch, arts))
-    launches, plain_cuda = cs.launches, cs.plain_cuda_calls   # read after
-    if arts is not None:
-        if launches < 1:
-            raise AssertionError("the main path never launched conv2d_stream")
-        if plain_cuda:
+    def read_after(mod, name: str, path: str) -> int:
+        """The counts of ``mod`` after ``path`` ran; fails if its kernel
+        never launched there or its plain version ran on a CUDA tensor."""
+        if mod.launches < 1:
+            raise AssertionError(f"the {path} path never launched {name}")
+        if mod.plain_cuda_calls:
             raise AssertionError(
-                f"the plain version ran {plain_cuda} time(s) on a CUDA "
-                "tensor on the main path")
+                f"{name}'s plain version ran {mod.plain_cuda_calls} time(s) "
+                f"on a CUDA tensor on the {path} path")
+        return mod.launches
+
+    launches = 0
+    if arts is not None:
+        launches = read_after(cs, "conv2d_stream", "main")     # read after
+    cs.reset_counts()         # counts: zero before the imported and CLI paths
+    if "frontends" in phases:
+        emit_phase("frontends", frontends(torch))
+    if "cli" in phases:
+        emit_phase("cli", cli(torch, smi, kind))
+    if "frontends" in phases or "cli" in phases:
+        launches += read_after(cs, "conv2d_stream",               # after
+                               "imported and command-line")
 
     attn = mlp = ssd = None
     if "attn_check" in phases:
@@ -1772,17 +2093,6 @@ def main(argv=None) -> int:
     if "ssd_check" in phases:
         ssd = ssd_check(torch)
         emit_phase("ssd_check", ssd)
-
-    def read_after(mod, name: str, path: str) -> int:
-        """The counts of ``mod`` after ``path`` ran; fails if its kernel
-        never launched there or its plain version ran on a CUDA tensor."""
-        if mod.launches < 1:
-            raise AssertionError(f"the {path} path never launched {name}")
-        if mod.plain_cuda_calls:
-            raise AssertionError(
-                f"{name}'s plain version ran {mod.plain_cuda_calls} time(s) "
-                f"on a CUDA tensor on the {path} path")
-        return mod.launches
 
     fa.reset_counts()                  # counts: zero before the LM path
     fm.reset_counts()

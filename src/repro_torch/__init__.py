@@ -13,12 +13,17 @@ loads only when a kernel path actually runs)::
 
 Subsystems keep their own namespaces: ``repro_torch.core`` (IR, analysis,
 streaming, DSE, resource model, emit), ``repro_torch.passes`` (rewrites +
-partitioner), ``repro_torch.kernels`` (CUDA kernels, their plain versions, the
-group lowering), and the LM stack: ``repro_torch.configs``,
+partitioner), ``repro_torch.frontends`` (the ONNX reader, the model-card
+format, the zoo), ``repro_torch.instrument`` (tracing, metrics, the
+modeled-vs-measured profiler), ``repro_torch.kernels`` (CUDA kernels,
+their plain versions, the group lowering), and the LM stack:
+``repro_torch.configs``,
 ``repro_torch.models`` (layers, Mamba-2, the dense and SSM LM) and
 ``repro_torch.launch`` (serve steps, the LM server).
 ``lm_params_from_numpy`` carries the reference's LM parameters across, as
-``params_from_numpy`` does a compiled design's env.
+``params_from_numpy`` does a compiled design's env.  ``python -m
+repro_torch`` is the command line (``list``, ``zoo``, ``compile``,
+``lint``, ``profile``).
 """
 from __future__ import annotations
 

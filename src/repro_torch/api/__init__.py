@@ -25,9 +25,10 @@ Typical session::
     y = art.run(x)
 
 Everything here is also re-exported at the package top level
-(``import repro_torch; repro_torch.compile_graph(...)``).
-``y = art.run(x)`` executes on the CUDA card; pass ``device="cpu"`` to
-run the plain PyTorch versions on the host.
+(``import repro_torch; repro_torch.compile_graph(...)``), and drivable
+from the shell via ``python -m repro_torch compile <graph> --target kv260
+--emit out/``.  ``y = art.run(x)`` executes on the CUDA card; pass
+``device="cpu"`` to run the plain PyTorch versions on the host.
 """
 from repro_torch.core.compile_driver import (
     KV260,

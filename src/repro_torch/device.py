@@ -56,7 +56,12 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
     narrow = _NARROW.get(arr.dtype)
     if narrow is not None:
         arr = arr.astype(narrow)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        # a read-only buffer (an imported model's weights decoded in
+        # place) cannot back a tensor: take a copy
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
 
 
 def env_to_device(env, device: torch.device) -> dict:

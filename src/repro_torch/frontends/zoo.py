@@ -23,10 +23,13 @@ pool pyramids, and residual trunks feeding a head:
 Every entry is a plain builder graph (so the whole pass pipeline,
 partitioner, and both backends apply unchanged), is registered in the
 benchmark suite (``repro_torch.api.suite()`` → per-target BENCH_smoke rows),
-and round-trips through the reference package's model-card format
-(``card()`` / ``card_json()`` arrive here with the model-card module).
+and round-trips through the model-card format —
+``python -m repro_torch zoo --export DIR`` writes the cards
+(``examples/lenet5.json`` is exactly ``card("lenet5")``).
 """
 from __future__ import annotations
+
+import json
 
 from repro_torch.api.builder import (
     AvgPool,
@@ -39,6 +42,8 @@ from repro_torch.api.builder import (
     Sequential,
 )
 from repro_torch.core.ir import DFG
+
+from .modelcard import export_card
 
 
 def lenet5(n_size: int = 32, c_in: int = 1, classes: int = 10) -> DFG:
@@ -116,7 +121,7 @@ def resnet_mini(n_size: int = 16, c: int = 8, classes: int = 10) -> DFG:
     ).build()
 
 
-#: the registry the CLI (`python -m repro zoo`), the benchmark suite,
+#: the registry the CLI (`python -m repro_torch zoo`), the benchmark suite,
 #: and the tests iterate — names match each graph's DFG name
 ZOO: dict[str, object] = {
     "lenet5": lenet5,
@@ -125,3 +130,14 @@ ZOO: dict[str, object] = {
     "resnet_mini_16": resnet_mini,
 }
 
+
+def card(name: str) -> dict:
+    """The model card for a zoo entry (weightless — the run path's
+    deterministic random init stands in for training)."""
+    if name not in ZOO:
+        raise KeyError(f"unknown zoo model {name!r} — one of {sorted(ZOO)}")
+    return export_card(ZOO[name]())
+
+
+def card_json(name: str) -> str:
+    return json.dumps(card(name), indent=2) + "\n"

@@ -1,7 +1,6 @@
 """Compiler & runtime instrumentation — zero-dependency.
 
-One layer, four pieces (the modeled-vs-measured profiler of the
-reference package is not ported yet):
+One layer, five pieces:
 
 * :mod:`repro_torch.instrument.tracer` — the span/instant/counter
   :class:`Tracer`, the ambient contextvar slot (:func:`use_tracer` /
@@ -11,6 +10,9 @@ reference package is not ported yet):
   snapshots and Prometheus-text exposition, its own ambient slot
   (:func:`use_metrics` / :func:`metrics_current`), and
   :data:`NULL_REGISTRY`;
+* :mod:`repro_torch.instrument.profiler` — the modeled-vs-measured join:
+  run a compiled artifact and reconcile per-group wall times against
+  the resource model's cycle predictions;
 * :mod:`repro_torch.instrument.snapshot` — structural DFG snapshots and
   diffs (``-print-ir-after-all``);
 * :mod:`repro_torch.instrument.provenance` — git-sha/host/time stamps for
@@ -30,6 +32,7 @@ from .metrics import (
     validate_metrics_snapshot,
 )
 from .metrics import current as metrics_current
+from .profiler import ProfileReport, profile_artifact
 from .provenance import git_sha, provenance
 from .snapshot import diff_is_empty, diff_snapshots, format_dfg, snapshot_dfg
 from .tracer import (
@@ -54,6 +57,7 @@ __all__ = [
     "MetricsRegistry",
     "NullRegistry",
     "NullTracer",
+    "ProfileReport",
     "Tracer",
     "counter",
     "current",
@@ -63,6 +67,7 @@ __all__ = [
     "git_sha",
     "instant",
     "metrics_current",
+    "profile_artifact",
     "provenance",
     "snapshot_dfg",
     "span",

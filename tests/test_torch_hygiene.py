@@ -1,5 +1,6 @@
-"""The port stands alone: no import of ``jax`` or of the reference
-package anywhere in ``src/repro_torch`` or ``chip_smoke.py``; no silent
+"""The port stands alone: no import of ``jax``, of the reference
+package or of the reference's ``benchmarks`` anywhere in
+``src/repro_torch`` or ``chip_smoke.py``; no silent
 CPU path when the card is missing; the conv wrapper on a CPU tensor
 never touches the CUDA toolchain; no TPU constant in the port."""
 import ast
@@ -38,6 +39,9 @@ COPIED = [
     "configs/seamless_m4t_medium.py", "configs/jamba_1_5_large_398b.py",
     "configs/qwen2_vl_72b.py", "configs/olmoe_1b_7b.py",
     "configs/granite_moe_1b_a400m.py", "configs/mamba2_1_3b.py",
+    "frontends/base.py", "frontends/modelcard.py",
+    "frontends/onnx_reader.py", "frontends/zoo.py", "frontends/__init__.py",
+    "instrument/__init__.py",
 ]
 
 
@@ -55,8 +59,8 @@ def test_no_jax_no_reference_import(rel):
     tree = ast.parse(pathlib.Path(REPO, rel).read_text())
     for mod in _imports(tree):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (
-            f"{rel} imports {mod}")
+        assert top not in ("jax", "jaxlib", "repro", "flax", "optax",
+                           "benchmarks"), f"{rel} imports {mod}"
 
 
 def _code_dump(path, rename: bool) -> str:
@@ -98,7 +102,7 @@ def test_import_touches_no_toolchain():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'repro', 'triton')]\n"
+        "('jax', 'repro', 'triton', 'benchmarks')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
