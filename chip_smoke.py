@@ -63,11 +63,13 @@ Phases, each printing one JSON object on a line of its own:
                   = rtol = 2e-5 and bf16 (tensor cores) within 3e-2 (the
                   reference's tolerances), over the llama3.2-1b /
                   qwen2-0.5b prefill shapes (B 4, S 1024), D 128 (yi-9b),
-                  GQA group 1 (olmoe, 16/16 heads of 128), causal and not,
-                  a query offset, ragged lengths (100, 1000), D 40 and B 1
-                  S 1; then timed at the model shapes beside the plain
-                  version, the roofline bound and
-                  ``F.scaled_dot_product_attention`` as yardstick;
+                  GQA group 1 (olmoe, 16/16 heads of 128), granite-moe's
+                  prefill (16/8 heads of 64), Jamba's (64/8 heads of 128,
+                  GQA group 8), the seamless encoder (16/16 heads of 64,
+                  not causal), causal and not, a query offset, ragged
+                  lengths (100, 1000), D 40 and B 1 S 1; then timed at the
+                  model shapes beside the plain version, the roofline bound
+                  and ``F.scaled_dot_product_attention`` as yardstick;
 9. ``mlp_check``  the hand-written fused-MLP kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
                   = rtol = 5e-4 and bf16 (tensor cores, a cluster per row
@@ -90,8 +92,9 @@ Phases, each printing one JSON object on a line of its own:
                   32-1024 with ragged tiles (37, 1023), B 1-4, P 7-64, N
                   8-128, x, b and c as strided column slices (x also off
                   16 bytes), the state carried across two calls (a random
-                  initial state, a ragged split); then timed at
-                  mamba2-1.3b's prefill shape, bf16 also under both tiles
+                  initial state, a ragged split), Jamba's prefill (H 256,
+                  P 64, N 128, L 1024, B 4); then timed at mamba2-1.3b's
+                  and Jamba's prefill shapes, bf16 also under both tiles
                   of positions × heads a block the planner picks from (no
                   library call computes an SSD scan);
 12. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
@@ -112,13 +115,43 @@ Phases, each printing one JSON object on a line of its own:
                   step after a 1023-token prefill is held against a
                   1024-token prefill (the kernel's final state against the
                   recurrence), and at depth 2 the card's prefill logits
-                  against the port's own CPU run on the same weights.
+                  against the port's own CPU run on the same weights;
+14. ``moe_serve`` granite-moe-1b-a400m and olmoe-1b-7b at full published
+                  width and depth (random bf16 weights from a seed) generate
+                  32 tokens greedily for 4 prompts of 1024, twice, the same
+                  tokens (one flash launch per layer of a prefill); the
+                  prefill split, peak memory and the share of (token,
+                  choice) pairs each layer drops at the published capacity
+                  factor; one decode step after a 1023-token prefill held
+                  against a 1024-token prefill, drop-free (capacity factor
+                  raised to E / k, so capacity = tokens); at depth 2 and
+                  batch 2 the card's prefill logits against the port's own
+                  CPU run, and the share of layer 0's routing choices the
+                  two agree on, each flip named;
+15. ``hybrid_serve`` Jamba's superblock (jamba-1.5-large-398b cut to one
+                  superblock of 8 layers and d_ff 12288 — the published
+                  shape holds ≈ 90 GB of bf16 weights — everything else
+                  as published) serves as ``moe_serve`` does: one flash
+                  and seven SSD launches a prefill, decode against
+                  prefill drop-free, and the card against the CPU at a
+                  width the CPU takes in seconds (d_model 1024, 8/1 heads
+                  of 128, d_ff 2048; SSM heads of P 64 / N 128, 16 experts
+                  top-2 and the 8-layer pattern kept);
+16. ``encdec_serve`` seamless-m4t-medium at full width and depth: 4 × 1024
+                  seeded stub frame embeddings → ``model_prefill`` (12
+                  non-causal flash launches, the encoder's) → 31 greedy
+                  ``model_decode`` steps against the self cache laid into
+                  ``max_len`` by ``_expand_cache``, twice, the same tokens;
+                  at depth 2 + 2 and batch 2 the card's prefill and four
+                  decode steps against the port's own CPU run.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
 ``kernels`` line adds both counts); the attention and fused-MLP kernels'
 just before and after phase 12, the SSD kernel's just before and after
-phase 13; the run
+phase 13; the attention kernel's again around each of phases 14-16 and
+the SSD kernel's around phase 15 (the ``kernels`` line adds the counts
+of every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -147,7 +180,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "frontends", "cli", "attn_check", "mlp_check", "mlp_probe",
-          "ssd_check", "lm_serve", "ssm_serve")
+          "ssd_check", "lm_serve", "ssm_serve", "moe_serve", "hybrid_serve",
+          "encdec_serve")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -189,7 +223,8 @@ DETAIL_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 #: keys left out of the compact lines (they stay in the detail files)
 VERBOSE_KEYS = ("shapes", "top_kernels", "wall_ms_each",
                 "logit_gaps_vs_dense", "decode_step_ms", "libraries",
-                "outputs")
+                "outputs", "dropped_share_per_layer", "flips",
+                "decode_gaps")
 #: what a compact per-shape row of the ``kernels`` line keeps
 SHAPE_KEYS = ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
               "library_ms")
@@ -1062,9 +1097,14 @@ ATTN_CASES = (
     ("b1.s1", 1, 32, 8, 1, 1, 64, True, 0),
     ("b1.s1.offset", 1, 32, 8, 1, 77, 128, True, 76),
     ("olmoe.group1.d128", 4, 16, 16, 1024, 1024, 128, True, 0),
+    ("granite-moe.prefill", 4, 16, 8, 1024, 1024, 64, True, 0),
+    ("jamba.prefill.g8.d128", 4, 64, 8, 1024, 1024, 128, True, 0),
+    ("seamless.encoder", 4, 16, 16, 1024, 1024, 64, False, 0),
 )
-#: timed shapes: the prefill attention of the two served models
-ATTN_TIMED = ("llama3.2-1b.prefill", "qwen2-0.5b.prefill", "yi-9b.d128")
+#: timed shapes: the prefill attention of the served models
+ATTN_TIMED = ("llama3.2-1b.prefill", "qwen2-0.5b.prefill", "yi-9b.d128",
+              "olmoe.group1.d128", "granite-moe.prefill",
+              "jamba.prefill.g8.d128", "seamless.encoder")
 #: the CUDA-core kernel's ms at the timed shapes before the tensor-core
 #: redesign (chip_smoke.py's run on an NVIDIA H100 80GB HBM3, 700.00 W):
 #: constants, not measured in this run, so they go only into the phase's
@@ -1156,7 +1196,7 @@ def attn_check(torch) -> dict:
                 "shape": name, "dtype": dt_name,
                 "q": [b, hq, sq, d], "kv": [b, hkv, sk, d],
                 "causal": causal, "q_offset": q_offset,
-                "ms": ms, "before_ms": ATTN_BEFORE_MS[(name, dt_name)],
+                "ms": ms, "before_ms": ATTN_BEFORE_MS.get((name, dt_name)),
                 "device_ms": dev_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1420,6 +1460,7 @@ SSD_CASES = (
     ("ragged.l1023.b4", 4, 1023, 8, 64, 128, 31),
     ("ragged.l37.p8.n8", 2, 37, 5, 8, 8, 37),
     ("odd.p7.n20.h5", 2, 100, 5, 7, 20, 4),
+    ("jamba.prefill", 4, 1024, 256, 64, 128, 64),
 )
 #: x, b and c as column slices of one (B, L, C) projection, as the model
 #: hands them in: (name, B, L, H, P, N, column offset of x).  An odd
@@ -1432,7 +1473,8 @@ SSD_SLICES = (("slices.aligned", 2, 300, 8, 64, 128, 0),
 #: never the ``kernels`` line
 SSD_BEFORE_MS = {("mamba2-1.3b.prefill", "bfloat16"): 0.9302,
                  ("mamba2-1.3b.prefill", "float32"): 0.8774}
-SSD_TIMED = ("mamba2-1.3b.prefill", "mamba2-1.3b.prefill.b1")
+SSD_TIMED = ("mamba2-1.3b.prefill", "mamba2-1.3b.prefill.b1",
+             "jamba.prefill")
 SSD_HEADLINE = ("mamba2-1.3b.prefill", "bfloat16")
 #: f32: the reference's 1e-3 (tests/test_kernels.py:212); bf16: y is
 #: rounded to bf16 (2^-8 relative) from the same bf16 inputs, 1e-2
@@ -1647,10 +1689,11 @@ STREAMED_ARCH, STREAMED_STEPS = "llama3.2-1b", 8
 MATMUL_KERNELS = ("nvjet", "gemm", "xmma", "cutlass", "gemv")
 
 
-def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5,
+def _prefill_breakdown(torch, prefill, *, reps: int = 5,
                        classes=(("attention", "flash_attention"),)
                        ) -> dict:
-    """Where a warm prefill's time goes: the card's time in each class of
+    """Where a warm prefill's time goes (``prefill``: a call that runs
+    one): the card's time in each class of
     hand-written kernel (``classes``: (name, kernel-name piece) pairs), in
     matmuls and in everything else, and the wall time of the
     same ``reps`` prefills, all under the profiler; the gap between busy
@@ -1663,14 +1706,14 @@ def _prefill_breakdown(torch, eng, prompts, *, reps: int = 5,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        eng.prefill(prompts)
+        prefill()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3 / reps
     walls = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             t0 = time.perf_counter()
-            eng.prefill(prompts)
+            prefill()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
     parts = {name: 0.0 for name, _ in classes}
@@ -1755,7 +1798,7 @@ def lm_serve(torch) -> dict:
                 f"(allowed {allowed})")
         same_first = float((logits.argmax(-1) == ref_logits.argmax(-1))
                            .float().mean())
-        breakdown = _prefill_breakdown(torch, eng, prompts)
+        breakdown = _prefill_breakdown(torch, lambda: eng.prefill(prompts))
         streamed = (_streamed_mlp(torch, eng, cfg, prompts)
                     if arch == STREAMED_ARCH else None)
         rows.append({
@@ -1860,8 +1903,8 @@ def _streamed_mlp(torch, eng, cfg, prompts) -> dict:
         "prefill_ms": {"streamed": _prefill_ms(torch, st, prompts),
                        "dense": _prefill_ms(torch, eng, prompts)},
         "prefill_breakdown": _prefill_breakdown(
-            torch, st, prompts, classes=(("attention", "flash_attention"),
-                                         ("mlp", "fused_mlp"))),
+            torch, lambda: st.prefill(prompts),
+            classes=(("attention", "flash_attention"), ("mlp", "fused_mlp"))),
         "decode_step_ms": step_ms,
     }
 
@@ -1929,7 +1972,7 @@ def ssm_serve(torch) -> dict:
     decode_gap["argmax_agreement"] = float(
         (stepped.argmax(-1) == full.argmax(-1)).float().mean())
 
-    breakdown = _prefill_breakdown(torch, eng, prompts,
+    breakdown = _prefill_breakdown(torch, lambda: eng.prefill(prompts),
                                    classes=(("ssd", "mamba2_ssd"),))
     peak = torch.cuda.max_memory_allocated() / 1e9
     del eng, full, short, caches, cache, stepped
@@ -1966,6 +2009,436 @@ def ssm_serve(torch) -> dict:
         "depth2_card_vs_cpu": dict(cpu_gap, batch=SSM_CPU_BATCH,
                                    cpu_seconds=cpu_s, argmax_agrees=True),
         "prefill_breakdown": breakdown, "peak_mem_gb": peak,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the MoE, hybrid and encoder-decoder servers
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "olmoe-1b-7b")
+#: the card against the port's own CPU run, at full width and this depth
+#: and batch (the rule of the dense models' blockwise check, and argmax
+#: equal)
+MOE_CPU_LAYERS, MOE_CPU_BATCH = 2, 2
+#: Jamba on one card: the published superblock holds ≈ 90 GB of bf16
+#: weights (its 4 MoE layers × 16 experts × 3 × 8192 × 24576 alone ≈ 77
+#: GB), more than the card's 80 GB, so one superblock (8 of 72 layers)
+#: with d_ff cut to 12288 (≈ 24.6 B params, 49 GB); every other width,
+#: the routing and the SSM shape as published
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_CUT = {"num_layers": 8, "d_ff": 12288}
+#: the width of Jamba's card-against-CPU run, which the CPU takes in
+#: seconds: the SSM heads (P 64, N 128), 16 experts top-2, GQA group 8 at
+#: head dim 128 and the 8-layer pattern kept
+HYBRID_CPU_WIDTH = {"d_model": 1024, "num_heads": 8, "num_kv_heads": 1,
+                    "d_ff": 2048}
+ENCDEC_ARCH = "seamless-m4t-medium"
+#: the card against the port's CPU run: depth 2 + 2, batch 2, the
+#: prefill and this many decode steps fed the card's tokens
+ENCDEC_CPU_DEPTH = {"enc_layers": 2, "dec_layers": 2, "num_layers": 4}
+ENCDEC_CPU_STEPS = 4
+
+
+class _Calls:
+    """While active, ``module.name`` is wrapped — not replaced: what it
+    computes and counts is unchanged — and ``keep(args, kwargs, result)``
+    of each call is appended to ``calls``."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.real = real = getattr(self.module, self.name)
+
+        def recording(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.calls.append(self.keep(args, kwargs, out))
+            return out
+
+        setattr(self.module, self.name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def _routing():
+    """Records ``(params, input, (gate_w, gate_i, pos, keep))`` of each
+    ``moe.route`` call: one per MoE layer of a prefill or a decode
+    step."""
+    from repro_torch.models import moe
+
+    return _Calls(moe, "route", lambda args, kwargs, out: (args[0], args[2],
+                                                           out))
+
+
+class _Replaying:
+    """While active, ``moe.route`` returns the recorded routings in turn
+    (moved to the device of the call) instead of routing: a run then
+    computes the experts another run chose, so that what it is compared
+    on is everything but the routing."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.real, recorded = moe.route, iter(self.calls)
+
+        def replay(p, cfg, xf):
+            return tuple(t.to(xf.device) for t in next(recorded)[2])
+
+        moe.route = replay
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.real
+        return False
+
+
+def _for_decode_check(cfg):
+    """``cfg`` for decode against prefill: the capacity factor raised to
+    E / k, so that capacity = tokens and no choice can drop
+    (``tests/test_models.py`` tests the cache contract drop-free for the
+    same reason), and attention blocks 0, so that the (L-1)-token prefill
+    passes the block gate (the blocks only gate the call, as the TPU
+    wrapper's do; the kernel masks a ragged tile itself)."""
+    m = cfg.moe
+    return cfg.with_(moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k), attn_block_q=0,
+        attn_block_k=0)
+
+
+def _serve_routed(torch, cfg, *, per_prefill: dict, classes) -> tuple:
+    """``lm_serve``'s and ``ssm_serve``'s checks for a model with MoE
+    layers: ``generate`` twice (the same tokens; ``per_prefill``: kernel
+    name → (module, launches one prefill must add)), the prefill split,
+    peak memory, the share of (token, choice) pairs each MoE layer drops
+    at the published capacity, and one decode step after an (L-1)-token
+    prefill against an L-token prefill, drop-free.  → (row, prompts)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           dtype=np.int32)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, max_len=LM_PROMPT + LM_NEW, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()     # serving's peak, not init's
+
+    before = {name: mod.launches for name, (mod, _) in per_prefill.items()}
+    out, cold = eng.generate(prompts, max_new=LM_NEW)
+    launched = {name: mod.launches - before[name]
+                for name, (mod, _) in per_prefill.items()}
+    if launched != {name: n for name, (_, n) in per_prefill.items()}:
+        raise AssertionError(f"{cfg.name}: launches in one generate "
+                             f"{launched}, want {per_prefill}")
+    if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or \
+            out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {out.shape} out of range")
+    out2, warm = eng.generate(prompts, max_new=LM_NEW)
+    if not np.array_equal(out, out2):
+        raise AssertionError(f"{cfg.name}: greedy generate not repeatable")
+
+    with _routing() as routed:
+        eng.prefill(prompts)
+    dropped = [float((~out[3]).float().mean()) for *_, out in routed.calls]
+    breakdown = _prefill_breakdown(torch, lambda: eng.prefill(prompts),
+                                   classes=classes)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    free = ServeEngine(_for_decode_check(cfg), max_len=LM_PROMPT + LM_NEW,
+                       params=eng.params)
+    with torch.inference_mode(), _routing() as routed:
+        full, _ = free.prefill(prompts)
+        _, caches = free.prefill(prompts[:, :-1])
+        cache = free._expand_cache(caches, LM_BATCH, LM_PROMPT - 1)
+        last = torch.as_tensor(prompts[:, -1], dtype=torch.int32,
+                               device=free.device)
+        stepped, _ = free._decode_step(free.params, cache, last,
+                                       LM_PROMPT - 1)
+    torch.cuda.synchronize()
+    n_dropped = sum(int((~out[3]).sum()) for *_, out in routed.calls)
+    if n_dropped:
+        raise AssertionError(f"{cfg.name}: {n_dropped} choices dropped at "
+                             f"capacity factor {free.cfg.moe.capacity_factor}")
+    decode_gap = _logit_gap(stepped, full, SSM_DECODE_RTOL_OF_MAX,
+                            SSM_DECODE_ATOL, f"{cfg.name} decode vs prefill")
+    decode_gap.update(
+        argmax_agreement=float((stepped.argmax(-1) == full.argmax(-1))
+                               .float().mean()),
+        capacity_factor=free.cfg.moe.capacity_factor, dropped=n_dropped)
+    m = cfg.moe
+    row = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+        "experts": [m.num_experts, m.top_k], "vocab": cfg.vocab_size,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+        "init_s": init_s, "cold": dataclasses.asdict(cold),
+        "warm": dataclasses.asdict(warm), "launches_per_prefill": launched,
+        "capacity": {"factor": m.capacity_factor,
+                     "slots": moe.expert_capacity(LM_BATCH * LM_PROMPT,
+                                                  cfg)},
+        "dropped_share": [min(dropped), sum(dropped) / len(dropped),
+                          max(dropped)],
+        "dropped_share_per_layer": dropped,
+        "decode_vs_prefill": decode_gap,
+        "prefill_breakdown": breakdown, "weights_gb": weights_gb,
+        "peak_mem_gb": peak,
+    }
+    return row, prompts
+
+
+def _card_vs_cpu(torch, cfg, prompts, rule) -> dict:
+    """``cfg``'s prefill of ``prompts`` on the card and in the port's own
+    CPU run, same weights.  The CPU routes the card's first MoE input
+    once, then runs the model twice: replaying the card's routing, and
+    routing by itself.
+
+    * The replayed run differs from the card by summation order alone:
+      its logits are held to ``rule`` (rtol of the largest |logit|,
+      atol), argmax equal.
+    * The card's first MoE input routed on the CPU: the share of (token,
+      choice) pairs chosen alike, whether positions and drops agree, and
+      each token chosen otherwise named with the CPU's logits of the two
+      experts at the first slot that differs.
+    * The free run shows how far the routing carries rounding: per MoE
+      layer the share of pairs routed alike, and its logits' distance."""
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import moe
+
+    card = ServeEngine(cfg, max_len=prompts.shape[1], seed=1)
+    with _routing() as on_card:
+        card_logits, _ = card.prefill(prompts)
+    card_logits = card_logits.cpu()
+    t0 = time.perf_counter()
+    host = ServeEngine(cfg, device="cpu", max_len=prompts.shape[1],
+                       params=_tree_to(card.params, "cpu"))
+    with _Replaying(on_card.calls):
+        replayed, _ = host.prefill(prompts)
+    cpu_s = time.perf_counter() - t0
+    gap = _logit_gap(card_logits, replayed, *rule,
+                     f"{cfg.name} card vs cpu, the card's routing")
+    agree = card_logits.argmax(-1) == replayed.argmax(-1)
+    if not bool(agree.all()):
+        raise AssertionError(f"{cfg.name}: argmax differs between the card "
+                             f"and the CPU ({agree.tolist()})")
+
+    p0, x0, (_, gi_card, pos_card, keep_card) = on_card.calls[0]
+    p0, x0 = _tree_to(p0, "cpu"), x0.cpu()
+    _, gi_cpu, pos_cpu, keep_cpu = moe.route(p0, cfg, x0)
+    gi_card = gi_card.cpu()
+    logits0 = x0.float() @ p0["router"]
+    flips = []
+    for tok in (gi_card != gi_cpu).any(-1).nonzero()[:, 0].tolist():
+        j = int((gi_card[tok] != gi_cpu[tok]).nonzero()[0, 0])
+        a, b = int(gi_card[tok, j]), int(gi_cpu[tok, j])
+        flips.append([tok, j, a, b, float(logits0[tok, a]),
+                      float(logits0[tok, b])])
+
+    with _routing() as on_cpu:
+        free, _ = host.prefill(prompts)
+    per_layer = [float((a[2][1].cpu() == b[2][1]).float().mean())
+                 for a, b in zip(on_card.calls, on_cpu.calls)]
+    return dict(
+        gap, layers=cfg.num_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        batch=prompts.shape[0], cpu_seconds=cpu_s, argmax_agrees=True,
+        first_moe_same_input={
+            "choices_equal": float((gi_card == gi_cpu).float().mean()),
+            "tokens_flipped": len(flips),
+            "positions_equal": bool(torch.equal(pos_card.cpu(), pos_cpu)),
+            "drops_equal": bool(torch.equal(keep_card.cpu(), keep_cpu))},
+        flips=flips[:20],
+        own_routing={
+            "max_abs": float((card_logits - free).abs().max()),
+            "argmax_agreement": float((card_logits.argmax(-1)
+                                       == free.argmax(-1)).float().mean()),
+            "choices_equal_per_moe_layer": per_layer})
+
+
+def moe_serve(torch) -> dict:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        row, prompts = _serve_routed(
+            torch, cfg, per_prefill={"flash_attention": (fa, cfg.num_layers)},
+            classes=(("attention", "flash_attention"),))
+        row["depth2_card_vs_cpu"] = _card_vs_cpu(
+            torch, cfg.with_(num_layers=MOE_CPU_LAYERS),
+            prompts[:MOE_CPU_BATCH], (LM_LOGIT_RTOL_OF_MAX, LM_LOGIT_ATOL))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return {"models": rows}
+
+
+def hybrid_serve(torch) -> dict:
+    from repro_torch.configs.base import count_params
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ms
+    from repro_torch.models import lm
+
+    published = get_config(HYBRID_ARCH)
+    cfg = published.with_(**HYBRID_CUT)
+    n_sb = lm.num_superblocks(cfg)
+    row, prompts = _serve_routed(
+        torch, cfg, per_prefill={"flash_attention": (fa, n_sb),
+                                 "mamba2_ssd": (ms, 7 * n_sb)},
+        classes=(("attention", "flash_attention"), ("ssd", "mamba2_ssd")))
+    s = cfg.ssm
+    row.update(
+        cut={k: [getattr(published, k), v] for k, v in HYBRID_CUT.items()},
+        params_b=count_params(cfg) / 1e9,
+        ssm={"heads": s.num_heads(cfg.d_model), "head_dim": s.head_dim,
+             "state_dim": s.state_dim, "chunk": s.chunk},
+        pattern=[f"{spec.mixer}+{spec.ffn}"
+                 for spec in lm.superblock_pattern(cfg)])
+    torch.cuda.empty_cache()
+    # bf16 through 7 Mamba-2 layers: ssm_serve's rule (on an H100 this
+    # check read 0.135 against the dense rule's 0.1075: the Mamba layers
+    # carry rounding further, in the reference too — see
+    # tests/test_torch_hybrid_serve.py)
+    row["card_vs_cpu"] = _card_vs_cpu(
+        torch, cfg.with_(**HYBRID_CPU_WIDTH), prompts[:MOE_CPU_BATCH],
+        (SSM_DECODE_RTOL_OF_MAX, SSM_DECODE_ATOL))
+    return row
+
+
+def _encdec_generate(torch, eng, frames, new: int):
+    """The server's greedy loop through the step functions: prefill (the
+    first token), the self cache laid into ``max_len``, ``new - 1``
+    decode steps → ((B, new) tokens, stats as ``ServeStats``' fields)."""
+    import numpy as np
+
+    from repro_torch.launch import steps as ST
+
+    bsz = frames.shape[0]
+    out = np.zeros((bsz, new), np.int32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, caches = ST.model_prefill(eng.params, eng.cfg,
+                                          {"frames": frames})
+        cache = eng._expand_cache(caches, bsz, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits.argmax(-1).to(torch.int32)
+        out[:, 0] = tok.cpu().numpy()
+        for i in range(1, new):
+            logits, cache = ST.model_decode(eng.params, eng.cfg, cache, tok,
+                                            i)
+            tok = logits.argmax(-1).to(torch.int32)
+            out[:, i] = tok.cpu().numpy()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                 "tokens_out": bsz * new,
+                 "tokens_per_s": bsz * new / max(t2 - t1, 1e-9)}
+
+
+def encdec_serve(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import to_tensor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = get_config(ENCDEC_ARCH)
+    frames_np = np.random.default_rng(0).standard_normal(
+        (LM_BATCH, LM_PROMPT, cfg.d_model), dtype=np.float32)
+    t0 = time.perf_counter()
+    # max_len = the frames: the cross K/V cache is then the memory whole
+    eng = ServeEngine(cfg, max_len=LM_PROMPT, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()     # serving's peak, not init's
+    frames = to_tensor(frames_np, eng.device)
+
+    before = fa.launches
+    with _Calls(fa, "flash_attention",
+                lambda args, kw, out: kw["causal"]) as fl:
+        out, cold = _encdec_generate(torch, eng, frames, LM_NEW)
+    per_prefill = fa.launches - before
+    if per_prefill != cfg.enc_layers or fl.calls != [False] * cfg.enc_layers:
+        raise AssertionError(
+            f"{ENCDEC_ARCH}: {per_prefill} flash launches (causal "
+            f"{fl.calls}) in one generate, want {cfg.enc_layers} non-causal")
+    if out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{ENCDEC_ARCH}: tokens out of range")
+    out2, warm = _encdec_generate(torch, eng, frames, LM_NEW)
+    if not np.array_equal(out, out2):
+        raise AssertionError(f"{ENCDEC_ARCH}: greedy decode not repeatable")
+
+    def prefill():
+        with torch.inference_mode():
+            return ST.model_prefill(eng.params, cfg, {"frames": frames})
+
+    breakdown = _prefill_breakdown(torch, prefill)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    torch.cuda.empty_cache()
+
+    # depth 2 + 2, batch 2: the card against the port's own CPU run
+    cfg2 = cfg.with_(**ENCDEC_CPU_DEPTH)
+    card = ServeEngine(cfg2, max_len=LM_PROMPT, seed=1)
+    host = ServeEngine(cfg2, device="cpu", max_len=LM_PROMPT,
+                       params=_tree_to(card.params, "cpu"))
+    sub = frames_np[:MOE_CPU_BATCH]
+    gaps, agree = [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lc, cc = ST.model_prefill(card.params, cfg2,
+                                  {"frames": to_tensor(sub, card.device)})
+        lh, ch = ST.model_prefill(host.params, cfg2,
+                                  {"frames": torch.from_numpy(sub)})
+        cc = card._expand_cache(cc, MOE_CPU_BATCH, 1)
+        ch = host._expand_cache(ch, MOE_CPU_BATCH, 1)
+        for i in range(ENCDEC_CPU_STEPS + 1):
+            what = f"{ENCDEC_ARCH} depth 2+2 card vs cpu, step {i}"
+            gaps.append(_logit_gap(lc.cpu(), lh, LM_LOGIT_RTOL_OF_MAX,
+                                   LM_LOGIT_ATOL, what))
+            agree.append(float((lc.argmax(-1).cpu() == lh.argmax(-1))
+                               .float().mean()))
+            if i == ENCDEC_CPU_STEPS:
+                break
+            tok = lc.argmax(-1).to(torch.int32)
+            lc, cc = ST.model_decode(card.params, cfg2, cc, tok, i + 1)
+            lh, ch = ST.model_decode(host.params, cfg2, ch, tok.cpu(), i + 1)
+    if agree[0] != 1.0:
+        raise AssertionError(f"{ENCDEC_ARCH} depth 2+2: prefill argmax "
+                             "differs between the card and the CPU")
+    return {
+        "arch": ENCDEC_ARCH, "layers": [cfg.enc_layers, cfg.dec_layers],
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+        "batch": LM_BATCH, "frames": LM_PROMPT, "new": LM_NEW,
+        "init_s": init_s, "cold": cold, "warm": warm,
+        "flash_launches_per_prefill": per_prefill, "causal": False,
+        "depth2_card_vs_cpu": {
+            "batch": MOE_CPU_BATCH, "steps": ENCDEC_CPU_STEPS,
+            "cpu_and_card_seconds": time.perf_counter() - t0,
+            "max_abs": max(g["max_abs"] for g in gaps),
+            "allowed": min(g["allowed"] for g in gaps),
+            "argmax_agreement": agree, "decode_gaps": gaps},
+        "prefill_breakdown": breakdown, "weights_gb": weights_gb,
+        "peak_mem_gb": peak,
     }
 
 
@@ -2094,16 +2567,32 @@ def main(argv=None) -> int:
         ssd = ssd_check(torch)
         emit_phase("ssd_check", ssd)
 
+    fa_launches = fm_launches = ms_launches = 0
     fa.reset_counts()                  # counts: zero before the LM path
     fm.reset_counts()
     if "lm_serve" in phases:
         emit_phase("lm_serve", lm_serve(torch))
-        fa_launches = read_after(fa, "flash_attention", "LM")   # after
-        fm_launches = read_after(fm, "fused_mlp", "LM")
+        fa_launches += read_after(fa, "flash_attention", "LM")  # after
+        fm_launches += read_after(fm, "fused_mlp", "LM")
     ms.reset_counts()                  # counts: zero before the SSM path
     if "ssm_serve" in phases:
         emit_phase("ssm_serve", ssm_serve(torch))
-        ms_launches = read_after(ms, "mamba2_ssd", "SSM")       # after
+        ms_launches += read_after(ms, "mamba2_ssd", "SSM")      # after
+    fa.reset_counts()                  # counts: zero before the MoE path
+    if "moe_serve" in phases:
+        emit_phase("moe_serve", moe_serve(torch))
+        fa_launches += read_after(fa, "flash_attention", "MoE")  # after
+    fa.reset_counts()                  # counts: zero before the hybrid path
+    ms.reset_counts()
+    if "hybrid_serve" in phases:
+        emit_phase("hybrid_serve", hybrid_serve(torch))
+        fa_launches += read_after(fa, "flash_attention", "hybrid")  # after
+        ms_launches += read_after(ms, "mamba2_ssd", "hybrid")
+    fa.reset_counts()                  # counts: zero before the encdec path
+    if "encdec_serve" in phases:
+        emit_phase("encdec_serve", encdec_serve(torch))
+        fa_launches += read_after(fa, "flash_attention",        # after
+                                  "encoder-decoder")
 
     if set(phases) != set(PHASES):
         emit({"partial": phases,

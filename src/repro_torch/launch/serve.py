@@ -8,10 +8,14 @@ A small but real engine on one card:
   item 6).
 * Requests are processed in *waves* (static-batch continuous batching):
   a wave of B prompts is prefilled together — through the hand-written
-  flash-attention kernel (dense family) or SSD kernel (Mamba-2), one
-  launch per layer — then decoded lock-step against caches padded to
-  ``max_len`` (KV caches) or carried as they are (conv line buffer and
-  SSD state).
+  flash-attention kernel (each attention layer of the dense, MoE and
+  hybrid families) or SSD kernel (each Mamba-2 layer of the SSM and
+  hybrid families), one launch per layer — then decoded lock-step
+  against caches padded to ``max_len`` (KV caches) or carried as they
+  are (conv line buffer and SSD state).  The encoder–decoder family
+  (frame embeddings in, ``embeds_input``) is refused by ``generate``, as
+  in the reference: it is driven through ``steps.model_prefill`` /
+  ``model_decode``.
 * Greedy or temperature sampling; deterministic under a seed.
 
 Usage::
@@ -19,6 +23,9 @@ Usage::
   python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 \\
       --prompt-len 1024 --max-new 32            # on the card
   python -m repro_torch.launch.serve --arch mamba2-1.3b    # on the card
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --smoke \\
+      --batch 2 --prompt-len 16 --max-new 4 --device cpu
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
       --batch 4 --prompt-len 64 --max-new 32 --device cpu
 """
@@ -153,16 +160,22 @@ class ServeEngine:
         layout.  As in the reference, a leaf whose shape differs from the
         decode cache's (k / v: ``plen`` positions of ``max_len``) fills
         the leading corner of the zeroed leaf; a leaf of the same shape
-        (the conv line buffer, the SSD state) is copied whole."""
+        (the conv line buffer, the SSD state, an encoder memory's K/V as
+        long as ``max_len``) is copied whole.  A hybrid's tree holds both
+        kinds under one root."""
         full = ST.model_init_cache(self.cfg, bsz, self.max_len,
                                    device=self.device)
-        for name, leaves in full.items():
-            for leaf, dst in leaves.items():
-                src = prefill_caches[name][leaf]
-                if src.shape != dst.shape:
-                    dst[tuple(slice(0, s) for s in src.shape)] = src
-                else:
-                    dst.copy_(src)
+
+        def merge(src, dst):
+            if isinstance(dst, dict):      # any depth: the LM's per-block
+                for k, d in dst.items():   # tree, the encdec's flat one
+                    merge(src[k], d)
+            elif src.shape != dst.shape:
+                dst[tuple(slice(0, s) for s in src.shape)] = src
+            else:
+                dst.copy_(src)
+
+        merge(prefill_caches, full)
         return full
 
 

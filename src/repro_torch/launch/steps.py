@@ -6,8 +6,7 @@ so the launchers stay family-agnostic:
   ``prefill_step(params, batch)             -> (logits, caches)``
   ``decode_step(params, cache, token, pos)  -> (logits, cache)``
 
-The train step comes with training (ROADMAP §A item 4); the
-encoder–decoder family with ROADMAP §A item 3.
+The train step comes with training (ROADMAP §A item 4).
 """
 from __future__ import annotations
 
@@ -16,34 +15,32 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
-
-
-def _no_encdec(cfg: ModelConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family is not ported yet (ROADMAP §A "
-            "item 3)")
+from repro_torch.models import encdec, lm
 
 
 def model_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    _no_encdec(cfg)
+    if cfg.family == "encdec":
+        return encdec.init_params(gen, cfg)
     return lm.init_params(gen, cfg)
 
 
 def model_prefill(params: dict, cfg: ModelConfig, batch: dict):
-    _no_encdec(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_prefill(params, cfg, batch)
     return lm.lm_prefill(params, cfg, batch)
 
 
 def model_decode(params: dict, cfg: ModelConfig, cache, token, pos: int):
-    _no_encdec(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_decode(params, cfg, cache, token, pos)
     return lm.lm_decode(params, cfg, cache, token, pos)
 
 
 def model_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                      device=None):
-    _no_encdec(cfg)
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, mem_len=max_len,
+                                 max_len=max_len, device=device)
     return lm.init_cache(cfg, batch, max_len, device=device)
 
 

@@ -1,0 +1,172 @@
+"""Encoder–decoder backbone (seamless-m4t style; frontend stubbed), in
+PyTorch: the serving half of ``src/repro/models/encdec.py``.
+
+The speech/text frontend is a stub: callers hand in precomputed frame
+embeddings (B, T, D).  The backbone is real: a bidirectional encoder
+stack — each layer's attention one non-causal launch of the hand-written
+flash-attention kernel (``L.attention_layer(causal=False)``) — and a
+causal decoder stack with cross-attention over the encoder memory.  The
+memory's keys and values are computed once at prefill, per decoder
+layer, and read by every decode step.
+
+Parameters keep the reference's stacked layout, ``{"encoder": {"blocks",
+"final_norm"}, "decoder": {"blocks", "final_norm"}, "embed",
+"lm_head"}`` with the unpadded ``vocab_size``, so one NumPy tree carries
+across with :func:`repro_torch.models.lm.lm_params_from_numpy`.  Where
+the reference scans over the layer axis the port runs a Python loop.
+
+Entry points:
+  ``encdec_prefill``  — encode, the cross K/V per decoder layer, and the
+                        first decode step (BOS = 0 at position 0) from a
+                        1-long self cache; returns (logits, cache)
+  ``encdec_decode``   — one decoder step; the self cache is updated in
+                        place
+  ``init_cache``      — zeroed caches ``{"ck", "cv", "k", "v"}``
+
+The training half — ``encdec_loss``, the teacher-forced ``decode_train``
+and the ``kv_override`` cross-attention it uses — comes with training
+(``ROADMAP.md`` §A item 4).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from . import layers as L
+from .lm import _layer
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random parameters on ``gen``'s device, drawn from ``gen``: the
+    reference's layout and scales (another generator, so other values)."""
+    d, v, dt = cfg.d_model, cfg.vocab_size, cfg.param_dtype
+    ne, nd = cfg.enc_layers, cfg.dec_layers
+
+    def ones(n):
+        return torch.ones((n, d), dtype=dt, device=gen.device)
+
+    enc = {"ln1": ones(ne), "attn": L.init_attention(gen, cfg, stack=ne),
+           "ln2": ones(ne), "mlp": L.init_mlp(gen, cfg, stack=ne)}
+    dec = {"ln1": ones(nd),
+           "self_attn": L.init_attention(gen, cfg, stack=nd),
+           "ln_x": ones(nd),
+           "cross_attn": L.init_attention(gen, cfg, cross=True, stack=nd),
+           "ln2": ones(nd), "mlp": L.init_mlp(gen, cfg, stack=nd)}
+    final = torch.ones((d,), dtype=dt, device=gen.device)
+    return {
+        "encoder": {"blocks": enc, "final_norm": final},
+        "decoder": {"blocks": dec, "final_norm": final.clone()},
+        "embed": L.dense_init(gen, (v, d), dt, scale=0.02),
+        "lm_head": L.dense_init(gen, (d, v), dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(params: dict, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, T, D) stub embeddings → encoder memory (B, T, D)."""
+    h = frames.to(cfg.param_dtype)
+    bsz, t = h.shape[0], h.shape[1]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=h.device).expand(bsz, t)
+    blocks = params["encoder"]["blocks"]
+    for li in range(cfg.enc_layers):
+        p = _layer(blocks, li)
+        a, _ = L.attention_layer(p["attn"], cfg,
+                                 L.rmsnorm(h, p["ln1"], cfg.norm_eps),
+                                 positions, causal=False)
+        h = h + a
+        h = h + L.mlp_layer(p["mlp"], cfg,
+                            L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return L.rmsnorm(h, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+
+def _cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor):
+    """One decoder layer's cross-attention keys and values of the memory,
+    (B, Hkv, T, hd) each — no RoPE."""
+    hd = cfg.resolved_head_dim
+    k = memory @ p["wk"]
+    v = memory @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    b, t = memory.shape[:2]
+    k = k.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+    return k, v
+
+
+def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict):
+    """Encode ``batch["frames"]``, cache the cross K/V of every decoder
+    layer, and take the first decode step (BOS token 0 at position 0)
+    against a 1-long self cache → (logits (B, V) f32, cache)."""
+    memory = encode(params, cfg, batch["frames"])
+    blocks = params["decoder"]["blocks"]
+    kvs = [_cross_kv(_layer(blocks, li)["cross_attn"], cfg, memory)
+           for li in range(cfg.dec_layers)]
+    bsz = memory.shape[0]
+    shape = (cfg.dec_layers, bsz, cfg.num_kv_heads, 1, cfg.resolved_head_dim)
+    cache = {
+        "ck": torch.stack([k for k, _ in kvs]),
+        "cv": torch.stack([v for _, v in kvs]),
+        # two tensors: decode writes each in place
+        "k": torch.zeros(shape, dtype=cfg.param_dtype, device=memory.device),
+        "v": torch.zeros(shape, dtype=cfg.param_dtype, device=memory.device),
+    }
+    bos = torch.zeros((bsz,), dtype=torch.int32, device=memory.device)
+    return encdec_decode(params, cfg, cache, bos, 0)
+
+
+def encdec_decode(params: dict, cfg: ModelConfig, cache: dict,
+                  token: torch.Tensor, pos: int):
+    """One decoder step for ``token`` (B,) at position ``pos`` against
+    ``cache`` ``{"ck", "cv": (Ld, B, Hkv, T, hd), "k", "v": (Ld, B, Hkv,
+    S, hd)}`` → (logits (B, V) f32, cache): the self cache is the one
+    passed in, **updated in place**."""
+    h = params["embed"][token.long()][:, None, :]              # (B, 1, D)
+    blocks = params["decoder"]["blocks"]
+    for li in range(cfg.dec_layers):
+        p = _layer(blocks, li)
+        a, _, _ = L.attention_decode(
+            p["self_attn"], cfg, L.rmsnorm(h, p["ln1"], cfg.norm_eps), pos,
+            cache["k"][li], cache["v"][li])
+        h = h + a
+        c, _, _ = L.attention_decode(
+            p["cross_attn"], cfg, L.rmsnorm(h, p["ln_x"], cfg.norm_eps), pos,
+            cache["ck"][li], cache["cv"][li], cross=True)
+        h = h + c
+        h = h + L.mlp_layer(p["mlp"], cfg,
+                            L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    h = L.rmsnorm(h, params["decoder"]["final_norm"], cfg.norm_eps)
+    logits = (h[:, 0] @ params["lm_head"]).float()
+    return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, mem_len: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed caches on ``device`` (None: the card): the cross K/V ``ck``,
+    ``cv`` (Ld, B, Hkv, mem_len, hd) and the self K/V ``k``, ``v`` (Ld,
+    B, Hkv, max_len, hd), all in ``param_dtype``."""
+    dev = resolve_device(device)
+    hd, dt = cfg.resolved_head_dim, cfg.param_dtype
+    lead = (cfg.dec_layers, batch, cfg.num_kv_heads)
+    return {
+        "ck": torch.zeros(lead + (mem_len, hd), dtype=dt, device=dev),
+        "cv": torch.zeros(lead + (mem_len, hd), dtype=dt, device=dev),
+        "k": torch.zeros(lead + (max_len, hd), dtype=dt, device=dev),
+        "v": torch.zeros(lead + (max_len, hd), dtype=dt, device=dev),
+    }

@@ -1,4 +1,4 @@
-"""Transformer building blocks of the dense family, in PyTorch.
+"""Transformer building blocks of the LM families, in PyTorch.
 
 Attention has three interchangeable implementations (``ATTN_IMPLS``):
 
@@ -243,8 +243,10 @@ ATTN_IMPLS = {
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
-                   stack: int | None = None) -> dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False, *, stack: int | None = None) -> dict:
+    """The projections of self- or (``cross``) cross-attention: the same
+    leaves either way, as in the reference."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     dt = cfg.param_dtype
@@ -283,7 +285,8 @@ def attention_layer(
     mrope_positions: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (output, (k, v)) — k/v in (B, Hkv, S, hd) layout for caching.
-    (Cross-attention comes with the encoder–decoder family.)"""
+    (The reference's ``kv_override``, cross-attention over a whole
+    teacher-forced sequence, serves only training: ROADMAP §A item 4.)"""
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
     if "bq" in p:
@@ -316,16 +319,24 @@ def attention_decode(
     pos: int,                        # absolute position of the token
     k_cache: torch.Tensor,           # (B, Hkv, S, hd)
     v_cache: torch.Tensor,
+    *,
+    cross: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step; returns (out, k_cache, v_cache).  The new key and
     value are written into the caches **in place** (the reference donates
-    its caches to the step, which has the same effect)."""
+    its caches to the step, which has the same effect).  With ``cross``
+    the caches are the fixed encoder memory's keys and values: the query
+    attends to all of them, with no RoPE and no cache write."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = _split_heads(q, cfg.num_heads, hd)
+
+    if cross:
+        out = decode_attention(q, k_cache, v_cache, k_cache.shape[2])
+        return _merge_heads(out) @ p["wo"], k_cache, v_cache
 
     pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     cos, sin = rope_cos_sin(pos_arr, hd, cfg.rope_theta)

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense and SSM families, in PyTorch: the
-serving half.
+"""Decoder-only LM of the dense, MoE, SSM and hybrid families, in
+PyTorch: the serving half.
 
 Parameters keep the reference's *stacked* layout — ``{"blocks": {"b0":
 {...}}, "final_norm", "embed", "lm_head"?}`` with a leading layer axis
@@ -14,10 +14,12 @@ Entry points:
                      in place)
   ``init_cache``   — zeroed caches shaped as the decode step wants them
 
-A layer's mixer is attention (dense, vlm, audio) or a Mamba-2 block
-(ssm); its cache is ``{"k", "v"}`` or ``{"conv", "ssm"}``.  The MoE and
-hybrid families, and the training loss, come with later slices of the
-port (``ROADMAP.md``).
+A layer's mixer is attention (dense, vlm, audio, moe) or a Mamba-2
+block (ssm); the hybrid family (Jamba) mixes both in one superblock.
+Its cache is ``{"k", "v"}`` or ``{"conv", "ssm"}``, so a hybrid cache
+holds both kinds of leaf under one tree.  A layer's FFN is the MLP, the
+MoE layer (``models/moe.py``) or none.  The training loss comes with a
+later slice of the port (``ROADMAP.md`` §A item 4).
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
 from . import layers as L
 from . import mamba2 as M
+from . import moe as MOE
+
+#: parameters the reference keeps in f32 whatever ``param_dtype`` is: the
+#: Mamba-2 leaves and the MoE router (``src/repro/models/moe.py:31``)
+F32_LEAVES = M.F32_LEAVES + ("router",)
 
 
 # ---------------------------------------------------------------------------
@@ -41,20 +48,26 @@ from . import mamba2 as M
 @dataclass(frozen=True)
 class LayerSpec:
     mixer: str            # "attn" | "mamba"
-    ffn: Optional[str]    # "mlp" | None
+    ffn: Optional[str]    # "mlp" | "moe" | None
 
 
 def superblock_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     if cfg.family in ("dense", "vlm", "audio"):
         return [LayerSpec("attn", "mlp")]
+    if cfg.family == "moe":
+        return [LayerSpec("attn", "moe")]
     if cfg.family == "ssm":
         return [LayerSpec("mamba", None)]
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "the moe family is not ported yet (ROADMAP §A item 1)")
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "the hybrid family is not ported yet (ROADMAP §A item 2)")
+        if cfg.attn_period <= 0 or cfg.moe is None:
+            raise ValueError(
+                f"{cfg.name}: a hybrid needs attn_period > 0 and cfg.moe")
+        pat = []
+        for i in range(cfg.attn_period):
+            mixer = "attn" if i == cfg.attn_period // 2 else "mamba"
+            is_moe = (i % cfg.moe.moe_period) == (cfg.moe.moe_period - 1)
+            pat.append(LayerSpec(mixer, "moe" if is_moe else "mlp"))
+        return pat
     raise ValueError(cfg.family)
 
 
@@ -83,7 +96,10 @@ def _init_blocks(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["mamba"] = M.init_mamba(gen, cfg, stack=n)
     if spec.ffn is not None:
         p["ln2"] = torch.ones((n, d), dtype=dt, device=gen.device)
-        p["mlp"] = L.init_mlp(gen, cfg, stack=n)
+        if spec.ffn == "mlp":
+            p["mlp"] = L.init_mlp(gen, cfg, stack=n)
+        else:
+            p["moe"] = MOE.init_moe(gen, cfg, stack=n)
     return p
 
 
@@ -112,9 +128,9 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
     arrive as f32.  The rule: a floating leaf is cast to
     ``cfg.param_dtype`` (rounding to nearest even) unless its name is one
     the reference stores in f32 whatever the config says
-    (``mamba2.F32_LEAVES``: ``a_log``, ``dt_bias``, ``skip_d``), which
-    stays f32.  ``device=None`` means the CUDA card (and raises without
-    one)."""
+    (``F32_LEAVES``: ``a_log``, ``dt_bias``, ``skip_d``, ``router``),
+    which stays f32.  ``device=None`` means the CUDA card (and raises
+    without one)."""
     dev = resolve_device(device)
 
     def conv(node, name=None):
@@ -123,7 +139,7 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
         t = to_tensor(np.array(node), dev)   # a copy: the source may be read-only
         if not t.is_floating_point():
             return t
-        return t.float() if name in M.F32_LEAVES else t.to(cfg.param_dtype)
+        return t.float() if name in F32_LEAVES else t.to(cfg.param_dtype)
 
     return conv(tree)
 
@@ -150,7 +166,10 @@ def _layer(tree, i: int):
 def _ffn(p, cfg, spec: LayerSpec, h):
     if spec.ffn is None:
         return h
-    return h + L.mlp_layer(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    x = L.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    if spec.ffn == "mlp":
+        return h + L.mlp_layer(p["mlp"], cfg, x)
+    return h + MOE.moe_layer(p["moe"], cfg, x)
 
 
 def _apply_block(p, cfg, spec: LayerSpec, h, positions, mrope_positions,

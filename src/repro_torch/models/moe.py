@@ -1,0 +1,134 @@
+"""Mixture-of-Experts layer in PyTorch: top-k routing with
+capacity-bounded scatter dispatch — the counterpart of
+``src/repro/models/moe.py`` (GShard-style, no (tokens × E × C) dispatch
+tensor).
+
+The router runs in f32 (``router`` is stored in f32 whatever
+``param_dtype`` is: ``lm.F32_LEAVES``).  What must equal the reference
+bit for bit is the routing (:func:`route`):
+
+* top-k breaks ties as ``lax.top_k`` does, the lower expert index first,
+  and orders the k choices by falling logit.  ``torch.topk`` promises no
+  order among ties, so the choices are the first k of a *stable*
+  descending sort;
+* the position of a ``(token, choice)`` in its expert's capacity buffer
+  is the exclusive running count of earlier choices of that expert over
+  the flattened ``(token, choice)`` order; a choice at or past the
+  capacity is dropped (its contribution is 0; its slot reads
+  ``cap - 1``, as in the reference).
+
+Dispatch writes each kept choice's row to its unique ``(expert, pos)``
+slot, one ``(N, D)`` scatter per choice; dropped choices go to a spare
+row past the buffer that is never read, so no host synchronisation and
+no accumulating scatter is needed.  The experts are three batched
+products over E (``torch.bmm`` in ``param_dtype``; the reference's
+``jnp.einsum``, outside any kernel), and the combine accumulates in f32
+in the order ``kk = 0..k-1`` before casting back to ``x.dtype``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ref
+from .layers import dense_init
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, *,
+             stack: int | None = None) -> dict:
+    """``router`` (D, E) in f32, ``wu`` / ``wg`` (E, D, F) and ``wd``
+    (E, F, D) in ``param_dtype`` — the reference's layout and scales,
+    drawn from ``gen``; ``stack`` prepends a layer axis."""
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name}: an MoE layer needs cfg.moe")
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    e = cfg.moe.num_experts
+    p = {
+        "router": dense_init(gen, (d, e), torch.float32, stack=stack),
+        "wu": dense_init(gen, (e, d, f), dt, scale=1.0 / math.sqrt(d),
+                         stack=stack),
+        "wd": dense_init(gen, (e, f, d), dt, scale=1.0 / math.sqrt(f),
+                         stack=stack),
+    }
+    if cfg.gated_mlp:
+        p["wg"] = dense_init(gen, (e, d, f), dt, scale=1.0 / math.sqrt(d),
+                             stack=stack)
+    return p
+
+
+def expert_capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert: ``ceil(N·k·capacity_factor / E)`` padded to a
+    multiple of 8, at least 8."""
+    m = cfg.moe
+    c = int(math.ceil(num_tokens * m.top_k * m.capacity_factor
+                      / m.num_experts))
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def route(p: dict, cfg: ModelConfig, xf: torch.Tensor):
+    """The routing of ``xf`` (N, D) → ``(gate_w (N, k) f32, gate_i (N, k),
+    pos (N, k), keep (N, k) bool)``: the k experts of each token by
+    falling router logit (ties: the lower index), their softmax weights,
+    each choice's slot in its expert's buffer, and whether the slot lies
+    inside the capacity."""
+    m = cfg.moe
+    n = xf.shape[0]
+    e, k = m.num_experts, m.top_k
+    logits = xf.float() @ p["router"]                          # (N, E)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gate_w = torch.softmax(vals[:, :k], dim=-1)
+    gate_i = idx[:, :k]
+    flat_i = gate_i.reshape(-1)                                # (N*k,)
+    # the one-hot laid out (E, N*k), so that the running count is a scan
+    # along the last axis (PyTorch's scan along a long leading axis takes
+    # milliseconds on the card), and made by a scatter (F.one_hot checks
+    # its range on the host: a synchronisation per layer)
+    onehot = torch.zeros((e, n * k), dtype=torch.int32, device=xf.device)
+    onehot.scatter_(0, flat_i[None], 1)                        # (E, N*k)
+    before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    pos = before.gather(0, flat_i[None])[0].reshape(n, k)      # exclusive
+    keep = pos < expert_capacity(n, cfg)
+    return gate_w, gate_i, pos, keep
+
+
+def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) → (B, S, D): route, dispatch into (E, cap, D), the
+    expert MLPs, combine.  In decode N = B, so the capacity is that of B
+    tokens, as in the reference."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    e, k = m.num_experts, m.top_k
+    cap = expert_capacity(n, cfg)
+
+    xf = x.reshape(n, d)
+    gate_w, gate_i, pos, keep = route(p, cfg, xf)
+    safe_pos = torch.where(keep, pos, cap - 1)
+    slot = gate_i * cap + safe_pos                             # (N, k)
+
+    # dispatch: one (N, D) scatter per choice; a dropped choice lands on
+    # the spare row e·cap, which no expert reads
+    buf = x.new_zeros((e * cap + 1, d))
+    spare = torch.full_like(slot, e * cap)
+    dest = torch.where(keep, slot, spare)
+    for kk in range(k):
+        buf[dest[:, kk]] = xf
+    experts_in = buf[: e * cap].view(e, cap, d)
+
+    # expert MLPs, batched over E
+    up = torch.bmm(experts_in, p["wu"])
+    if cfg.gated_mlp:
+        h = ref._act(cfg.act, torch.bmm(experts_in, p["wg"])) * up
+    else:
+        h = ref._act(cfg.act, up)
+    out_buf = torch.bmm(h, p["wd"]).reshape(e * cap, d)        # (E·C, D)
+
+    # combine: one (N, D) gather per choice, f32 accumulator
+    y = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    for kk in range(k):
+        picked = out_buf[slot[:, kk]]
+        w = torch.where(keep[:, kk], gate_w[:, kk], 0.0)
+        y = y + picked.float() * w[:, None]
+    return y.reshape(b, s, d).to(x.dtype)

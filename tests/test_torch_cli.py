@@ -24,6 +24,21 @@ LENET_ONNX = os.path.join(REPO, "tests", "golden", "lenet5.onnx")
 RESNET_ONNX = os.path.join(REPO, "tests", "golden", "resnet_tiny.onnx")
 
 
+@pytest.fixture(autouse=True)
+def _fresh_exec_caches():
+    """A compile report prints its package's process-wide jit-cache
+    counts: both packages start each test from an empty cache, so that
+    what other test files ran in this worker process does not enter the
+    comparison."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+
+    for ops in (jops, tops):
+        with ops._EXEC_CACHE_LOCK:
+            ops._EXEC_CACHE.clear()
+            ops.exec_cache_stats.update(hits=0, misses=0, evictions=0)
+
+
 def _call(main, argv, capsys):
     rc = main(argv)
     out, err = capsys.readouterr()

@@ -414,7 +414,13 @@ def test_what_is_not_ported_raises():
     for arch in ("olmoe-1b-7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.ServeEngine(treg.get_config(arch, smoke=True), **cpu)
+            tserve.ServeEngine(treg.get_config(arch, smoke=True),
+                               int8_weights=True, **cpu)
+    # frames in: generate refuses, as the reference's does
+    seamless = tserve.ServeEngine(
+        treg.get_config("seamless-m4t-medium", smoke=True), **cpu)
+    with pytest.raises(NotImplementedError, match="stub-frontend"):
+        seamless.generate(_tokens(11, 2, 8), max_new=4)
 
 
 def test_device_none_means_the_card():
