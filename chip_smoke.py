@@ -8,8 +8,9 @@ Phases, each printing one JSON object on a line of its own:
 1. ``device``     card name and power limit as ``nvidia-smi`` gives them,
                   torch / CUDA / nvcc versions;
 2. ``build``      ``nvcc`` builds ``libconv2d_stream.so``,
-                  ``libflash_attention.so``, ``libfused_mlp.so`` and
-                  ``libmamba2_ssd.so`` from the sources in the checkout,
+                  ``libflash_attention.so``, ``libflash_attention_bwd.so``,
+                  ``libfused_mlp.so`` and ``libmamba2_ssd.so`` from the
+                  sources in the checkout,
                   all at once (seconds taken);
 3. ``kernel_check``  the hand-written streaming-conv kernel against its plain
                   PyTorch version on the card: integer dtypes bit-exact
@@ -70,6 +71,18 @@ Phases, each printing one JSON object on a line of its own:
                   lengths (100, 1000), D 40 and B 1 S 1; then timed at the
                   model shapes beside the plain version, the roofline bound
                   and ``F.scaled_dot_product_attention`` as yardstick;
+8b. ``attn_bwd_check`` the hand-written attention backward kernel against
+                  its plain version on the card, on (q, k, v, out, lse,
+                  dout) with out and lse from the forward kernel: f32
+                  (CUDA cores) within atol = rtol = 2e-4 (the reference's
+                  streaming-backward tolerance) and bf16 (tensor cores)
+                  within 2e-2·|plain| + 1e-2·max|plain|, causal and not, a
+                  query offset, GQA groups 1/4/8, head dim 16-128, ragged
+                  Sq / Sk, rows that see no key; two runs the same bits;
+                  the forward's lse against the plain forward's; at
+                  llama3.2-1b's train shape (B 4, 32/8 heads of 64, S
+                  4096) timed beside the plain version, the bound and
+                  SDPA's backward as yardstick;
 9. ``mlp_check``  the hand-written fused-MLP kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
                   = rtol = 5e-4 and bf16 (tensor cores, a cluster per row
@@ -143,15 +156,28 @@ Phases, each printing one JSON object on a line of its own:
                   ``model_decode`` steps against the self cache laid into
                   ``max_len`` by ``_expand_cache``, twice, the same tokens;
                   at depth 2 + 2 and batch 2 the card's prefill and four
-                  decode steps against the port's own CPU run.
+                  decode steps against the port's own CPU run;
+17. ``lm_train``  llama3.2-1b's train step at full width and depth
+                  (random bf16 weights from a seed, ``attn_impl="cuda"``,
+                  remat on): five AdamW steps on one repeated batch of the
+                  ported data pipeline, train_4k's sequence of 4096 and 8
+                  rows as 2 microbatches of 4 (the gradient accumulation
+                  on the card); losses finite and the last below the
+                  first; 64 forward and 32 backward attention launches a
+                  step and no other kernel; the last step run twice from
+                  one state (the same bits?); one step profiled into
+                  attention forward / backward / cuBLAS / other and idle;
+                  then at depth 2 and d_model 256 one step on the card
+                  against the port's own CPU run, f32 and bf16.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
 ``kernels`` line adds both counts); the attention and fused-MLP kernels'
 just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
-the SSD kernel's around phase 15 (the ``kernels`` line adds the counts
-of every path); the run
+the SSD kernel's around phase 15, and the attention kernel's and its
+backward's around phase 17 (the ``kernels`` line adds the counts of
+every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -171,6 +197,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import signal
 import subprocess
@@ -179,9 +206,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_check", "main_path", "serve",
-          "frontends", "cli", "attn_check", "mlp_check", "mlp_probe",
+          "frontends", "cli", "attn_check", "attn_bwd_check", "mlp_check",
+          "mlp_probe",
           "ssd_check", "lm_serve", "ssm_serve", "moe_serve", "hybrid_serve",
-          "encdec_serve")
+          "encdec_serve", "lm_train")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -224,7 +252,7 @@ DETAIL_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 VERBOSE_KEYS = ("shapes", "top_kernels", "wall_ms_each",
                 "logit_gaps_vs_dense", "decode_step_ms", "libraries",
                 "outputs", "dropped_share_per_layer", "flips",
-                "decode_gaps")
+                "decode_gaps", "grad_rel_l2")
 #: what a compact per-shape row of the ``kernels`` line keeps
 SHAPE_KEYS = ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
               "library_ms")
@@ -1205,6 +1233,260 @@ def attn_check(torch) -> dict:
             })
     return {"comparisons": n, "max_abs_err_f32": worst["float32"],
             "max_abs_err_bf16": worst["bfloat16"], "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# the attention backward kernel vs its plain version on the card
+# ---------------------------------------------------------------------------
+
+#: (name, B, Hq, Hkv, Sq, Sk, D, causal, q_offset) — checked in f32 and
+#: bf16; the first is llama3.2-1b's train shape (train_4k's sequence)
+ATTN_BWD_CASES = (
+    ("llama3.2-1b.train", 4, 32, 8, 4096, 4096, 64, True, 0),
+    ("causal.g4.d64", 2, 8, 2, 512, 512, 64, True, 0),
+    ("noncausal.g4.d64", 2, 8, 2, 512, 512, 64, False, 0),
+    ("offset.sq256.sk1024", 2, 8, 2, 256, 1024, 64, True, 768),
+    ("g1.d128", 2, 4, 4, 512, 512, 128, True, 0),
+    ("g8.d128", 1, 16, 2, 512, 512, 128, True, 0),
+    ("ragged.s100", 3, 14, 2, 100, 100, 64, True, 0),
+    ("ragged.sq1000.sk777.noncausal.d40", 1, 8, 2, 1000, 777, 40, False, 0),
+    ("ragged.offset", 2, 8, 1, 77, 300, 64, True, 223),
+    ("d16.s1", 1, 4, 2, 1, 1, 16, True, 0),
+    ("no-visible-key.offset-3", 1, 4, 2, 64, 64, 64, True, -3),
+)
+ATTN_BWD_HEADLINE = ("llama3.2-1b.train", "bfloat16")
+#: f32: the reference's own tolerance for its streaming backward
+#: (``tests/test_layers.py::TestStreamingBackward``, atol = rtol = 2e-4).
+#: bf16, per row: |err| ≤ 2e-2·|plain| + 1e-2·max(rowmax, 1e-3·max), where
+#: rowmax is the largest |plain| of the element's row (a query row for dq
+#: and the forward's out, a key row for dk and dv) and max the tensor's.
+#: Causal rows shrink about as 1/√position, so 1e-2 of the tensor's max
+#: alone lets through, at S 4096, a kernel that skips the last key tile's
+#: dv.  The tensor cores round P (for dV) and dS
+#: (for dK and dQ) to bf16 where the plain version keeps f32; emulated on
+#: the CPU at the train shape's S 4096, GQA 4, D 64
+#: (``tests/test_torch_attention_bwd.py``) that needs ≤ 3.4e-3 of the
+#: row's scale, planted faults ≥ 0.29.  The floor covers rows whose true
+#: gradient is 0 up to rounding (causal row 0 sees one key: dq = 0).
+#: The forward's lse against the plain forward's: atol 1e-3 + rtol 1e-4
+#: in both dtypes; its out: ``ATTN_TOL`` and, in bf16, the row rule too.
+ATTN_BWD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 1e-2)}
+ATTN_BWD_ROW_FLOOR = 1e-3
+ATTN_BWD_KERNELS = ("attn_bwd_",)
+
+
+def _row_need(got, want, per_row: bool = True) -> float:
+    """The bf16 rule's use: max over the elements of (|got − want| −
+    2e-2·|want|)⁺ over the element's scale — max(rowmax, 1e-3·max), or
+    with ``per_row=False`` the tensor's max.  The rule holds iff it is
+    ≤ 1e-2; a nonzero error against an all-zero scale is inf."""
+    import torch
+
+    rtol = ATTN_BWD_TOL["bfloat16"][0]
+    w = want.float()
+    beyond = ((got.float() - w).abs() - rtol * w.abs()).clamp(min=0)
+    top = w.abs().max()
+    scale = (w.abs().amax(-1, keepdim=True).clamp(min=ATTN_BWD_ROW_FLOOR
+                                                   * float(top))
+             if per_row else top)
+    return float(torch.where(beyond > 0, beyond / scale, 0.0).max())
+
+
+def _grad_close(got, want, dtype_name: str, what: str) -> float:
+    """max |got − want| within ``ATTN_BWD_TOL`` (f32: atol = rtol; bf16:
+    rtol plus atol as a share of the row's scale, ``_row_need``); raises
+    beyond it."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite gradient")
+    rtol, atol = ATTN_BWD_TOL[dtype_name]
+    w = want.float()
+    diff = (got.float() - w).abs()
+    if dtype_name == "bfloat16":
+        need = _row_need(got, want)
+        if not need <= atol:
+            raise AssertionError(f"{what}: needs {need} of the row's scale "
+                                 f"beyond rtol {rtol}; the rule allows "
+                                 f"{atol}")
+    elif not bool((diff <= atol + rtol * w.abs()).all()):
+        raise AssertionError(f"{what}: max |err| {float(diff.max())} beyond "
+                             f"atol {atol} + rtol {rtol}")
+    return float(diff.max())
+
+
+def attn_bwd_check(torch) -> dict:
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same (q, k, v, out, lse, dout) — out and lse from the forward kernel —
+    at every case in both dtypes; the forward kernel's lse against the
+    plain forward's; two runs of the kernel giving the same bits; rows
+    that see no key passing no gradient.  At the train shape, timed beside
+    the plain version, the bound and SDPA's backward as yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator().manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    shapes = []
+    for name, b, hq, hkv, sq, sk, d, causal, q_offset in ATTN_BWD_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            what = f"{name} {dt_name}"
+            q = (torch.randn(b * hq, sq, d, generator=gen)
+                 * d ** -0.5).to(dtype).cuda()
+            k = torch.randn(b * hkv, sk, d, generator=gen).to(dtype).cuda()
+            v = torch.randn(b * hkv, sk, d, generator=gen).to(dtype).cuda()
+            dout = torch.randn(b * hq, sq, d, generator=gen).to(dtype).cuda()
+            kw = dict(heads_q=hq, heads_kv=hkv, causal=causal,
+                      q_offset=q_offset)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            out_plain, lse_plain = fa.flash_attention_plain(
+                q, k, v, return_lse=True, **kw)
+            lse_err = float((lse - lse_plain).abs().max())
+            if not bool(((lse - lse_plain).abs()
+                         <= 1e-3 + 1e-4 * lse_plain.abs()).all()):
+                raise AssertionError(f"{what}: forward lse off by {lse_err}")
+            out_err = _out_close(out, out_plain, dt_name, what)
+            del out_plain, lse_plain
+            bkw = dict(kw, scale=d ** -0.5)
+            run = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                 **bkw)
+            plain = lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, **bkw)
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{what}: two runs differ in bits")
+            err = max(_grad_close(g_, w_, dt_name, f"{what} {nm}")
+                      for g_, w_, nm in zip(got, want, ("dq", "dk", "dv")))
+            if q_offset < 0:        # rows 0 .. -q_offset-1 see no key
+                hidden = -q_offset
+                if bool(got[0][:, :hidden].any()) or bool(
+                        out[:, :hidden].float().any()):
+                    raise AssertionError(
+                        f"{what}: a row that sees no key passed a gradient")
+            worst[dt_name] = max(worst[dt_name], err)
+            n += 1
+            row = {"shape": name, "dtype": dt_name, "q": [b, hq, sq, d],
+                   "kv": [b, hkv, sk, d], "causal": causal,
+                   "q_offset": q_offset, "max_abs_err": err,
+                   "lse_max_abs_err": lse_err, "out_max_abs_err": out_err}
+            if dt_name == "bfloat16":
+                row["row_need"] = {nm: _row_need(g_, w_) for g_, w_, nm in
+                                   zip(got, want, ("dq", "dk", "dv"))}
+            if (name, dt_name) == ATTN_BWD_HEADLINE:
+                row["planted_faults"] = _planted_faults(
+                    fa, q, k, v, out, lse, dout, got, want, bkw)
+                row.update(_attn_bwd_times(torch, F, run, plain, q, k, v,
+                                           out, lse, dout, got, b, hq, hkv,
+                                           sq, sk, d, causal, q_offset))
+            shapes.append(row)
+            del q, k, v, dout, out, lse, got, again, want
+    torch.cuda.empty_cache()
+    return {"comparisons": n, "max_abs_err_f32": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"], "shapes": shapes}
+
+
+def _out_close(out, want, dtype_name: str, what: str) -> float:
+    """The forward kernel's out against the plain forward's: ``attn_check``'s
+    rule (``ATTN_TOL``) and, in bf16, the backward's row rule."""
+    diff = (out.float() - want.float()).abs()
+    tol = ATTN_TOL[dtype_name]
+    if not bool((diff <= tol + tol * want.float().abs()).all()):
+        raise AssertionError(f"{what}: forward out off by "
+                             f"{float(diff.max())} beyond atol = rtol = {tol}")
+    if dtype_name == "bfloat16":
+        _grad_close(out, want, dtype_name, f"{what} forward out")
+    return float(diff.max())
+
+
+#: the last key tile, as the kernel tiles keys (64)
+ATTN_BWD_KEY_TILE = 64
+
+
+def _planted_faults(fa, q, k, v, out, lse, dout, got, want, bkw) -> dict:
+    """The bf16 rule against faults planted in the kernel's own gradients
+    at one shape: each must fail it.  "last key tile skipped" takes the
+    last key tile's share out of dq (its diagonal tile's, from the plain
+    backward of that tile alone) and zeroes that tile's dk and dv rows;
+    "dv 0, last quarter" zeroes dv of the last quarter of the keys; "dq
+    ×1.3 past the first quarter" scales those query rows.  Beside each:
+    the share of the scale it needs per row and per tensor, both against
+    the rule's 1e-2."""
+    t = ATTN_BWD_KEY_TILE
+    sq, sk = q.shape[1], k.shape[1]
+    dq, dk, dv = got
+    tile = fa.flash_attention_bwd_plain(
+        q[:, sq - t:], k[:, sk - t:], v[:, sk - t:], out[:, sq - t:],
+        lse[:, sq - t:], dout[:, sq - t:],
+        **dict(bkw, q_offset=bkw["q_offset"] + sq - sk))
+    skipped_dq = dq.clone()
+    skipped_dq[:, sq - t:] = (dq[:, sq - t:].float()
+                              - tile[0].float()).to(dq.dtype)
+    faults = {"last key tile skipped: dq": (skipped_dq, want[0]),
+              "last key tile skipped: dk": (dk.clone(), want[1]),
+              "last key tile skipped: dv": (dv.clone(), want[2]),
+              "dv 0, last quarter of the keys": (dv.clone(), want[2]),
+              "dq x1.3 past the first quarter": (dq.clone(), want[0])}
+    faults["last key tile skipped: dk"][0][:, sk - t:] = 0
+    faults["last key tile skipped: dv"][0][:, sk - t:] = 0
+    faults["dv 0, last quarter of the keys"][0][:, sk - sk // 4:] = 0
+    late = faults["dq x1.3 past the first quarter"][0][:, sq // 4:]
+    late.copy_((late.float() * 1.3).to(late.dtype))
+    rule = ATTN_BWD_TOL["bfloat16"][1]
+    report = {}
+    for name, (bad, good) in faults.items():
+        per_row = _row_need(bad, good)
+        report[name] = {"need_per_row": per_row,
+                        "need_per_tensor": _row_need(bad, good, False),
+                        "caught": per_row > rule}
+        if per_row <= rule:
+            raise AssertionError(f"the bf16 rule lets a planted fault pass: "
+                                 f"{name} needs only {per_row}")
+    return report
+
+
+def _attn_bwd_times(torch, F, run, plain, q, k, v, out, lse, dout, got, b,
+                    hq, hkv, sq, sk, d, causal, q_offset) -> dict:
+    """ms of the kernel (CUDA events; device ms from the profiler), of the
+    plain version and of SDPA's backward (flash backend, k and v expanded
+    to the query heads, so it is the backward alone) at one shape, and the
+    bound: five products of 2·D flops per visible (query, key) pair at the
+    bf16 tensor-core peak, or the bytes in and out at 3.35 TB/s."""
+    ms = time_ms(run, warmup=1, reps=5)
+    dev_ms = device_ms(run, reps=3, kernel=ATTN_BWD_KERNELS)
+    plain_ms = time_ms(plain, warmup=1, reps=2)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (q, k, v, out, lse, dout, *got))
+    flops = 5 * 2 * d * b * hq * _visible_pairs(sq, sk, causal, q_offset)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
+    g = hq // hkv
+    q4 = q.view(b, hq, sq, d).detach().requires_grad_(True)
+    ke = k.view(b, hkv, sk, d).repeat_interleave(g, 1).requires_grad_(True)
+    ve = v.view(b, hkv, sk, d).repeat_interleave(g, 1).requires_grad_(True)
+    o4 = F.scaled_dot_product_attention(q4, ke, ve, is_causal=causal,
+                                        scale=1.0)
+    do4 = dout.view(b, hq, sq, d)
+    lib = lambda: torch.autograd.grad(o4, (q4, ke, ve), do4,
+                                      retain_graph=True)
+    ldq, ldk, ldv = lib()
+    lib_dk = ldk.float().view(b, hkv, g, sk, d).sum(2).view_as(got[1])
+    lib_err = max(float((ldq.float().view_as(got[0]) * d ** -0.5
+                         - got[0].float()).abs().max()),
+                  float((lib_dk - got[1].float()).abs().max()))
+    library_ms = time_ms(lib, warmup=1, reps=5)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "flops": flops, "library_ms": library_ms,
+            "library_vs_kernel_max_abs": lib_err}
 
 
 # ---------------------------------------------------------------------------
@@ -2442,6 +2724,216 @@ def encdec_serve(torch) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dense LM's train step
+# ---------------------------------------------------------------------------
+
+#: llama3.2-1b at published width and depth, train_4k's sequence of 4096;
+#: its global batch of 256 cut to 8 rows, taken as 2 microbatches of 4 so
+#: that the gradient accumulation runs on the card
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_ROWS, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 5
+#: AdamWConfig's default lr 3e-4 with one warmup step overshoots on this
+#: random 1B model (losses 12.41, 10.59, 14.67, 16.66, 12.26 on an H100)
+TRAIN_LR = 1e-4
+#: the card against the port's own CPU run: the same seeded parameters
+#: (through ``lm_params_from_numpy``) at depth 2 and d_model 256 (4/1
+#: heads of the published 64, d_ff 1024, the published vocab), a batch of
+#: 2 × 256 tokens as 2 microbatches, one step.  Rules, set before the
+#: first run: f32 — loss rtol 1e-5, each gradient leaf's relative L2
+#: error ≤ 1e-4, parameters after the step atol = rtol = 1e-4 (the CPU
+#: tests' rule against the reference); bf16 — loss rtol 1e-2, relative L2
+#: ≤ 5e-2 (each device rounds every bf16 product and sum on its own),
+#: parameters atol = rtol = 3e-2 (the CPU tests' bf16 rule)
+TRAIN_CPU_CUT = {"num_layers": 2, "d_model": 256, "num_heads": 4,
+                 "num_kv_heads": 1, "head_dim": 64, "d_ff": 1024}
+TRAIN_CPU_ROWS, TRAIN_CPU_SEQ = 2, 256
+TRAIN_CPU_RULE = {"float32": (1e-5, 1e-4, 1e-4),
+                  "bfloat16": (1e-2, 5e-2, 3e-2)}
+
+
+def _flat(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_train(torch) -> tuple:
+    """llama3.2-1b's train step at full width and depth on the card: five
+    AdamW steps on one repeated batch of the ported data pipeline — the
+    main path, whose launches the caller reads just after.  Returns the
+    result and ``rest``, for after that read: the last step again from
+    its state (equal bits?), one step profiled, and the card against the
+    CPU at a cut width."""
+    from repro_torch.configs.base import SHAPES, model_flops_per_token
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import conv2d_stream as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mamba2_ssd as ms
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    torch.cuda.empty_cache()           # what the serving phases left cached
+    cfg = get_config(TRAIN_ARCH)
+    if (cfg.attn_impl, cfg.mlp_impl, cfg.remat) != ("cuda", "dense", True):
+        raise AssertionError(f"{TRAIN_ARCH}: not the default train path")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_ROWS)
+    t0 = time.perf_counter()
+    batch = pipeline.batch_for_model(cfg, shape, pipeline.DataConfig(seed=0),
+                                     0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                total_steps=TRAIN_STEPS)
+    state = adamw.init(params, opt_cfg)
+    step = steps.make_train_step(cfg, opt_cfg, grad_accum=TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for _, t in _flat(params)) / 1e9
+    others = (cs.launches, fm.launches, ms.launches)
+    torch.cuda.reset_peak_memory_stats()
+
+    losses, step_ms, per_step = [], [], None
+    for _ in range(TRAIN_STEPS):
+        f0, b0 = fa.launches, fa.bwd_launches
+        before = (params, state)       # the last step's, for ``rest``
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if per_step is None:
+            per_step = {"flash_attention": fa.launches - f0,
+                        "flash_attention_bwd": fa.bwd_launches - b0}
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH}: losses {losses}: not finite "
+                             "and falling")
+    layers = cfg.num_layers
+    want = {"flash_attention": 2 * layers * TRAIN_ACCUM,
+            "flash_attention_bwd": layers * TRAIN_ACCUM}
+    if per_step != want:
+        raise AssertionError(f"launches a step {per_step}, want {want} "
+                             "(remat: each layer's forward twice)")
+    if (cs.launches, fm.launches, ms.launches) != others:
+        raise AssertionError("a conv, fused-MLP or SSD kernel launched in "
+                             "the train step")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_ROWS * shape.seq_len
+    warm_ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    flops = model_flops_per_token(cfg, training=True) * tokens
+    result = {
+        "arch": TRAIN_ARCH, "layers": layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "rows": TRAIN_ROWS, "seq": shape.seq_len, "grad_accum": TRAIN_ACCUM,
+        "steps": TRAIN_STEPS, "init_s": init_s, "weights_gb": weights_gb,
+        "losses": losses, "step_ms": step_ms, "warm_step_ms": warm_ms,
+        "tokens_per_s": tokens / (warm_ms / 1e3),
+        "model_flop_share": flops / (warm_ms / 1e3)
+        / TENSOR_CORE_BF16_OPS_PER_S,
+        "model_flops_per_step": flops, "peak_mem_gb": peak_gb,
+        "launches_per_step": per_step,
+    }
+
+    def rest() -> dict:
+        nonlocal params, state, before, batch
+        p2, s2, m2 = step(*before, batch)
+        differ = [p for (p, a), (_, b) in zip(
+            _flat({"params": params, "mu": state.mu, "nu": state.nu}),
+            _flat({"params": p2, "mu": s2.mu, "nu": s2.nu}))
+            if not torch.equal(a, b)]
+        same_loss = bool(torch.equal(m["loss"], m2["loss"]))
+        del p2, s2, before
+        breakdown = _prefill_breakdown(
+            torch, lambda: step(params, state, batch), reps=1,
+            classes=(("attn_fwd", "flash_attention"),
+                     ("attn_bwd", "attn_bwd_")))
+        del params, state, batch
+        torch.cuda.empty_cache()
+        return {
+            "step_repeats_bit_for_bit": same_loss and not differ,
+            "leaves_that_differ": differ[:20],
+            "step_breakdown": breakdown,
+            "card_vs_cpu": {dt: _train_card_vs_cpu(torch, cfg, dt)
+                            for dt in ("float32", "bfloat16")},
+        }
+
+    return result, rest
+
+
+def _train_card_vs_cpu(torch, cfg, dtype: str) -> dict:
+    """One train step of ``cfg`` cut to ``TRAIN_CPU_CUT`` on the card and
+    in the port's own CPU run, from the same NumPy parameters and batch:
+    the loss, each gradient leaf's relative L2 error and the parameters
+    after the step, held to ``TRAIN_CPU_RULE``."""
+    import numpy as np
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    small = cfg.with_(dtype=dtype, **TRAIN_CPU_CUT)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_CPU_SEQ,
+                                global_batch=TRAIN_CPU_ROWS)
+    drawn = lm.init_params(torch.Generator().manual_seed(1),
+                           small.with_(dtype="float32"))
+    tree = adamw.tree_map(lambda t: t.numpy(), drawn)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    loss_rtol, l2_rule, p_tol = TRAIN_CPU_RULE[dtype]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = lm.lm_params_from_numpy(tree, small, device=dev)
+        batch = pipeline.batch_for_model(small, shape,
+                                         pipeline.DataConfig(seed=1), 0,
+                                         device=dev)
+        merged = {}
+        for mb in steps._split_microbatches(batch, TRAIN_ACCUM):
+            _, g = steps._value_and_grad(small, params, mb)
+            for path, t in _flat(g):
+                merged[path] = merged.get(path, 0) + t.float().cpu()
+        new_p, _, m = steps.make_train_step(
+            small, opt_cfg, grad_accum=TRAIN_ACCUM)(
+                params, adamw.init(params, opt_cfg), batch)
+        runs[dev] = (float(m["loss"]), merged,
+                     {p: t.float().cpu() for p, t in _flat(new_p)})
+    (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
+    if not abs(lc - lh) <= loss_rtol * abs(lh):
+        raise AssertionError(f"{dtype}: loss card {lc} vs cpu {lh}")
+    l2 = {}
+    for path, want in gh.items():
+        got = gc[path]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{dtype}: gradient {path} not finite")
+        l2[path] = float((got - want).norm() / max(float(want.norm()),
+                                                   1e-30))
+        if l2[path] > l2_rule:
+            raise AssertionError(f"{dtype}: gradient {path} relative L2 "
+                                 f"{l2[path]} > {l2_rule}")
+    p_err = 0.0
+    for path, want in ph.items():
+        diff = (pc[path] - want).abs()
+        if not bool((diff <= p_tol + p_tol * want.abs()).all()):
+            raise AssertionError(f"{dtype}: parameter {path} after the step "
+                                 f"off by {float(diff.max())}")
+        p_err = max(p_err, float(diff.max()))
+    worst = max(l2, key=l2.get)
+    return {"loss_card": lc, "loss_cpu": lh, "grad_rel_l2_max": l2[worst],
+            "grad_rel_l2_worst_leaf": worst, "grad_rel_l2": l2,
+            "param_max_abs_after_step": p_err,
+            "rule": {"loss_rtol": loss_rtol, "grad_rel_l2": l2_rule,
+                     "param_atol_rtol": p_tol}}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2495,7 +2987,8 @@ def main(argv=None) -> int:
                          "nvcc": nvcc[-2:] if nvcc else None}})
     # always from the checkout's sources, whatever a build directory
     # holds: one nvcc per kernel, all started together
-    libraries = (cs.LIBRARY, fa.LIBRARY, fm.LIBRARY, ms.LIBRARY)
+    libraries = (cs.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY, fm.LIBRARY,
+                 ms.LIBRARY)
     probe_lib = mlp_probe_library(build, fm) if "mlp_probe" in phases \
         else None
     t0 = time.perf_counter()
@@ -2516,7 +3009,8 @@ def main(argv=None) -> int:
         # registers and spills: the redesigned kernels always, every
         # kernel with --ptxas
         built["ptxas"] = [r for lib in libraries
-                          if args.ptxas or lib in (cs.LIBRARY, ms.LIBRARY)
+                          if args.ptxas or lib in (cs.LIBRARY, ms.LIBRARY,
+                                                   fa.BWD_LIBRARY)
                           for r in ptxas_report(lib.build_log)]
         emit_phase("build", built)
     checked = None
@@ -2554,10 +3048,13 @@ def main(argv=None) -> int:
         launches += read_after(cs, "conv2d_stream",               # after
                                "imported and command-line")
 
-    attn = mlp = ssd = None
+    attn = attn_bwd = mlp = ssd = None
     if "attn_check" in phases:
         attn = attn_check(torch)
         emit_phase("attn_check", attn)
+    if "attn_bwd_check" in phases:
+        attn_bwd = attn_bwd_check(torch)
+        emit_phase("attn_bwd_check", attn_bwd)
     if "mlp_check" in phases:
         mlp = mlp_check(torch)
         emit_phase("mlp_check", mlp)
@@ -2593,6 +3090,19 @@ def main(argv=None) -> int:
         emit_phase("encdec_serve", encdec_serve(torch))
         fa_launches += read_after(fa, "flash_attention",        # after
                                   "encoder-decoder")
+    fa.reset_counts()                  # counts: zero before the train path
+    fb_launches = 0
+    if "lm_train" in phases:
+        train, rest = lm_train(torch)
+        fa_launches += read_after(fa, "flash_attention", "train")  # after
+        fb_launches = fa.bwd_launches
+        if fb_launches < 1 or fa.bwd_plain_cuda_calls:
+            raise AssertionError(
+                f"the train path launched flash_attention_bwd {fb_launches} "
+                f"time(s), its plain version ran {fa.bwd_plain_cuda_calls} "
+                "time(s) on a CUDA tensor")
+        train.update(rest())     # the repeat, profile and CPU check: after
+        emit_phase("lm_train", train)
 
     if set(phases) != set(PHASES):
         emit({"partial": phases,
@@ -2607,6 +3117,8 @@ def main(argv=None) -> int:
                  if (s["shape"], s["dtype"]) == MLP_HEADLINE)
     shead = next(s for s in ssd["shapes"]
                  if (s["shape"], s["dtype"]) == SSD_HEADLINE)
+    bhead = next(s for s in attn_bwd["shapes"]
+                 if (s["shape"], s["dtype"]) == ATTN_BWD_HEADLINE)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "conv2d_stream", "route": "cuda",
@@ -2635,6 +3147,23 @@ def main(argv=None) -> int:
                     "F.scaled_dot_product_attention, GQA, causal)",
         "comparisons": attn["comparisons"],
         "shapes": shape_rows(attn["shapes"]),
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:209",
+        "launches": fb_launches,
+        "max_abs_err": max(attn_bwd["max_abs_err_f32"],
+                           attn_bwd["max_abs_err_bf16"]),
+        "ms": bhead["ms"], "plain_ms": bhead["plain_ms"],
+        "bound_ms": bhead["bound_ms"], "bound_by": bhead["bound_by"],
+        "library_ms": bhead["library_ms"],
+        "timed_at": f"{ATTN_BWD_HEADLINE[0]} {ATTN_BWD_HEADLINE[1]} (no TPU "
+                    "kernel: the counterpart of the reference's XLA custom "
+                    "VJP; library: F.scaled_dot_product_attention's "
+                    "backward, flash backend, k/v expanded to the query "
+                    "heads)",
+        "comparisons": attn_bwd["comparisons"],
+        "shapes": shape_rows([s for s in attn_bwd["shapes"] if "ms" in s]),
     }, {
         "name": "fused_mlp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",

@@ -38,6 +38,11 @@
 // any length works; the heaviest causal tiles (last query rows) start
 // first.
 //
+// For training both routes also write each row's log-sum-exp, lse = m +
+// log(l) (l replaced by 1 where it is 0), which the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from; serving
+// passes a null lse and pays nothing for it.
+//
 // Plain C interface (loaded with ctypes): the kernels allocate nothing
 // and do not synchronise; the launcher returns cudaGetLastError().
 
@@ -77,7 +82,7 @@ template <typename T, int TM, int DPT>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       const Params p) {
+                       float* __restrict__ lse, const Params p) {
   constexpr int BQ = 16 * TM;
   constexpr int QS = BQ + PAD;  // row pitch of qT
   constexpr int KS = BK + PAD;  // row pitch of kT and ps
@@ -237,6 +242,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * TM + i;
     if (r >= q_rows) continue;
     const float safe_l = l[i] > 0.f ? l[i] : 1.f;
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * p.Sq + q0 + r] = m[i] + logf(safe_l);
     T* o = out + ((size_t)bh * p.Sq + q0 + r) * p.D;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
@@ -268,7 +275,8 @@ __global__ void __launch_bounds__(MMA_THREADS, DP <= 64 ? 4 : 1)
 flash_attention_mma_kernel(const uint16_t* __restrict__ q,
                            const uint16_t* __restrict__ k,
                            const uint16_t* __restrict__ v,
-                           uint16_t* __restrict__ out, const Params p,
+                           uint16_t* __restrict__ out,
+                           float* __restrict__ lse, const Params p,
                            const int vec) {
   using namespace mma_bf16;
   constexpr int PITCH = DP + 8;
@@ -423,7 +431,10 @@ flash_attention_mma_kernel(const uint16_t* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + g + 8 * h;
     if (r >= q_rows) continue;
-    const float inv = 1.f / (l[h] > 0.f ? l[h] : 1.f);
+    const float safe_l = l[h] > 0.f ? l[h] : 1.f;
+    if (lse != nullptr && t4 == 0)
+      lse[(size_t)bh * p.Sq + q0 + r] = m[h] + logf(safe_l);
+    const float inv = 1.f / safe_l;
     uint16_t* orow = out + ((size_t)bh * p.Sq + q0 + r) * p.D;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -442,7 +453,8 @@ flash_attention_mma_kernel(const uint16_t* __restrict__ q,
 
 template <int DP>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               const Params& p, int n_blocks, int vec, cudaStream_t stream) {
+               float* lse, const Params& p, int n_blocks, int vec,
+               cudaStream_t stream) {
   auto kern = flash_attention_mma_kernel<DP>;
   const size_t smem = mma_smem_bytes(DP);
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -450,7 +462,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   if (attr != cudaSuccess) return (int)attr;
   kern<<<n_blocks, MMA_THREADS, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), p, vec);
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), lse, p,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -463,7 +476,8 @@ int mma_head_pad(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 12
 
 template <typename T, int TM, int DPT>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const Params& p, int n_blocks, size_t smem, cudaStream_t stream) {
+           float* lse, const Params& p, int n_blocks, size_t smem,
+           cudaStream_t stream) {
   auto kern = flash_attention_kernel<T, TM, DPT>;
   // once per instantiation (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -471,32 +485,39 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (attr != cudaSuccess) return (int)attr;
   kern<<<n_blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), p);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, p);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int TM>
 int launch_dpt(const void* q, const void* k, const void* v, void* out,
-               const Params& p, int n_blocks, size_t smem, cudaStream_t s) {
-  if (p.D <= 32) return launch<T, TM, 2>(q, k, v, out, p, n_blocks, smem, s);
-  if (p.D <= 64) return launch<T, TM, 4>(q, k, v, out, p, n_blocks, smem, s);
-  return launch<T, TM, 8>(q, k, v, out, p, n_blocks, smem, s);
+               float* lse, const Params& p, int n_blocks, size_t smem,
+               cudaStream_t s) {
+  if (p.D <= 32)
+    return launch<T, TM, 2>(q, k, v, out, lse, p, n_blocks, smem, s);
+  if (p.D <= 64)
+    return launch<T, TM, 4>(q, k, v, out, lse, p, n_blocks, smem, s);
+  return launch<T, TM, 8>(q, k, v, out, lse, p, n_blocks, smem, s);
 }
 
 template <typename T>
 int launch_tm(const void* q, const void* k, const void* v, void* out,
-              const Params& p, int block_q, int n_blocks, size_t smem,
-              cudaStream_t s) {
-  if (block_q == 64) return launch_dpt<T, 4>(q, k, v, out, p, n_blocks, smem, s);
-  return launch_dpt<T, 2>(q, k, v, out, p, n_blocks, smem, s);
+              float* lse, const Params& p, int block_q, int n_blocks,
+              size_t smem, cudaStream_t s) {
+  if (block_q == 64)
+    return launch_dpt<T, 4>(q, k, v, out, lse, p, n_blocks, smem, s);
+  return launch_dpt<T, 2>(q, k, v, out, lse, p, n_blocks, smem, s);
 }
 
 }  // namespace
 
 // dtype codes: 0 float32 (CUDA cores; block_q 32 or 64), 1 bfloat16
-// (tensor cores; block_q 64).
+// (tensor cores; block_q 64).  lse: null (serving), or f32 (B*Hq, Sq)
+// that receives each row's m + log(l), l replaced by 1 where it is 0 (the
+// reference's safe_l) — what the backward kernel recomputes p from.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype,
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int dtype,
     int BHq, int Sq, int Sk, int D, int Hq, int Hkv, int causal,
     int q_offset, int block_q, void* stream) {
   if (BHq < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || Hq < 1 ||
@@ -519,10 +540,14 @@ extern "C" int flash_attention_launch(
                       reinterpret_cast<uintptr_t>(v) |
                       reinterpret_cast<uintptr_t>(out)) & 15) == 0;
     switch (mma_head_pad(D)) {
-      case 16: return launch_mma<16>(q, k, v, out, p, (int)n_blocks, vec, s);
-      case 32: return launch_mma<32>(q, k, v, out, p, (int)n_blocks, vec, s);
-      case 64: return launch_mma<64>(q, k, v, out, p, (int)n_blocks, vec, s);
-      default: return launch_mma<128>(q, k, v, out, p, (int)n_blocks, vec, s);
+      case 16:
+        return launch_mma<16>(q, k, v, out, lse, p, (int)n_blocks, vec, s);
+      case 32:
+        return launch_mma<32>(q, k, v, out, lse, p, (int)n_blocks, vec, s);
+      case 64:
+        return launch_mma<64>(q, k, v, out, lse, p, (int)n_blocks, vec, s);
+      default:
+        return launch_mma<128>(q, k, v, out, lse, p, (int)n_blocks, vec, s);
     }
   }
   const int dpt = D <= 32 ? 2 : D <= 64 ? 4 : 8;
@@ -530,7 +555,8 @@ extern "C" int flash_attention_launch(
       4 * ((size_t)D * (block_q + PAD) + (size_t)D * (BK + PAD) +
            (size_t)BK * 16 * dpt + (size_t)block_q * (BK + PAD));
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  return launch_tm<float>(q, k, v, out, p, block_q, (int)n_blocks, smem, s);
+  return launch_tm<float>(q, k, v, out, lse, p, block_q, (int)n_blocks, smem,
+                         s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

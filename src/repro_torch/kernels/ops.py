@@ -7,9 +7,12 @@ every conv on a CUDA tensor, batched or not, integer or float, goes
 through that kernel.  ``conv2d_same_mm`` (per-tap shifted-window
 products) stays as a CPU function the tests hold bit-exact against it.
 
-``flash_attention`` is the LM path's attention entry point: it scales
-``q`` and hands ``(B·H, S, D)`` views to the hand-written CUDA kernel
-(``repro_torch.kernels.flash_attention``).  ``fused_mlp`` and
+``flash_attention`` is the LM path's attention entry point: it hands
+``(B·H, S, D)`` views to the hand-written CUDA kernels
+(``repro_torch.kernels.flash_attention``), differentiable through their
+``FlashAttention`` function (the backward is a kernel too).  The other
+three kernels have no backward yet and refuse to run under autograd on
+the card.  ``fused_mlp`` and
 ``mamba2_ssd`` fold and check their inputs as the reference's wrappers do
 and hand them to the hand-written fused-MLP and SSD kernels
 (``repro_torch.kernels.fused_mlp`` / ``mamba2_ssd``).
@@ -71,6 +74,26 @@ from . import ref as _ref
 
 
 # ---------------------------------------------------------------------------
+# kernels with no backward
+# ---------------------------------------------------------------------------
+
+
+def _refuse_grad(name: str, item: str, *tensors) -> None:
+    """A kernel writes its output through ``ctypes`` into a fresh tensor
+    that autograd does not see: on CUDA tensors under autograd (grad
+    enabled and an input that requires grad) that output would silently
+    drop every gradient upstream of it.  Raise instead, naming the ROADMAP
+    item that brings the kernel's backward.  The plain versions on the CPU
+    are differentiable and pass."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.is_cuda and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet: it cannot run under "
+            f"autograd on the card (ROADMAP.md §A {item})")
+
+
+# ---------------------------------------------------------------------------
 # conv2d_stream
 # ---------------------------------------------------------------------------
 
@@ -106,8 +129,12 @@ def conv2d_stream(
     ``plan_conv_rows``); results do not depend on it.
 
     The operands decide where it runs: CUDA tensors launch the kernel
-    (or raise), CPU tensors take its plain version.
+    (or raise), CPU tensors take its plain version.  The kernel has no
+    backward: under autograd on CUDA tensors it raises
+    NotImplementedError.
     """
+    _refuse_grad("conv2d_stream", "item 4g (the reference trains no CNN)",
+                 x, w)
     if fuse_relu:
         if epilogue not in (None, "relu"):
             raise ValueError("fuse_relu=True conflicts with epilogue="
@@ -715,12 +742,8 @@ def run_compiled_batched(design, env, batch: int, *, device=None,
 # ---------------------------------------------------------------------------
 
 
-def scale_in_dtype(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """``x * scale`` in ``x.dtype`` with ``scale`` first rounded to that
-    dtype — the product a framework that casts a Python scalar to the
-    array's type computes (for bf16 that differs from multiplying by the
-    exact scale before one rounding)."""
-    return x * float(torch.tensor(scale, dtype=x.dtype))
+#: ``x * scale`` in ``x.dtype``, the scalar rounded to that dtype first
+scale_in_dtype = _flash.scale_in_dtype
 
 
 def flash_attention(
@@ -736,6 +759,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """GQA flash attention → ``(B, Hq, Sq, D)`` in ``q.dtype``, through the
     hand-written kernel on a CUDA tensor (its plain version on a CPU one).
+    Differentiable: under autograd it is ``FlashAttention`` (the forward
+    kernel with ``lse``, the backward kernel for the gradient); without,
+    one forward launch as in serving.
 
     ``q`` is scaled in ``q.dtype`` before the kernel.  ``block_q`` and
     ``block_k`` are only checked — ``Sq``/``Sk`` must be multiples of
@@ -756,11 +782,11 @@ def flash_attention(
             f"flash_attention: Sq {sq} / Sk {sk} are not multiples of "
             f"block_q {block_q} / block_k {block_k}")
 
-    qf = scale_in_dtype(q, scale).reshape(b * hq, sq, d)
-    kf = k.reshape(b * hkv, sk, d)
-    vf = v.reshape(b * hkv, sk, d)
-    out = _flash.flash_attention(qf, kf, vf, heads_q=hq, heads_kv=hkv,
-                                 causal=causal, q_offset=q_offset)
+    out = _flash.attention(q.reshape(b * hq, sq, d),
+                           k.reshape(b * hkv, sk, d),
+                           v.reshape(b * hkv, sk, d), heads_q=hq,
+                           heads_kv=hkv, causal=causal, q_offset=q_offset,
+                           scale=scale)
     return out.reshape(b, hq, sq, d)
 
 
@@ -787,7 +813,11 @@ def fused_mlp(
     ``F`` must be multiples of them, so the inputs the TPU wrapper refuses
     raise ValueError here too — and change nothing: the kernel tiles with
     :func:`repro_torch.core.dse.plan_mlp_blocks`.  ``None`` checks
-    nothing (there the TPU wrapper picks a divisor)."""
+    nothing (there the TPU wrapper picks a divisor).  The kernel has no
+    backward yet: under autograd on CUDA tensors it raises
+    NotImplementedError."""
+    _refuse_grad("fused_mlp", "item 4f (the streamed MLP)", x, w_gate, w_up,
+                 w_down)
     lead = x.shape[:-1]
     d = x.shape[-1]
     f = w_up.shape[1]
@@ -828,7 +858,10 @@ def mamba2_ssd(
     divide ``L`` (ValueError, where the reference asserts); the kernel
     walks the sequence in its own tiles, so it only gates the call and
     sets the plain version's chunk.  The initial state defaults to zeros
-    (f32)."""
+    (f32).  The kernel has no backward yet: under autograd on CUDA tensors
+    it raises NotImplementedError."""
+    _refuse_grad("mamba2_ssd", "item 4c (SSM training)", x, dt, a, b_mat,
+                 c_mat, init_state)
     bsz, l, h, p = x.shape
     n = b_mat.shape[-1]
     if chunk is None:

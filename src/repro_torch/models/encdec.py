@@ -24,8 +24,9 @@ Entry points:
   ``init_cache``      — zeroed caches ``{"ck", "cv", "k", "v"}``
 
 The training half — ``encdec_loss``, the teacher-forced ``decode_train``
-and the ``kv_override`` cross-attention it uses — comes with training
-(``ROADMAP.md`` §A item 4).
+and the ``kv_override`` cross-attention it uses — comes with the slice
+that trains the encoder–decoder (``ROADMAP.md`` §A item 4e; the dense
+family trains since item 4a).
 """
 from __future__ import annotations
 

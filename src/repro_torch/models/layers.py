@@ -2,12 +2,16 @@
 
 Attention has three interchangeable implementations (``ATTN_IMPLS``):
 
-* ``cuda`` — the hand-written flash-attention kernel
+* ``cuda`` — the hand-written flash-attention kernels
   (``repro_torch.kernels.flash_attention`` through ``ops.flash_attention``;
-  its plain version on a CPU tensor).  The default, and the prefill path.
+  their plain versions on a CPU tensor).  The default: the prefill path
+  and the train path, whose gradient is the hand-written backward kernel.
 * ``blockwise`` — KV tiles stream through a Python loop with running
-  (m, l, acc) state: flash attention written as PyTorch ops, forward
-  only (its streaming backward comes with training).
+  (m, l, acc) state: flash attention written as PyTorch ops.  Its
+  gradient is the reference's *streaming backward* (a
+  ``torch.autograd.Function`` that recomputes each score block from the
+  saved log-sum-exp), or with ``streaming_bwd=False`` plain autograd
+  through the loop, which keeps every score block.
 * ``reference`` — dense softmax (oracle; small shapes only).
 
 Decode (Sq == 1) always uses the bounded-KV-cache path: one new token
@@ -31,6 +35,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import scale_in_dtype
 
@@ -139,15 +144,14 @@ def _divisor_block(size: int, target: int) -> int:
 
 def _flash_forward_blocks(qb, kb, vb, *, causal, q_offset, block_q, block_k):
     """qb (B,Hkv,g,nq,bq,D) pre-scaled; kb/vb (B,Hkv,nk,bk,D).  Returns
-    out (B,Hkv,g,nq,bq,D) f32: per query block, a loop over the key
-    blocks carrying (m, l, acc)."""
+    (out (B,Hkv,g,nq,bq,D) f32, lse (B,Hkv,g,nq,bq) f32): per query
+    block, a loop over the key blocks carrying (m, l, acc)."""
     b, hkv, g, nq, bq, d = qb.shape
     nk = kb.shape[2]
     dev = qb.device
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qc = qb[:, :, :, qi].float()                          # (B,Hkv,g,bq,D)
-        qpos = qi * block_q + torch.arange(block_q, device=dev) + q_offset
         m = torch.full((b, hkv, g, block_q), NEG_INF, device=dev)
         l = torch.zeros((b, hkv, g, block_q), device=dev)
         acc = torch.zeros((b, hkv, g, block_q, d), device=dev)
@@ -156,10 +160,10 @@ def _flash_forward_blocks(qb, kb, vb, *, causal, q_offset, block_q, block_k):
             vc = vb[:, :, ki].float()
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc)
             if causal:
-                kpos = ki * block_k + torch.arange(block_k, device=dev)
-                bias = torch.where(qpos[:, None] >= kpos[None, :], 0.0,
-                                   NEG_INF)                   # (bq, bk)
-                s = s + bias
+                vis = fa.causal_mask(block_q, block_k,
+                                     qi * block_q + q_offset - ki * block_k,
+                                     dev)
+                s = torch.where(vis, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])               # masked → 0
             alpha = torch.exp(m - m_new)
@@ -169,7 +173,64 @@ def _flash_forward_blocks(qb, kb, vb, *, causal, q_offset, block_q, block_k):
             m = m_new
         safe_l = torch.where(l > 0, l, 1.0)
         outs.append(acc / safe_l[..., None])
-    return torch.stack(outs, dim=3)
+        lses.append(m + torch.log(safe_l))
+    return torch.stack(outs, dim=3), torch.stack(lses, dim=3)
+
+
+def _blocks(q, k, v, block_q, block_k):
+    """q pre-scaled in its dtype and q/k/v cut into blocks: (qb
+    (B,Hkv,g,nq,bq,D), kb, vb (B,Hkv,nk,bk,D))."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    qb = scale_in_dtype(q, d ** -0.5).reshape(b, hkv, g, sq // block_q,
+                                              block_q, d)
+    kb = k.reshape(b, hkv, sk // block_k, block_k, d)
+    vb = v.reshape(b, hkv, sk // block_k, block_k, d)
+    return qb, kb, vb
+
+
+def _blockwise_attention_fwd(q, k, v, causal, q_offset, block_q, block_k):
+    """(out in q's dtype, lse (B,Hkv,g,nq,bq) f32)."""
+    qb, kb, vb = _blocks(q, k, v, block_q, block_k)
+    o, lse = _flash_forward_blocks(qb, kb, vb, causal=causal,
+                                   q_offset=q_offset, block_q=block_q,
+                                   block_k=block_k)
+    return o.reshape(q.shape).to(q.dtype), lse
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """Flash attention with a *streaming backward*: plain autograd through
+    the block loop would keep every (bq, bk) score block — the whole
+    O(Sq·Sk) matrix — for the backward; this saves only (q, k, v, out,
+    lse) and recomputes score blocks on the fly, as the reference's
+    ``jax.custom_vjp`` does — through the kernel's plain backward body,
+    ``flash_attention.streaming_attention_bwd``, with this forward's
+    convention for a row that sees no key (the mean of v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, block_q, block_k):
+        out, lse = _blockwise_attention_fwd(q, k, v, causal, q_offset,
+                                            block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, block_q, block_k = ctx.args
+        b, hq, sq, d = q.shape
+        _, hkv, sk, _ = k.shape
+        dq, dk, dv = fa.streaming_attention_bwd(
+            scale_in_dtype(q, d ** -0.5).reshape(b * hq, sq, d),
+            k.reshape(b * hkv, sk, d), v.reshape(b * hkv, sk, d),
+            out.reshape(b * hq, sq, d), lse.reshape(b * hq, sq),
+            dout.reshape(b * hq, sq, d), heads_q=hq, heads_kv=hkv,
+            causal=causal, q_offset=q_offset, scale=d ** -0.5,
+            block_q=block_q, block_k=block_k, unseen_rows="mean")
+        return (dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape),
+                None, None, None, None)
 
 
 def blockwise_attention(
@@ -181,22 +242,21 @@ def blockwise_attention(
     q_offset: int = 0,
     block_q: int = 512,
     block_k: int = 512,
+    streaming_bwd: bool = True,
 ) -> torch.Tensor:
-    """Streaming flash attention as PyTorch ops (forward only).  Blocks
-    shrink to the largest divisor of the length, so odd serving lengths
-    run."""
-    b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
-    block_q = _divisor_block(sq, block_q)
-    block_k = _divisor_block(sk, block_k)
-    g = hq // hkv
-    nq, nk = sq // block_q, sk // block_k
-    qb = scale_in_dtype(q, d ** -0.5).reshape(b, hkv, g, nq, block_q, d)
-    kb = k.reshape(b, hkv, nk, block_k, d)
-    vb = v.reshape(b, hkv, nk, block_k, d)
-    o = _flash_forward_blocks(qb, kb, vb, causal=causal, q_offset=q_offset,
-                              block_q=block_q, block_k=block_k)
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    """Streaming flash attention as PyTorch ops.  Blocks shrink to the
+    largest divisor of the length, so odd serving lengths run.
+
+    ``streaming_bwd=False`` takes plain autograd through the loop (which
+    keeps every score block for the backward) — kept selectable, as the
+    reference keeps it, for the before/after measurement."""
+    block_q = _divisor_block(q.shape[2], block_q)
+    block_k = _divisor_block(k.shape[2], block_k)
+    if streaming_bwd:
+        return _BlockwiseAttention.apply(q, k, v, causal, q_offset, block_q,
+                                         block_k)
+    return _blockwise_attention_fwd(q, k, v, causal, q_offset, block_q,
+                                    block_k)[0]
 
 
 def decode_attention(
@@ -220,9 +280,10 @@ def decode_attention(
 
 def attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
-    """The flash-attention kernel.  Blocks are clamped to the lengths and
-    must divide them, as the TPU path demands (they only gate the call:
-    the kernel tiles by itself)."""
+    """The flash-attention kernel, differentiable through its backward
+    kernel (``ops.flash_attention``).  Blocks are clamped to the lengths
+    and must divide them, as the TPU path demands (they only gate the
+    call: the kernel tiles by itself)."""
     return ops.flash_attention(
         q, k, v, causal=causal, q_offset=q_offset,
         block_q=min(block_q, q.shape[2]), block_k=min(block_k, k.shape[2]),
@@ -286,7 +347,8 @@ def attention_layer(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (output, (k, v)) — k/v in (B, Hkv, S, hd) layout for caching.
     (The reference's ``kv_override``, cross-attention over a whole
-    teacher-forced sequence, serves only training: ROADMAP §A item 4.)"""
+    teacher-forced sequence, serves only the encoder–decoder's training:
+    ROADMAP §A item 4e.)"""
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
     if "bq" in p:
@@ -306,9 +368,16 @@ def attention_layer(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    impl = ATTN_IMPLS[cfg.attn_impl]
-    out = impl(q, k, v, causal=causal, q_offset=0,
-               block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+    if cfg.attn_impl == "blockwise":
+        out = blockwise_attention(
+            q, k, v, causal=causal, q_offset=0,
+            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+            streaming_bwd=cfg.attn_streaming_bwd,
+        )
+    else:
+        impl = ATTN_IMPLS[cfg.attn_impl]
+        out = impl(q, k, v, causal=causal, q_offset=0,
+                   block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
     return _merge_heads(out) @ p["wo"], (k, v)
 
 

@@ -1,5 +1,5 @@
 """Decoder-only LM of the dense, MoE, SSM and hybrid families, in
-PyTorch: the serving half.
+PyTorch: serving, and the training loss of the dense family.
 
 Parameters keep the reference's *stacked* layout — ``{"blocks": {"b0":
 {...}}, "final_norm", "embed", "lm_head"?}`` with a leading layer axis
@@ -8,6 +8,11 @@ on every block leaf — so one NumPy tree carries across with
 (``lax.scan``) the port runs a Python loop over it.
 
 Entry points:
+  ``lm_loss``      — training forward + the streaming chunked
+                     cross-entropy (its backward recomputes each chunk's
+                     logits; with ``cfg.remat`` each superblock is
+                     recomputed in the backward, as the reference's
+                     ``jax.checkpoint``)
   ``lm_prefill``   — full-sequence forward, returns last-token logits +
                      the KV caches for decode
   ``lm_decode``    — one-token step against the bounded caches (updated
@@ -18,8 +23,11 @@ A layer's mixer is attention (dense, vlm, audio, moe) or a Mamba-2
 block (ssm); the hybrid family (Jamba) mixes both in one superblock.
 Its cache is ``{"k", "v"}`` or ``{"conv", "ssm"}``, so a hybrid cache
 holds both kinds of leaf under one tree.  A layer's FFN is the MLP, the
-MoE layer (``models/moe.py``) or none.  The training loss comes with a
-later slice of the port (``ROADMAP.md`` §A item 4).
+MoE layer (``models/moe.py``) or none.  The train step of
+``launch/steps.py`` takes ``lm_loss`` for the dense family (dense, vlm,
+audio); training the MoE, SSM and hybrid families waits for later slices
+(``ROADMAP.md`` §A items 4b-4d: the routing gradients, a backward for the
+SSD kernel).
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
@@ -158,6 +168,16 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind_layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views by ``torch.unbind``:
+    under autograd their gradients are stacked back in one op (indexing
+    each layer would add a zero-filled full-size gradient per layer)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
@@ -209,18 +229,41 @@ def _apply_block_decode(p, cfg, spec: LayerSpec, h, pos: int, cache: dict):
 # ---------------------------------------------------------------------------
 
 
+def _superblock(block_p, cfg, pat, h, positions, mrope_positions,
+                collect_cache):
+    caches = {}
+    for i, spec in enumerate(pat):
+        h, c = _apply_block(block_p[f"b{i}"], cfg, spec, h, positions,
+                            mrope_positions, collect_cache)
+        caches[f"b{i}"] = c
+    return h, caches
+
+
 def backbone(params: dict, cfg: ModelConfig, h: torch.Tensor,
              positions: torch.Tensor, mrope_positions=None,
              collect_cache: bool = False):
+    """The superblocks in turn, then the final norm.  Under autograd
+    (grad enabled) each superblock's parameters come from one
+    ``torch.unbind`` of the stacked leaves, and with ``cfg.remat`` each
+    superblock runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped and recomputed in the backward, as the
+    reference's ``jax.checkpoint(body)`` does."""
     pat = superblock_pattern(cfg)
+    nsb = num_superblocks(cfg)
+    grad = torch.is_grad_enabled()
+    layers = _unbind_layers(params["blocks"], nsb) if grad else None
+    remat = grad and cfg.remat and not collect_cache
     per_layer = []
-    for li in range(num_superblocks(cfg)):
-        block_p = _layer(params["blocks"], li)
-        caches = {}
-        for i, spec in enumerate(pat):
-            h, c = _apply_block(block_p[f"b{i}"], cfg, spec, h, positions,
+    for li in range(nsb):
+        block_p = layers[li] if grad else _layer(params["blocks"], li)
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                lambda bp, hh: _superblock(bp, cfg, pat, hh, positions,
+                                           mrope_positions, False)[0],
+                block_p, h, use_reentrant=False)
+            continue
+        h, caches = _superblock(block_p, cfg, pat, h, positions,
                                 mrope_positions, collect_cache)
-            caches[f"b{i}"] = c
         per_layer.append(caches)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if not collect_cache:
@@ -232,14 +275,142 @@ def backbone(params: dict, cfg: ModelConfig, h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the streaming chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab=None):
+    """(Σ(logz − gold), (hs, ls, logits, logz)) for chunk ``t`` — shared
+    by the forward and the backward.  Padded vocab columns are set to
+    -1e30 (they never win the softmax)."""
+    hs = h[:, t * chunk:(t + 1) * chunk]
+    ls = labels[:, t * chunk:(t + 1) * chunk]
+    logits = (hs @ lm_head).float()                           # (B, c, V)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        logits[..., valid_vocab:] = L.NEG_INF
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, ls.long()[..., None])[..., 0]
+    return (logz - gold).sum(), (hs, ls, logits, logz)
+
+
+def _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab=None):
+    """Mean CE over all (B, S) positions, summed chunk by chunk in f32."""
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for t in range(h.shape[1] // chunk):
+        term, _ = _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab)
+        total = total + term
+    return total / (h.shape[0] * h.shape[1])
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Chunked CE with a *streaming backward*: plain autograd through the
+    chunk loop would keep every (B, c, V) logits chunk — the whole
+    (B, S, V) tensor — for the backward.  This saves only (h, lm_head,
+    labels) and recomputes each chunk's logits, emitting dh and a running
+    f32 dW (the reference's ``jax.custom_vjp``, ``lm.py:283-326``).  The
+    chunk's softmax and its one-hot correction are made in place in the
+    logits buffer: no (B, c, V) one-hot is built."""
+
+    @staticmethod
+    def forward(ctx, h, lm_head, labels, chunk, valid_vocab):
+        ctx.save_for_backward(h, lm_head, labels)
+        ctx.args = (chunk, valid_vocab)
+        return _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab)
+
+    @staticmethod
+    def backward(ctx, ct):
+        h, lm_head, labels = ctx.saved_tensors
+        chunk, valid_vocab = ctx.args
+        b, s, d = h.shape
+        v = lm_head.shape[1]
+        scale = ct / (b * s)                    # dloss/dlogit pre-softmax
+        w32 = lm_head.float()
+        dh = torch.empty_like(h)
+        dw = torch.zeros((d, v), dtype=torch.float32, device=h.device)
+        rows = torch.arange(b * chunk, device=h.device)
+        for t in range(s // chunk):
+            _, (hs, ls, logits, logz) = _ce_chunk_terms(
+                h, lm_head, labels, t, chunk, valid_vocab)
+            p = logits.sub_(logz[..., None]).exp_()       # softmax (B, c, V)
+            p.view(-1, v)[rows, ls.reshape(-1).long()] -= 1.0
+            dlogits = p.mul_(scale)
+            dh[:, t * chunk:(t + 1) * chunk] = (dlogits @ w32.T).to(h.dtype)
+            dw += hs.reshape(-1, d).float().T @ dlogits.view(-1, v)
+        return dh, dw.to(lm_head.dtype), None, None, None
+
+
+def chunked_ce_loss(
+    h: torch.Tensor,            # (B, S, D)
+    lm_head: torch.Tensor,      # (D, V)
+    labels: torch.Tensor,       # (B, S) int
+    chunk: int,
+    streaming_bwd: bool = True,
+    valid_vocab: int | None = None,
+) -> torch.Tensor:
+    """Cross-entropy streamed over sequence chunks: the (B, S, V) logits
+    tensor is never materialised, in the backward either
+    (``streaming_bwd``; ``False`` is plain autograd through the chunk
+    loop, kept for the before/after measurement).  Each chunk's three
+    products are ``torch.matmul``, as the reference leaves them to XLA."""
+    b, s, d = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: chunk {chunk} does not divide "
+                         f"the sequence {s}")
+    if streaming_bwd:
+        return _ChunkedCE.apply(h, lm_head, labels, chunk, valid_vocab)
+    return _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab)
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``table[idx]``, whose gradient is summed over repeated indices in
+    f32 and cast once to the table's dtype (``index_put_`` with
+    ``accumulate``; on the card a sort-based, deterministic sum).  The
+    reference adds the repeats in the parameter dtype, so in bf16 the
+    port's embedding gradient is the more exact of the two."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table = (table.shape, table.dtype)
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        acc = torch.zeros(shape, dtype=torch.float32, device=g.device)
+        acc.index_put_((idx.reshape(-1),), g.reshape(-1, shape[-1]).float(),
+                       accumulate=True)
+        return acc.to(dtype), None
 
 
 def _embed_in(params: dict, cfg: ModelConfig, tokens_or_embeds):
     if cfg.embeds_input:
         return tokens_or_embeds.to(cfg.param_dtype)
-    return params["embed"][tokens_or_embeds.long()]
+    return _EmbedRows.apply(params["embed"], tokens_or_embeds.long())
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token CE of ``batch``: ``{"tokens" | "embeds", "labels",
+    optional "mrope_positions"}`` (f32 scalar)."""
+    x = batch["embeds"] if cfg.embeds_input else batch["tokens"]
+    h = _embed_in(params, cfg, x)
+    bsz, s = h.shape[0], h.shape[1]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device).expand(bsz, s)
+    h, _ = backbone(params, cfg, h, positions,
+                    mrope_positions=batch.get("mrope_positions"))
+    return chunked_ce_loss(h, _head_matrix(params), batch["labels"],
+                           cfg.loss_chunk,
+                           streaming_bwd=cfg.loss_streaming_bwd,
+                           valid_vocab=cfg.vocab_size
+                           if cfg.padded_vocab != cfg.vocab_size else None)
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, batch: dict):
