@@ -9,8 +9,8 @@ Phases, each printing one JSON object on a line of its own:
                   torch / CUDA / nvcc versions;
 2. ``build``      ``nvcc`` builds ``libconv2d_stream.so``,
                   ``libflash_attention.so``, ``libflash_attention_bwd.so``,
-                  ``libfused_mlp.so`` and ``libmamba2_ssd.so`` from the
-                  sources in the checkout,
+                  ``libfused_mlp.so``, ``libmamba2_ssd.so`` and
+                  ``libmamba2_ssd_bwd.so`` from the sources in the checkout,
                   all at once (seconds taken);
 3. ``kernel_check``  the hand-written streaming-conv kernel against its plain
                   PyTorch version on the card: integer dtypes bit-exact
@@ -78,10 +78,11 @@ Phases, each printing one JSON object on a line of its own:
                   streaming-backward tolerance) and bf16 (tensor cores)
                   within 2e-2·|plain| + 1e-2·max|plain|, causal and not, a
                   query offset, GQA groups 1/4/8, head dim 16-128, ragged
-                  Sq / Sk, rows that see no key; two runs the same bits;
-                  the forward's lse against the plain forward's; at
-                  llama3.2-1b's train shape (B 4, 32/8 heads of 64, S
-                  4096) timed beside the plain version, the bound and
+                  Sq / Sk, rows that see no key, llama3.2-1b's and
+                  granite-moe's train shapes (B 4, 32/8 and 16/8 heads of
+                  64, S 4096); two runs the same bits; the forward's lse
+                  against the plain forward's; at llama3.2-1b's train
+                  shape timed beside the plain version, the bound and
                   SDPA's backward as yardstick;
 9. ``mlp_check``  the hand-written fused-MLP kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
@@ -110,6 +111,21 @@ Phases, each printing one JSON object on a line of its own:
                   and Jamba's prefill shapes, bf16 also under both tiles
                   of positions × heads a block the planner picks from (no
                   library call computes an SSD scan);
+11b. ``ssd_bwd_check`` the hand-written SSD backward kernel against its
+                  plain version (autograd through ``ref.ssd_chunked``) on
+                  the card, its tile states from the forward kernel (held
+                  to the plain forward too), f32 and bf16, at
+                  ``ssd_check``'s shapes (ragged L among them, from a
+                  random initial state with a random cotangent of the
+                  final state), x, b and c as strided slices, and
+                  mamba2-1.3b's train microbatch (B 4, L 4096, H 64, P 64,
+                  N 128); per element |err| ≤ rtol·|plain| + atol·(its
+                  row's scale), (1e-4, 1e-4) in f32 and (1e-2, 1e-3) in
+                  bf16; two runs the same bits; at the train shape in bf16
+                  five faults planted in the kernel's gradients must fail
+                  the rule, and the kernel is timed beside the plain
+                  version and the bound (no library call computes an SSD
+                  backward);
 12. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
                   (random bf16 weights from a seed, on the card) generate
                   32 tokens greedily for 4 prompts of 1024; prefill logits
@@ -168,7 +184,15 @@ Phases, each printing one JSON object on a line of its own:
                   one state (the same bits?); one step profiled into
                   attention forward / backward / cuBLAS / other and idle;
                   then at depth 2 and d_model 256 one step on the card
-                  against the port's own CPU run, f32 and bf16.
+                  against the port's own CPU run, f32 and bf16;
+18. ``moe_train`` granite-moe-1b-a400m's train step, as ``lm_train``'s (96
+                  forward and 48 backward attention launches a step), with
+                  the share of (token, choice) pairs each MoE layer drops;
+                  the CPU of the card-against-CPU step replays the card's
+                  routing choices (its gates from its own logits);
+19. ``ssm_train`` mamba2-1.3b's train step, as ``lm_train``'s, through the
+                  SSD kernel saving its tile states (192 launches a step)
+                  and its backward (96).
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -176,8 +200,9 @@ just after phase 5, and again just before phase 6 and after phase 7 (the
 just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
 the SSD kernel's around phase 15, and the attention kernel's and its
-backward's around phase 17 (the ``kernels`` line adds the counts of
-every path); the run
+backward's around phases 17 and 18, the SSD kernel's and its backward's
+around phase 19, each read just after the path's five steps (the
+``kernels`` line adds the counts of every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -189,8 +214,8 @@ result.
 Each phase prints a compact line; its whole result (per-shape rows, the
 ``nvcc`` logs, the profiler's top kernels) goes to
 ``chiprun_out/chip_smoke/<phase>.json``.  ``--ptxas`` adds each kernel's
-registers and spills to the ``build`` line (the conv and SSD kernels'
-are always there).
+registers and spills to the ``build`` line (the conv, SSD and both
+backward kernels' are always there).
 """
 from __future__ import annotations
 
@@ -208,8 +233,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "frontends", "cli", "attn_check", "attn_bwd_check", "mlp_check",
           "mlp_probe",
-          "ssd_check", "lm_serve", "ssm_serve", "moe_serve", "hybrid_serve",
-          "encdec_serve", "lm_train")
+          "ssd_check", "ssd_bwd_check", "lm_serve", "ssm_serve",
+          "moe_serve", "hybrid_serve", "encdec_serve", "lm_train",
+          "moe_train", "ssm_train")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -351,12 +377,14 @@ def time_ms(fn, *, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, *, reps: int, kernel):
+def device_ms(fn, *, reps: int, kernel, per_launch: bool = False):
     """Mean milliseconds the card spends inside ``kernel`` (a name, or a
     tuple of names whose times add up) per call, from
     ``torch.profiler``'s device trace — ``ms`` from :func:`time_ms` also
     holds the host's time to enqueue a call, which is what shows at small
-    shapes.  ``None`` where the profiler records no device time."""
+    shapes.  With ``per_launch`` (a call that launches one kernel) the
+    mean is over the launches the trace recorded, not over ``reps``.
+    ``None`` where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -370,12 +398,15 @@ def device_ms(fn, *, reps: int, kernel):
     except RuntimeError:      # no device tracing on this machine
         return None
     names = (kernel,) if isinstance(kernel, str) else kernel
-    total_us = 0.0
+    total_us, seen = 0.0, 0
     for ev in events:
         if any(k in ev.key for k in names):
             total_us += (getattr(ev, "self_device_time_total", 0.0)
                          or getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / reps / 1e3 if total_us else None
+            seen += ev.count
+    if not total_us:
+        return None
+    return total_us / (seen if per_launch else reps) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1243,6 +1274,7 @@ def attn_check(torch) -> dict:
 #: bf16; the first is llama3.2-1b's train shape (train_4k's sequence)
 ATTN_BWD_CASES = (
     ("llama3.2-1b.train", 4, 32, 8, 4096, 4096, 64, True, 0),
+    ("granite-moe.train", 4, 16, 8, 4096, 4096, 64, True, 0),
     ("causal.g4.d64", 2, 8, 2, 512, 512, 64, True, 0),
     ("noncausal.g4.d64", 2, 8, 2, 512, 512, 64, False, 0),
     ("offset.sq256.sk1024", 2, 8, 2, 256, 1024, 64, True, 768),
@@ -1275,21 +1307,28 @@ ATTN_BWD_ROW_FLOOR = 1e-3
 ATTN_BWD_KERNELS = ("attn_bwd_",)
 
 
-def _row_need(got, want, per_row: bool = True) -> float:
-    """The bf16 rule's use: max over the elements of (|got − want| −
-    2e-2·|want|)⁺ over the element's scale — max(rowmax, 1e-3·max), or
-    with ``per_row=False`` the tensor's max.  The rule holds iff it is
-    ≤ 1e-2; a nonzero error against an all-zero scale is inf."""
+def _need(got, want, rtol: float, axes, floor: float) -> float:
+    """A row rule's use: max over the elements of (|got − want| −
+    rtol·|want|)⁺ over the element's scale, max(rowmax, floor·max) —
+    rowmax the largest |want| over ``axes`` of its row, max the tensor's
+    (``axes`` None: the tensor's max alone).  The rule holds iff it is ≤
+    the rule's atol; a nonzero error against an all-zero scale is inf."""
     import torch
 
-    rtol = ATTN_BWD_TOL["bfloat16"][0]
     w = want.float()
     beyond = ((got.float() - w).abs() - rtol * w.abs()).clamp(min=0)
     top = w.abs().max()
-    scale = (w.abs().amax(-1, keepdim=True).clamp(min=ATTN_BWD_ROW_FLOOR
-                                                   * float(top))
-             if per_row else top)
+    scale = (w.abs().amax(axes, keepdim=True).clamp(min=floor * float(top))
+             if axes else top)
     return float(torch.where(beyond > 0, beyond / scale, 0.0).max())
+
+
+def _row_need(got, want, per_row: bool = True) -> float:
+    """The attention backward's bf16 rule (``_need``): rtol 2e-2, rows
+    along the last axis, or with ``per_row=False`` the tensor's max; it
+    holds iff this is ≤ 1e-2."""
+    return _need(got, want, ATTN_BWD_TOL["bfloat16"][0],
+                 (-1,) if per_row else None, ATTN_BWD_ROW_FLOOR)
 
 
 def _grad_close(got, want, dtype_name: str, what: str) -> float:
@@ -1949,6 +1988,335 @@ def ssd_slices_and_state(torch, gen, ms, worst) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 11b: the SSD backward kernel vs its plain version on the card
+# ---------------------------------------------------------------------------
+
+#: (name, B, L, H, P, N, chunk): ``ssd_check``'s cases (ragged L among
+#: them) and mamba2-1.3b's train microbatch (train_4k's 4096 positions, 4
+#: rows).  Every case but the train shape runs from a random initial
+#: state with a random cotangent of the final state; the train shape as
+#: the model calls it (zeros, no cotangent)
+SSD_BWD_CASES = SSD_CASES + (("mamba2-1.3b.train", 4, 4096, 64, 64, 128,
+                              64),)
+SSD_BWD_HEADLINE = ("mamba2-1.3b.train", "bfloat16")
+SSD_BWD_GRADS = ("dx", "ddt", "da", "db", "dc", "d_init_state")
+#: (rtol of |plain|, atol as a share of the row's scale): an element
+#: holds iff |err| ≤ rtol·|plain| + atol·max(rowmax, 1e-3·max), rowmax
+#: the largest |plain| of its row — a (batch row, head) for dx, ddt and
+#: d_init_state, a batch row for db and dc (sums over the 64 heads), the
+#: tensor for da (a sum over B·L positions).  Set before the first run
+#: from the kernel's formula emulated on the CPU (``ssd_bwd_walk``, f32
+#: from the same inputs, at the train shape's L 4096, P 64, N 128):
+#: ``tests/test_torch_ssd_bwd.py`` holds it to a tenth of the rule in
+#: both dtypes and each planted fault to ≥ 30 times the bf16 atol.  The
+#: bf16 rtol covers the one rounding of dx, db and dc to bf16 in either
+#: version (one step is 2^-8 of the value)
+SSD_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
+SSD_BWD_ROW_FLOOR = 1e-3
+#: the axes a row of each gradient spans (``None``: the whole tensor)
+SSD_BWD_ROW_AXES = {"dx": (1, 3), "ddt": (1,), "da": None, "db": (1, 2),
+                    "dc": (1, 2), "d_init_state": (2, 3)}
+SSD_BWD_KERNELS = ("mamba2_ssd_bwd",)
+#: the plain version's chunk where its gradient at the case's chunk is NaN
+#: (``exp`` of a masked difference above 88 overflows: ROADMAP §C)
+SSD_BWD_FINITE_CHUNK = 16
+
+
+def _ssd_need(got, want, name: str, dtype_name: str) -> float:
+    """The SSD backward's rule (``_need``) for gradient ``name``: its
+    rtol, rows over ``SSD_BWD_ROW_AXES``; it holds iff this is ≤ the
+    rule's atol."""
+    return _need(got, want, SSD_BWD_TOL[dtype_name][0],
+                 SSD_BWD_ROW_AXES[name], SSD_BWD_ROW_FLOOR)
+
+
+def _ssd_grads_close(got, want, dtype_name: str, what: str) -> dict:
+    """Each of the six gradients within ``SSD_BWD_TOL``: finite, of the
+    plain version's shape and dtype, and by the row rule → {name: need}
+    and the largest |err|; raises beyond the rule."""
+    import torch
+
+    atol = SSD_BWD_TOL[dtype_name][1]
+    needs, worst = {}, 0.0
+    for name, g, w in zip(SSD_BWD_GRADS, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} {name}: {tuple(g.shape)} {g.dtype}"
+                                 f" vs {tuple(w.shape)} {w.dtype}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what} {name}: non-finite gradient")
+        needs[name] = _ssd_need(g, w, name, dtype_name)
+        if not needs[name] <= atol:
+            raise AssertionError(f"{what} {name}: needs {needs[name]} of the "
+                                 f"row's scale beyond rtol; the rule allows "
+                                 f"{atol}")
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+    return {"need": needs, "max_abs_err": worst}
+
+
+def ssd_bwd_walk(x, dt, a, bm, cm, s0, dy, dsf=None, *, tile=32,
+                 fault=None, cut=None):
+    """The backward kernel's formula in plain PyTorch, f32, vectorised over
+    (batch row, head): the forward walk for the state entering each tile of
+    ``tile`` positions, then the tiles last to first carrying dS, ``exp``
+    only where s ≤ t (``csrc/mamba2_ssd_bwd.cu``'s header states the
+    sums) → (dx, ddt, da, db, dc, d_init_state) in f32.  ``fault`` plants
+    one of the faults the card's rule must catch: ``"carry_break"`` (dS
+    not carried into tile ``cut`` − 1), ``"no_decay"`` (dS carried without
+    exp(cum_last)), ``"db_no_state"`` (db without the state-update term),
+    ``"ddt_no_cum"`` (ddt without the path through cum)."""
+    import torch
+
+    _, l, _, _ = x.shape
+    xf, dyf, bf, cf = x.float(), dy.float(), bm.float(), cm.float()
+    dtf, af = dt.float(), a.float()
+    nt = -(-l // tile)
+    states, st = [], s0.float()
+    for k in range(nt):
+        sl = slice(k * tile, min((k + 1) * tile, l))
+        states.append(st)
+        cum = torch.cumsum(dtf[:, sl] * af, 1)
+        w = dtf[:, sl] * torch.exp(cum[:, -1:] - cum)
+        st = st * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bqhp,bqn->bhpn", xf[:, sl] * w[..., None], bf[:, sl])
+    ds = torch.zeros_like(st) if dsf is None else dsf.float()
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    for k in reversed(range(nt)):
+        sl = slice(k * tile, min((k + 1) * tile, l))
+        xq, gq, bq, cq, d = xf[:, sl], dyf[:, sl], bf[:, sl], cf[:, sl], \
+            dtf[:, sl]
+        q = d.shape[1]
+        cum = torch.cumsum(d * af, 1)
+        dec = torch.exp(cum[:, -1])
+        tri = torch.tril(torch.ones(q, q, dtype=torch.bool,
+                                    device=x.device))[None, :, :, None]
+        rel = cum[:, :, None, :] - cum[:, None, :, :]         # (B, t, s, H)
+        e_ts = torch.where(tri, torch.exp(torch.where(tri, rel, 0.0)), 0.0)
+        cb = torch.einsum("btn,bsn->bts", cq, bq)[..., None]
+        m = torch.einsum("bthp,bshp->btsh", gq, xq)
+        kk = cb * m * e_ts
+        g_ts = cb * e_ts * d[:, None]
+        gd_ts = m * e_ts * d[:, None]
+        g = torch.exp(cum[:, -1:] - cum)
+        w = d * g
+        e = torch.exp(cum)
+        sp = states[k]
+        z = torch.einsum("bhpn,bsn->bshp", ds, bq)
+        v = (xq * z).sum(-1)
+        u = torch.einsum("bthp,bhpn->bthn", gq, sp)
+        i_t = (cq[:, :, None, :] * u).sum(-1)
+        dx[:, sl] = (torch.einsum("btsh,bthp->bshp", g_ts, gq)
+                     + w[..., None] * z)
+        dc[:, sl] = (torch.einsum("btsh,bsn->btn", gd_ts, bq)
+                     + torch.einsum("bth,bthn->btn", e, u))
+        db[:, sl] = torch.einsum("btsh,btn->bsn", gd_ts, cq)
+        if fault != "db_no_state":
+            db[:, sl] += torch.einsum("bsh,bshp,bhpn->bsn", w, xq, ds)
+        carried = torch.einsum("bth,bthp,btn->bhpn", e, gq, cq)
+        dcum = (kk * d[:, None]).sum(2) - d * kk.sum(1) + e * i_t - w * v
+        dcum[:, -1] += dec * (ds * sp).sum((-1, -2)) + (w * v).sum(1)
+        rc = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddt[:, sl] = kk.sum(1) + g * v
+        if fault != "ddt_no_cum":
+            ddt[:, sl] += af * rc
+        da += (d * rc).sum((0, 1))
+        ds = carried + (ds if fault == "no_decay"
+                        else dec[..., None, None] * ds)
+        if fault == "carry_break" and k == cut:
+            ds = torch.zeros_like(ds)
+    return dx, ddt, da, db, dc, ds
+
+
+SSD_BWD_FAULTS = ("carry_break", "no_decay", "db_no_state", "ddt_no_cum",
+                  "da_zero")
+
+
+def _ssd_planted_faults(inputs, got, want, dtype_name: str) -> dict:
+    """The rule against faults planted in the kernel's own gradients
+    ``got`` at one shape: each fault's effect, the difference between
+    :func:`ssd_bwd_walk` with and without it on the same ``inputs`` (x, dt,
+    a, b, c, init state, dy, state cotangent), is added to ``got`` (``da``
+    zero is set), and the result must fail the rule.  "carry_break" cuts
+    the carry at the middle tile boundary.  Beside each: per gradient the
+    share of the row's scale it needs, and whether the rule caught it."""
+    x = inputs[0]
+    cut = -(-x.shape[1] // 32) // 2
+    clean = ssd_bwd_walk(*inputs)
+    atol = SSD_BWD_TOL[dtype_name][1]
+    report = {}
+    for fault in SSD_BWD_FAULTS:
+        if fault == "da_zero":
+            bad = list(got)
+            bad[2] = got[2] * 0
+        else:
+            planted = ssd_bwd_walk(*inputs, fault=fault, cut=cut)
+            bad = [(g.float() + (p_ - c)).to(g.dtype)
+                   for g, p_, c in zip(got, planted, clean)]
+        needs = {name: _ssd_need(b_, w, name, dtype_name)
+                 for name, b_, w in zip(SSD_BWD_GRADS, bad, want)}
+        worst = max(needs.values())
+        report[fault] = {"need": needs, "caught": worst > atol}
+        if not worst > atol:
+            raise AssertionError(f"the SSD backward rule lets a planted "
+                                 f"fault pass: {fault} needs only {worst}")
+    return report
+
+
+def _ssd_bwd_work(b, l, h, p, n, q):
+    """Operations of one backward with tiles of ``q`` positions: per tile
+    the causal half of c·bᵀ once (shared by the heads) and, per head, the
+    causal dy·xᵀ, the intra terms of dx, dc and db, and the four (P, N)
+    products (dS·b, xᵀ·dS, dyᵀ·S, the carried dS)."""
+    flops = 0
+    for l0 in range(0, l, q):
+        qv = min(q, l - l0)
+        tri = qv * (qv + 1) // 2
+        flops += 2 * b * (tri * n + h * (2 * tri * p + 2 * tri * n
+                                         + 4 * qv * p * n))
+    return flops
+
+
+def _ssd_bwd_inputs(torch, gen, dtype, b, l, h, p, n, *, model: bool):
+    """``_ssd_inputs`` in ``dtype`` on the card, an initial state and the
+    cotangents: dy in ``dtype``; the state 0.5 N(0, 1) and its cotangent
+    N(0, 1), or (``model``) zeros and none, as the model calls it."""
+    x, dt, a, bm, cm = _ssd_inputs(torch, gen, b, l, h, p, n)
+    dy = torch.randn(b, l, h, p, generator=gen)
+    if model:
+        s0, dsf = torch.zeros(b, h, p, n), None
+    else:
+        s0 = torch.randn(b, h, p, n, generator=gen) * 0.5
+        dsf = torch.randn(b, h, p, n, generator=gen).cuda()
+    return (x.to(dtype).cuda(), dt.cuda(), a.cuda(), bm.to(dtype).cuda(),
+            cm.to(dtype).cuda(), s0.cuda(), dy.to(dtype).cuda(), dsf)
+
+
+def _ssd_bwd_one(torch, ms, inputs, chunk, dtype_name, what) -> tuple:
+    """The forward (saving its tile states) against the plain forward, the
+    backward twice (the same bits) against the plain backward (at
+    ``SSD_BWD_FINITE_CHUNK`` where the case's chunk gives NaN) → (row,
+    run, plain, got, want)."""
+    x, dt, a, bm, cm, s0, dy, dsf = inputs
+    y, sf, states = ms.mamba2_ssd(x, dt, a, bm, cm, s0, chunk=chunk,
+                                  return_states=True)
+    ye, se = ms.mamba2_ssd_plain(x, dt, a, bm, cm, s0, chunk=chunk)
+    fwd_err = max(_close(y, ye, SSD_TOL[dtype_name], f"{what} y"),
+                  _close(sf, se, SSD_TOL["float32"], f"{what} state"))
+    del ye, se
+    run = lambda: ms.mamba2_ssd_bwd(x, dt, a, bm, cm, s0, dy, dsf,
+                                    chunk=chunk, states=states)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, h_) for g, h_ in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ in bits")
+    plain_chunk = chunk
+    want = ms.mamba2_ssd_bwd_plain(x, dt, a, bm, cm, s0, dy, dsf,
+                                   chunk=chunk)
+    if not all(bool(torch.isfinite(w).all()) for w in want):
+        plain_chunk = max(c for c in range(1, SSD_BWD_FINITE_CHUNK + 1)
+                          if x.shape[1] % c == 0)
+        want = ms.mamba2_ssd_bwd_plain(x, dt, a, bm, cm, s0, dy, dsf,
+                                       chunk=plain_chunk)
+    held = _ssd_grads_close(got, want, dtype_name, what)
+    row = {"forward_max_abs_err": fwd_err, "plain_chunk": plain_chunk,
+           "plain_nan_at_chunk": chunk if plain_chunk != chunk else None,
+           **held}
+    plain = lambda: ms.mamba2_ssd_bwd_plain(x, dt, a, bm, cm, s0, dy, dsf,
+                                            chunk=plain_chunk)
+    return row, run, plain, got, want
+
+
+def ssd_bwd_check(torch) -> dict:
+    """The SSD backward kernel against ``mamba2_ssd_bwd_plain`` on the same
+    inputs — the tile states from the forward kernel, which is held to the
+    plain forward too — at every case in both dtypes, x, b and c also as
+    strided column slices; two runs the same bits.  At the train shape in
+    bf16, faults planted in the kernel's gradients must fail the rule, and
+    the kernel is timed beside the plain version and the bound (no PyTorch
+    call computes an SSD backward)."""
+    from repro_torch.kernels import mamba2_ssd as ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator().manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cmp = 0
+    shapes = []
+    for name, b, l, h, p, n, chunk in SSD_BWD_CASES:
+        model = name == SSD_BWD_HEADLINE[0]
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            what = f"{name} {dt_name}"
+            inputs = _ssd_bwd_inputs(torch, gen, dtype, b, l, h, p, n,
+                                     model=model)
+            row, run, plain, got, want = _ssd_bwd_one(torch, ms, inputs,
+                                                      chunk, dt_name, what)
+            row.update(shape=name, dtype=dt_name, b=b, l=l, h=h, p=p, n=n,
+                       chunk=chunk)
+            worst[dt_name] = max(worst[dt_name], row["max_abs_err"])
+            n_cmp += 1
+            if (name, dt_name) == SSD_BWD_HEADLINE:
+                row["planted_faults"] = _ssd_planted_faults(inputs, got,
+                                                            want, dt_name)
+                row.update(_ssd_bwd_times(torch, run, plain, inputs, got,
+                                          b, l, h, p, n))
+            shapes.append(row)
+            del inputs, got, want, run, plain
+    n_cmp += _ssd_bwd_slices(torch, gen, ms, worst, shapes)
+    torch.cuda.empty_cache()
+    return {"comparisons": n_cmp, "max_abs_err_f32": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"], "shapes": shapes}
+
+
+def _ssd_bwd_slices(torch, gen, ms, worst, shapes) -> int:
+    """x, b and c as strided column slices of one projection (x off 16
+    bytes too), as ``models/mamba2.py`` hands them in, both dtypes."""
+    n_cmp = 0
+    for name, b, l, h, p, n, off in SSD_SLICES:
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            x, dt, a, bm, cm, s0, dy, dsf = _ssd_bwd_inputs(
+                torch, gen, dtype, b, l, h, p, n, model=False)
+            width = off + h * p + 2 * n + off
+            proj = torch.zeros(b, l, width, dtype=dtype, device="cuda")
+            xs = proj[..., off:off + h * p]
+            xs.copy_(x.reshape(b, l, h * p))
+            bs = proj[..., off + h * p:off + h * p + n]
+            cs_ = proj[..., off + h * p + n:off + h * p + 2 * n]
+            bs.copy_(bm)
+            cs_.copy_(cm)
+            inputs = (xs.reshape(b, l, h, p), dt, a, bs, cs_, s0, dy, dsf)
+            row, *_ = _ssd_bwd_one(torch, ms, inputs, l, dt_name,
+                                   f"{name} {dt_name}")
+            row.update(shape=name, dtype=dt_name, b=b, l=l, h=h, p=p, n=n)
+            worst[dt_name] = max(worst[dt_name], row["max_abs_err"])
+            shapes.append(row)
+            n_cmp += 1
+    return n_cmp
+
+
+def _ssd_bwd_times(torch, run, plain, inputs, got, b, l, h, p, n) -> dict:
+    """ms of the kernel (CUDA events, warm L2; device ms from the
+    profiler) and of the plain version at one shape, and the bound: the
+    bytes the backward must move (x, dt, a, b, c, the initial state, dy
+    and the state's cotangent read once; the six gradients written once —
+    the saved tile states and the partial sums are the design's own cost)
+    at 3.35 TB/s, or ``_ssd_bwd_work`` at the bf16 tensor-core rate."""
+    ms_ = time_ms(run, warmup=1, reps=5)
+    dev_ms = device_ms(run, reps=3, kernel=SSD_BWD_KERNELS, per_launch=True)
+    plain_ms = time_ms(plain, warmup=1, reps=2)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (*inputs, *got) if t is not None)
+    flops = _ssd_bwd_work(b, l, h, p, n, SSD_WORK_TILE)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
+    return {"ms": ms_, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "flops": flops, "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the LM server at full width
 # ---------------------------------------------------------------------------
 
@@ -2357,22 +2725,40 @@ def _routing():
                                                            out))
 
 
-class _Replaying:
-    """While active, ``moe.route`` returns the recorded routings in turn
-    (moved to the device of the call) instead of routing: a run then
-    computes the experts another run chose, so that what it is compared
-    on is everything but the routing."""
+def _choices():
+    """Records the choices ``(gate_i, pos, keep)`` of each ``moe.route``
+    call, for :class:`_ReplayingChoices`."""
+    from repro_torch.models import moe
 
-    def __init__(self, calls):
-        self.calls = calls
+    return _Calls(moe, "route", lambda args, kwargs, out: tuple(
+        t.detach() for t in out[1:]))
+
+
+class _ReplayingChoices:
+    """While active, ``moe.route`` takes the recorded choices ``(gate_i,
+    pos, keep)`` in turn (moved to the device of the call) and computes
+    the gate weights from the live f32 logits, ``softmax(logits.gather(-1,
+    gate_i))`` — the values ``route`` gives for those choices, with the
+    router's gradient flowing as through ``route``.  A run then trains on
+    the experts another run chose; only the discrete choices are
+    replayed, never the gates (a recorded ``gate_w`` would be a constant,
+    and the router's gradient 0)."""
+
+    def __init__(self, choices):
+        self.choices = choices
 
     def __enter__(self):
+        import torch
+
         from repro_torch.models import moe
 
-        self.real, recorded = moe.route, iter(self.calls)
+        self.real, recorded = moe.route, iter(self.choices)
 
         def replay(p, cfg, xf):
-            return tuple(t.to(xf.device) for t in next(recorded)[2])
+            gi, pos, keep = (t.to(xf.device) for t in next(recorded))
+            logits = xf.float() @ p["router"]
+            return (torch.softmax(logits.gather(-1, gi), dim=-1), gi, pos,
+                    keep)
 
         moe.route = replay
         return self
@@ -2489,7 +2875,8 @@ def _card_vs_cpu(torch, cfg, prompts, rule) -> dict:
     once, then runs the model twice: replaying the card's routing, and
     routing by itself.
 
-    * The replayed run differs from the card by summation order alone:
+    * The replayed run (the card's choices; the gates from the CPU's own
+      logits) differs from the card by summation order alone:
       its logits are held to ``rule`` (rtol of the largest |logit|,
       atol), argmax equal.
     * The card's first MoE input routed on the CPU: the share of (token,
@@ -2508,7 +2895,7 @@ def _card_vs_cpu(torch, cfg, prompts, rule) -> dict:
     t0 = time.perf_counter()
     host = ServeEngine(cfg, device="cpu", max_len=prompts.shape[1],
                        params=_tree_to(card.params, "cpu"))
-    with _Replaying(on_card.calls):
+    with _ReplayingChoices([out[1:] for *_, out in on_card.calls]):
         replayed, _ = host.prefill(prompts)
     cpu_s = time.perf_counter() - t0
     gap = _logit_gap(card_logits, replayed, *rule,
@@ -2761,6 +3148,32 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+#: the MoE and SSM train steps (granite-moe-1b-a400m, mamba2-1.3b) at
+#: published width and depth, with ``lm_train``'s batch, steps and lr;
+#: their card-against-CPU cuts: depth 2 and d_model 256 with the published
+#: head, expert and state widths (granite: 16/8 heads of 64, d_ff 512, 32
+#: experts top 8; mamba2: SSM heads of P 64, N 128, chunk 64)
+MOE_TRAIN_ARCH, SSM_TRAIN_ARCH = "granite-moe-1b-a400m", "mamba2-1.3b"
+MOE_TRAIN_CPU_CUT = {"num_layers": 2, "d_model": 256, "head_dim": 64}
+SSM_TRAIN_CPU_CUT = {"num_layers": 2, "d_model": 256}
+#: the profiled step's classes of hand-written kernel (B2, B2′, B4′, B4:
+#: the backward's name first, since the forward's is a piece of it)
+TRAIN_CLASSES = (("attn_fwd", "flash_attention"), ("attn_bwd", "attn_bwd_"),
+                 ("ssd_bwd", "mamba2_ssd_bwd"), ("ssd_fwd", "mamba2_ssd"))
+
+
+def _kernel_counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from repro_torch.kernels import conv2d_stream as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mamba2_ssd as ms
+
+    return {"conv2d_stream": cs.launches, "flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches, "fused_mlp": fm.launches,
+            "mamba2_ssd": ms.launches, "mamba2_ssd_bwd": ms.bwd_launches}
+
+
 def lm_train(torch) -> tuple:
     """llama3.2-1b's train step at full width and depth on the card: five
     AdamW steps on one repeated batch of the ported data pipeline — the
@@ -2768,21 +3181,55 @@ def lm_train(torch) -> tuple:
     result and ``rest``, for after that read: the last step again from
     its state (equal bits?), one step profiled, and the card against the
     CPU at a cut width."""
-    from repro_torch.configs.base import SHAPES, model_flops_per_token
     from repro_torch.configs.registry import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    return _train(torch, cfg, per_layer=("flash_attention",
+                                         "flash_attention_bwd"),
+                  classes=TRAIN_CLASSES[:2], cut=TRAIN_CPU_CUT)
+
+
+def moe_train(torch) -> tuple:
+    """granite-moe-1b-a400m's train step at full width and depth, as
+    ``lm_train``'s; ``rest`` adds the share of (token, choice) pairs each
+    MoE layer drops at the published capacity factor."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    return _train(torch, cfg, per_layer=("flash_attention",
+                                         "flash_attention_bwd"),
+                  classes=TRAIN_CLASSES, cut=MOE_TRAIN_CPU_CUT)
+
+
+def ssm_train(torch) -> tuple:
+    """mamba2-1.3b's train step at full width and depth, as ``lm_train``'s,
+    through the SSD kernel (saving its tile states) and its backward."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(SSM_TRAIN_ARCH)
+    return _train(torch, cfg, per_layer=("mamba2_ssd", "mamba2_ssd_bwd"),
+                  classes=TRAIN_CLASSES, cut=SSM_TRAIN_CPU_CUT)
+
+
+def _train(torch, cfg, *, per_layer, classes, cut) -> tuple:
+    """Five AdamW steps of ``cfg`` (full width and depth, random weights
+    from a seed, remat on) on one repeated batch of the data pipeline,
+    ``TRAIN_ROWS`` × train_4k's 4096 tokens as ``TRAIN_ACCUM``
+    microbatches: losses finite and falling, and per step exactly two
+    launches a layer and microbatch of ``per_layer[0]`` (remat runs each
+    forward twice) and one of ``per_layer[1]``, and none of any other
+    kernel.  Returns the result and ``rest`` (the repeat, the profiled
+    step, MoE drops, the card against the CPU at ``cut``), which the
+    caller runs after reading the counts."""
+    from repro_torch.configs.base import SHAPES, model_flops_per_token
     from repro_torch.data import pipeline
-    from repro_torch.kernels import conv2d_stream as cs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_mlp as fm
-    from repro_torch.kernels import mamba2_ssd as ms
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.optim import adamw
 
-    torch.cuda.empty_cache()           # what the serving phases left cached
-    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()           # what the earlier phases left cached
     if (cfg.attn_impl, cfg.mlp_impl, cfg.remat) != ("cuda", "dense", True):
-        raise AssertionError(f"{TRAIN_ARCH}: not the default train path")
+        raise AssertionError(f"{cfg.name}: not the default train path")
     shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_ROWS)
     t0 = time.perf_counter()
     batch = pipeline.batch_for_model(cfg, shape, pipeline.DataConfig(seed=0),
@@ -2797,12 +3244,12 @@ def lm_train(torch) -> tuple:
     init_s = time.perf_counter() - t0
     weights_gb = sum(t.numel() * t.element_size()
                      for _, t in _flat(params)) / 1e9
-    others = (cs.launches, fm.launches, ms.launches)
     torch.cuda.reset_peak_memory_stats()
 
+    start = _kernel_counts()
     losses, step_ms, per_step = [], [], None
     for _ in range(TRAIN_STEPS):
-        f0, b0 = fa.launches, fa.bwd_launches
+        c0 = _kernel_counts()
         before = (params, state)       # the last step's, for ``rest``
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2810,28 +3257,31 @@ def lm_train(torch) -> tuple:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if per_step is None:
-            per_step = {"flash_attention": fa.launches - f0,
-                        "flash_attention_bwd": fa.bwd_launches - b0}
+            c1 = _kernel_counts()
+            per_step = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
         losses.append(float(m["loss"]))
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
-        raise AssertionError(f"{TRAIN_ARCH}: losses {losses}: not finite "
-                             "and falling")
+        raise AssertionError(f"{cfg.name}: losses {losses}: not finite and "
+                             "falling")
     layers = cfg.num_layers
-    want = {"flash_attention": 2 * layers * TRAIN_ACCUM,
-            "flash_attention_bwd": layers * TRAIN_ACCUM}
+    want = {per_layer[0]: 2 * layers * TRAIN_ACCUM,
+            per_layer[1]: layers * TRAIN_ACCUM}
     if per_step != want:
-        raise AssertionError(f"launches a step {per_step}, want {want} "
-                             "(remat: each layer's forward twice)")
-    if (cs.launches, fm.launches, ms.launches) != others:
-        raise AssertionError("a conv, fused-MLP or SSD kernel launched in "
-                             "the train step")
+        raise AssertionError(f"{cfg.name}: launches a step {per_step}, want "
+                             f"{want} (remat: each layer's forward twice; "
+                             "no other kernel)")
+    end = _kernel_counts()
+    if {k: end[k] - start[k] for k in end} != {
+            k: TRAIN_STEPS * want.get(k, 0) for k in end}:
+        raise AssertionError(f"{cfg.name}: launches over the steps "
+                             f"{end} from {start}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = TRAIN_ROWS * shape.seq_len
     warm_ms = sum(step_ms[1:]) / (len(step_ms) - 1)
     flops = model_flops_per_token(cfg, training=True) * tokens
     result = {
-        "arch": TRAIN_ARCH, "layers": layers, "d_model": cfg.d_model,
+        "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
         "heads": [cfg.num_heads, cfg.num_kv_heads],
         "rows": TRAIN_ROWS, "seq": shape.seq_len, "grad_accum": TRAIN_ACCUM,
         "steps": TRAIN_STEPS, "init_s": init_s, "weights_gb": weights_gb,
@@ -2852,29 +3302,49 @@ def lm_train(torch) -> tuple:
             if not torch.equal(a, b)]
         same_loss = bool(torch.equal(m["loss"], m2["loss"]))
         del p2, s2, before
+        out = {}
+        if cfg.moe is not None:
+            out["dropped_share_per_layer"] = _train_drops(
+                torch, cfg, params, batch)
+            d = out["dropped_share_per_layer"]
+            out["dropped_share"] = [min(d), sum(d) / len(d), max(d)]
         breakdown = _prefill_breakdown(
             torch, lambda: step(params, state, batch), reps=1,
-            classes=(("attn_fwd", "flash_attention"),
-                     ("attn_bwd", "attn_bwd_")))
+            classes=classes)
         del params, state, batch
         torch.cuda.empty_cache()
         return {
             "step_repeats_bit_for_bit": same_loss and not differ,
-            "leaves_that_differ": differ[:20],
+            "leaves_that_differ": differ[:20], **out,
             "step_breakdown": breakdown,
-            "card_vs_cpu": {dt: _train_card_vs_cpu(torch, cfg, dt)
+            "card_vs_cpu": {dt: _train_card_vs_cpu(torch, cfg, dt, cut)
                             for dt in ("float32", "bfloat16")},
         }
 
     return result, rest
 
 
-def _train_card_vs_cpu(torch, cfg, dtype: str) -> dict:
-    """One train step of ``cfg`` cut to ``TRAIN_CPU_CUT`` on the card and
-    in the port's own CPU run, from the same NumPy parameters and batch:
-    the loss, each gradient leaf's relative L2 error and the parameters
-    after the step, held to ``TRAIN_CPU_RULE``."""
-    import numpy as np
+def _train_drops(torch, cfg, params, batch) -> list:
+    """The share of (token, choice) pairs each MoE layer drops in one
+    forward of the step's first microbatch."""
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    mb = steps._split_microbatches(batch, TRAIN_ACCUM)[0]
+    with torch.no_grad(), _Calls(moe, "route", lambda a, k, out: float(
+            (~out[3]).float().mean())) as rec:
+        steps.model_loss(params, cfg, mb)
+    return rec.calls
+
+
+def _train_card_vs_cpu(torch, cfg, dtype: str, cut: dict) -> dict:
+    """One train step of ``cfg`` cut to ``cut`` on the card and in the
+    port's own CPU run, from the same NumPy parameters and batch: the loss,
+    each gradient leaf's relative L2 error and the parameters after the
+    step, held to ``TRAIN_CPU_RULE``.  With MoE layers the CPU replays the
+    card's routing choices (``_ReplayingChoices``: the gates recomputed
+    from its own logits, so the router's gradient flows on both)."""
+    import contextlib
 
     from repro_torch.configs.base import SHAPES
     from repro_torch.data import pipeline
@@ -2882,7 +3352,7 @@ def _train_card_vs_cpu(torch, cfg, dtype: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.optim import adamw
 
-    small = cfg.with_(dtype=dtype, **TRAIN_CPU_CUT)
+    small = cfg.with_(dtype=dtype, **cut)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_CPU_SEQ,
                                 global_batch=TRAIN_CPU_ROWS)
     drawn = lm.init_params(torch.Generator().manual_seed(1),
@@ -2890,20 +3360,29 @@ def _train_card_vs_cpu(torch, cfg, dtype: str) -> dict:
     tree = adamw.tree_map(lambda t: t.numpy(), drawn)
     opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
     loss_rtol, l2_rule, p_tol = TRAIN_CPU_RULE[dtype]
-    runs = {}
+    runs, card_choices = {}, None
     for dev in ("cuda", "cpu"):
         params = lm.lm_params_from_numpy(tree, small, device=dev)
         batch = pipeline.batch_for_model(small, shape,
                                          pipeline.DataConfig(seed=1), 0,
                                          device=dev)
-        merged = {}
-        for mb in steps._split_microbatches(batch, TRAIN_ACCUM):
-            _, g = steps._value_and_grad(small, params, mb)
-            for path, t in _flat(g):
-                merged[path] = merged.get(path, 0) + t.float().cpu()
-        new_p, _, m = steps.make_train_step(
-            small, opt_cfg, grad_accum=TRAIN_ACCUM)(
-                params, adamw.init(params, opt_cfg), batch)
+        if small.moe is None:
+            routing = contextlib.nullcontext()
+        elif dev == "cuda":
+            routing = _choices()
+        else:
+            routing = _ReplayingChoices(card_choices)
+        with routing as rec:
+            merged = {}
+            for mb in steps._split_microbatches(batch, TRAIN_ACCUM):
+                _, g = steps._value_and_grad(small, params, mb)
+                for path, t in _flat(g):
+                    merged[path] = merged.get(path, 0) + t.float().cpu()
+            new_p, _, m = steps.make_train_step(
+                small, opt_cfg, grad_accum=TRAIN_ACCUM)(
+                    params, adamw.init(params, opt_cfg), batch)
+        if dev == "cuda" and small.moe is not None:
+            card_choices = rec.calls
         runs[dev] = (float(m["loss"]), merged,
                      {p: t.float().cpu() for p, t in _flat(new_p)})
     (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
@@ -2929,7 +3408,8 @@ def _train_card_vs_cpu(torch, cfg, dtype: str) -> dict:
     worst = max(l2, key=l2.get)
     return {"loss_card": lc, "loss_cpu": lh, "grad_rel_l2_max": l2[worst],
             "grad_rel_l2_worst_leaf": worst, "grad_rel_l2": l2,
-            "param_max_abs_after_step": p_err,
+            "param_max_abs_after_step": p_err, "cut": cut,
+            "routing_replayed": small.moe is not None,
             "rule": {"loss_rtol": loss_rtol, "grad_rel_l2": l2_rule,
                      "param_atol_rtol": p_tol}}
 
@@ -2949,8 +3429,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--ptxas", action="store_true",
                     help="ptxas' registers and spills of every kernel on "
-                         "the build line (the conv and SSD kernels' are "
-                         "always there)")
+                         "the build line (the conv, SSD and both backward "
+                         "kernels' are always there)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2988,7 +3468,7 @@ def main(argv=None) -> int:
     # always from the checkout's sources, whatever a build directory
     # holds: one nvcc per kernel, all started together
     libraries = (cs.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY, fm.LIBRARY,
-                 ms.LIBRARY)
+                 ms.LIBRARY, ms.BWD_LIBRARY)
     probe_lib = mlp_probe_library(build, fm) if "mlp_probe" in phases \
         else None
     t0 = time.perf_counter()
@@ -3010,7 +3490,8 @@ def main(argv=None) -> int:
         # kernel with --ptxas
         built["ptxas"] = [r for lib in libraries
                           if args.ptxas or lib in (cs.LIBRARY, ms.LIBRARY,
-                                                   fa.BWD_LIBRARY)
+                                                   fa.BWD_LIBRARY,
+                                                   ms.BWD_LIBRARY)
                           for r in ptxas_report(lib.build_log)]
         emit_phase("build", built)
     checked = None
@@ -3048,7 +3529,7 @@ def main(argv=None) -> int:
         launches += read_after(cs, "conv2d_stream",               # after
                                "imported and command-line")
 
-    attn = attn_bwd = mlp = ssd = None
+    attn = attn_bwd = mlp = ssd = ssd_bwd = None
     if "attn_check" in phases:
         attn = attn_check(torch)
         emit_phase("attn_check", attn)
@@ -3063,6 +3544,9 @@ def main(argv=None) -> int:
     if "ssd_check" in phases:
         ssd = ssd_check(torch)
         emit_phase("ssd_check", ssd)
+    if "ssd_bwd_check" in phases:
+        ssd_bwd = ssd_bwd_check(torch)
+        emit_phase("ssd_bwd_check", ssd_bwd)
 
     fa_launches = fm_launches = ms_launches = 0
     fa.reset_counts()                  # counts: zero before the LM path
@@ -3090,19 +3574,37 @@ def main(argv=None) -> int:
         emit_phase("encdec_serve", encdec_serve(torch))
         fa_launches += read_after(fa, "flash_attention",        # after
                                   "encoder-decoder")
-    fa.reset_counts()                  # counts: zero before the train path
-    fb_launches = 0
-    if "lm_train" in phases:
-        train, rest = lm_train(torch)
-        fa_launches += read_after(fa, "flash_attention", "train")  # after
-        fb_launches = fa.bwd_launches
-        if fb_launches < 1 or fa.bwd_plain_cuda_calls:
+    def read_bwd(mod, name: str, path: str) -> int:
+        """``read_after`` for a module's backward kernel."""
+        if mod.bwd_launches < 1 or mod.bwd_plain_cuda_calls:
             raise AssertionError(
-                f"the train path launched flash_attention_bwd {fb_launches} "
-                f"time(s), its plain version ran {fa.bwd_plain_cuda_calls} "
+                f"the {path} path launched {name} {mod.bwd_launches} "
+                f"time(s), its plain version ran {mod.bwd_plain_cuda_calls} "
                 "time(s) on a CUDA tensor")
+        return mod.bwd_launches
+
+    fb_launches = mb_launches = 0
+    for name, train_fn, (mod, fwd, bwd) in (
+            ("lm_train", lm_train, (fa, "flash_attention",
+                                    "flash_attention_bwd")),
+            ("moe_train", moe_train, (fa, "flash_attention",
+                                      "flash_attention_bwd")),
+            ("ssm_train", ssm_train, (ms, "mamba2_ssd", "mamba2_ssd_bwd"))):
+        fa.reset_counts()              # counts: zero before this train path
+        ms.reset_counts()
+        if name not in phases:
+            continue
+        train, rest = train_fn(torch)
+        n_fwd = read_after(mod, fwd, name)                     # read after
+        n_bwd = read_bwd(mod, bwd, name)
+        if mod is fa:
+            fa_launches += n_fwd
+            fb_launches += n_bwd
+        else:
+            ms_launches += n_fwd
+            mb_launches += n_bwd
         train.update(rest())     # the repeat, profile and CPU check: after
-        emit_phase("lm_train", train)
+        emit_phase(name, train)
 
     if set(phases) != set(PHASES):
         emit({"partial": phases,
@@ -3119,6 +3621,8 @@ def main(argv=None) -> int:
                  if (s["shape"], s["dtype"]) == SSD_HEADLINE)
     bhead = next(s for s in attn_bwd["shapes"]
                  if (s["shape"], s["dtype"]) == ATTN_BWD_HEADLINE)
+    sbhead = next(s for s in ssd_bwd["shapes"]
+                  if (s["shape"], s["dtype"]) == SSD_BWD_HEADLINE)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "conv2d_stream", "route": "cuda",
@@ -3191,6 +3695,22 @@ def main(argv=None) -> int:
                     "computes an SSD scan)",
         "comparisons": ssd["comparisons"],
         "shapes": shape_rows(ssd["shapes"]),
+    }, {
+        "name": "mamba2_ssd_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
+        "replaces": "src/repro/models/mamba2.py:107",
+        "launches": mb_launches,
+        "max_abs_err": max(ssd_bwd["max_abs_err_f32"],
+                           ssd_bwd["max_abs_err_bf16"]),
+        "ms": sbhead["ms"], "plain_ms": sbhead["plain_ms"],
+        "bound_ms": sbhead["bound_ms"], "bound_by": sbhead["bound_by"],
+        "library_ms": None,
+        "timed_at": f"{SSD_BWD_HEADLINE[0]} {SSD_BWD_HEADLINE[1]} (no TPU "
+                    "kernel: the counterpart of XLA's autodiff of "
+                    "ref.ssd_chunked; no PyTorch call computes an SSD "
+                    "backward)",
+        "comparisons": ssd_bwd["comparisons"],
+        "shapes": shape_rows([s for s in ssd_bwd["shapes"] if "ms" in s]),
     }], "seconds": round(time.perf_counter() - t_all, 1),
         "stdout_bytes": _stdout_bytes})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -930,6 +930,14 @@ SSD_MMA_TILES = (SSD_MMA_NARROW, SSD_MMA_WIDE)
 #: N padded with zeros to these widths
 SSD_MAX_HEAD_DIM = 64
 SSD_MAX_STATE_DIM = 128
+#: the SSD backward (``kernels/csrc/mamba2_ssd_bwd.cu``, CUDA cores, f32
+#: arithmetic for both input dtypes): 256 threads as 16 × 16; a block
+#: walks one (batch row, head) from the last tile to the first,
+#: ``SSD_BWD_BLOCK_L`` positions at a time, reading the state the forward
+#: saved at the start of each tile.  A forward that saves its states
+#: therefore takes tiles of this length (both routes have one)
+SSD_BWD_BLOCK_L = 32
+assert SSD_BWD_BLOCK_L == SSD_BLOCK_L == SSD_MMA_NARROW[0]
 
 
 @dataclass
@@ -979,17 +987,7 @@ assert all(ssd_mma_smem_bytes(block_l=q, heads_per_block=hb)
            <= H100.smem_per_block for q, hb in SSD_MMA_TILES)
 
 
-@functools.lru_cache(maxsize=4096)
-def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
-                    state_dim: int, dtype: str) -> SsdBlockPlan:
-    """Tile the SSD kernel on the H100: a block walks the sequence for one
-    (batch row, group of heads) a tile at a time with the state on chip.
-    bf16 takes the tensor-core route (``SSD_MMA_WIDE`` where its blocks
-    keep seven in eight SMs busy, else ``SSD_MMA_NARROW``); f32 the
-    CUDA-core route (``SSD_BLOCK_L``, one head).  Results do not depend on
-    the tile beyond f32 rounding.  Raises :class:`ValueError` for a head
-    wider than ``SSD_MAX_HEAD_DIM``, a state wider than
-    ``SSD_MAX_STATE_DIM``, an empty problem or a dtype with no route."""
+def _check_ssd_problem(batch, length, heads, head_dim, state_dim) -> None:
     if min(batch, length, heads, head_dim, state_dim) < 1:
         raise ValueError(
             f"SSD: empty problem (B {batch}, L {length}, H {heads}, "
@@ -998,8 +996,27 @@ def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
         raise ValueError(
             f"SSD: head_dim {head_dim} / state_dim {state_dim} exceed the "
             f"kernel's {SSD_MAX_HEAD_DIM} / {SSD_MAX_STATE_DIM}")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
+                    state_dim: int, dtype: str,
+                    save_states: bool = False) -> SsdBlockPlan:
+    """Tile the SSD kernel on the H100: a block walks the sequence for one
+    (batch row, group of heads) a tile at a time with the state on chip.
+    bf16 takes the tensor-core route (``SSD_MMA_WIDE`` where its blocks
+    keep seven in eight SMs busy, else ``SSD_MMA_NARROW``); f32 the
+    CUDA-core route (``SSD_BLOCK_L``, one head).  With ``save_states``
+    (training: the forward writes the state entering each tile for the
+    backward) bf16 takes ``SSD_MMA_NARROW``, whose tiles are the
+    backward's ``SSD_BWD_BLOCK_L``.  Results do not depend on the tile
+    beyond f32 rounding.  Raises :class:`ValueError` for a head wider than
+    ``SSD_MAX_HEAD_DIM``, a state wider than ``SSD_MAX_STATE_DIM``, an
+    empty problem or a dtype with no route."""
+    _check_ssd_problem(batch, length, heads, head_dim, state_dim)
     if dtype == "bfloat16":
-        wide = batch * -(-heads // SSD_MMA_WIDE[1]) >= 7 * H100.sms // 8
+        wide = (not save_states and batch * -(-heads // SSD_MMA_WIDE[1])
+                >= 7 * H100.sms // 8)
         q, hb = SSD_MMA_WIDE if wide else SSD_MMA_NARROW
         return SsdBlockPlan(
             "mamba2_ssd", {"route": "mma", "block_l": q,
@@ -1013,5 +1030,46 @@ def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
         "mamba2_ssd", {"route": "cuda_core", "block_l": SSD_BLOCK_L,
                        "heads_per_block": 1},
         ssd_smem_bytes(head_dim=head_dim, state_dim=state_dim),
+        batch * heads,
+    )
+
+
+def ssd_bwd_smem_bytes(*, head_dim: int, state_dim: int) -> int:
+    """Shared memory one block of the backward asks for, all f32: c and b
+    of a tile (``2 × block_l × pitch``), x and dy (``2 × block_l × P``
+    made odd), the state entering the tile and the cotangent of the state
+    leaving it (``2 × P × pitch``), the gated c·bᵀ, the gated dy·xᵀ and
+    their product (``3 × block_l × (block_l + 1)``), six per-position
+    vectors and eight per-warp partials; a row of ``N`` (``P``) takes the
+    odd pitch ``N | 1`` (``P | 1``) — the formula of
+    ``mamba2_ssd_bwd.cu``."""
+    q = SSD_BWD_BLOCK_L
+    npitch, xpitch = state_dim | 1, head_dim | 1
+    return 4 * (2 * q * npitch + 2 * q * xpitch + 2 * head_dim * npitch
+                + 3 * q * (q + 1) + 6 * q + 8)
+
+
+# the widest head and state fit one block of the backward
+assert ssd_bwd_smem_bytes(head_dim=SSD_MAX_HEAD_DIM,
+                          state_dim=SSD_MAX_STATE_DIM) <= H100.smem_per_block
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_ssd_bwd_blocks(*, batch: int, length: int, heads: int,
+                        head_dim: int, state_dim: int,
+                        dtype: str) -> SsdBlockPlan:
+    """Tile the SSD backward on the H100: one block of 256 threads per
+    (batch row, head) walks its tiles of ``SSD_BWD_BLOCK_L`` positions
+    from last to first, the cotangent of the (P, N) state in shared
+    memory.  f32 and bf16 inputs take the same CUDA-core route (f32
+    arithmetic).  Raises :class:`ValueError` where
+    :func:`plan_ssd_blocks` does."""
+    _check_ssd_problem(batch, length, heads, head_dim, state_dim)
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"SSD backward: no route for {dtype}")
+    return SsdBlockPlan(
+        "mamba2_ssd_bwd", {"route": "cuda_core",
+                           "block_l": SSD_BWD_BLOCK_L, "heads_per_block": 1},
+        ssd_bwd_smem_bytes(head_dim=head_dim, state_dim=state_dim),
         batch * heads,
     )

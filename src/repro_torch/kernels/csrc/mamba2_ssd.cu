@@ -11,7 +11,12 @@
 // of their batch and position axes given (the model hands in column
 // slices of one projection, so nothing is copied); dt (B, L, H) and
 // a (H,) f32; init state (B, H, P, N) f32.  y (B, L, H, P) in T (the sum
-// is f32, rounded once), final state (B, H, P, N) f32.
+// is f32, rounded once), final state (B, H, P, N) f32.  For training the
+// caller may pass a states buffer (B, H, n_tiles, P, N) f32: the kernel
+// then writes the state entering each of its tiles, which the backward
+// (mamba2_ssd_bwd.cu) reads -- the SSD's counterpart of attention's lse.
+// Serving passes none and runs an instantiation without the write
+// (SAVE = false).
 //
 // Both routes keep the TPU kernel's walk: one block owns a (batch, head)
 // (or HB heads of one batch row) and walks the positions a tile at a time
@@ -168,7 +173,7 @@ __device__ __forceinline__ void write_state(uint16_t* shi, uint16_t* slo,
     }
 }
 
-template <int QT, int HB>
+template <int QT, int HB, bool SAVE>
 __global__ void __launch_bounds__(GROUP * HB, 2 / HB)
 mamba2_ssd_mma_kernel(const uint16_t* __restrict__ x,
                       const float* __restrict__ dt,
@@ -177,7 +182,7 @@ mamba2_ssd_mma_kernel(const uint16_t* __restrict__ x,
                       const uint16_t* __restrict__ cm,
                       const float* __restrict__ s0,
                       uint16_t* __restrict__ y, float* __restrict__ sf,
-                      const MmaParams p) {
+                      float* __restrict__ states, const MmaParams p) {
   constexpr int MT = QT / 16;     // 16-row m-tiles of a position tile
   constexpr int YN = MT;          // 8-column n-tiles of y a warp owns
   constexpr int PER = QT / 32;    // positions a lane in the scan
@@ -260,6 +265,16 @@ mamba2_ssd_mma_kernel(const uint16_t* __restrict__ x,
     const uint16_t* bs = bs0 + stg * S::CB;
     const uint16_t* xs = xs0 + stg * S::XT;
     const float* dts = dts0 + stg * QT;
+    if (SAVE && active) {  // the state entering tile k
+      float* sk = states + (((size_t)b * p.H + h) * ntiles + k) * P * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = srow + 8 * (e >> 1), c = scol + 8 * j + (e & 1);
+          if (r < P && c < N) sk[(size_t)r * N + c] = st[j][e];
+        }
+    }
 
     // cum: inclusive prefix sum of dt a over the tile, one warp a head
     if (gw == 0) {
@@ -434,11 +449,12 @@ mamba2_ssd_mma_kernel(const uint16_t* __restrict__ x,
     }
 }
 
-template <int QT, int HB>
+template <int QT, int HB, bool SAVE>
 int launch_mma(const void* x, const float* dt, const float* a,
                const void* bm, const void* cm, const float* s0, void* y,
-               float* sf, MmaParams p, int B, cudaStream_t stream) {
-  auto kern = mamba2_ssd_mma_kernel<QT, HB>;
+               float* sf, float* states, MmaParams p, int B,
+               cudaStream_t stream) {
+  auto kern = mamba2_ssd_mma_kernel<QT, HB, SAVE>;
   constexpr size_t smem = MmaSmem<QT, HB>::BYTES;
   static_assert(smem <= (size_t)MAX_SMEM, "SSD tile exceeds shared memory");
   // once per instantiation (thread-safe static initialisation)
@@ -451,7 +467,7 @@ int launch_mma(const void* x, const float* dt, const float* a,
   kern<<<(int)blocks, GROUP * HB, smem, stream>>>(
       static_cast<const uint16_t*>(x), dt, a,
       static_cast<const uint16_t*>(bm), static_cast<const uint16_t*>(cm), s0,
-      static_cast<uint16_t*>(y), sf, p);
+      static_cast<uint16_t*>(y), sf, states, p);
   return (int)cudaGetLastError();
 }
 
@@ -479,12 +495,13 @@ struct Params {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
-template <typename T>
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(THREADS)
 mamba2_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ a, const T* __restrict__ bm,
                   const T* __restrict__ cm, const float* __restrict__ s0,
-                  T* __restrict__ y, float* __restrict__ sf, const Params p) {
+                  T* __restrict__ y, float* __restrict__ sf,
+                  float* __restrict__ states, const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int NP = p.NP, P = p.P, N = p.N;
   float* cs = smem;                   // [QT][NP]  c of the tile
@@ -515,9 +532,17 @@ mamba2_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float* dtb = dt + (size_t)b * p.L * p.H + h;
   T* yb = y + ((size_t)b * p.L * p.H + h) * P;
 
+  const int ntiles = (p.L + QT - 1) / QT;
   for (int l0 = 0; l0 < p.L; l0 += QT) {
     const int qv = min(QT, p.L - l0);
     __syncthreads();  // the last tile's reads are done, S is written
+    if (SAVE) {  // the state entering this tile
+      float* sk = states + ((size_t)bh * ntiles + l0 / QT) * P * N;
+      for (int i = tid; i < P * N; i += THREADS) {
+        const int pi = i / N, n = i - pi * N;
+        sk[i] = S[pi * NP + n];
+      }
+    }
     for (int i = tid; i < QT * N; i += THREADS) {
       const int t = i / N, n = i - t * N;
       float cv = 0.f, bv = 0.f;
@@ -695,11 +720,11 @@ mamba2_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
+template <typename T, bool SAVE>
 int launch(const void* x, const float* dt, const float* a, const void* bm,
            const void* cm, const float* s0, void* y, float* sf,
-           const Params& p, int blocks, cudaStream_t stream) {
-  auto kern = mamba2_ssd_kernel<T>;
+           float* states, const Params& p, int blocks, cudaStream_t stream) {
+  auto kern = mamba2_ssd_kernel<T, SAVE>;
   const size_t smem = 4 * (2 * (size_t)QT * p.NP + (size_t)QT * p.P +
                            (size_t)QT * (QT + 1) + (size_t)p.P * p.NP +
                            4 * QT + 1);
@@ -710,7 +735,7 @@ int launch(const void* x, const float* dt, const float* a, const void* bm,
   if (attr != cudaSuccess) return (int)attr;
   kern<<<blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), s0, static_cast<T*>(y), sf, p);
+      static_cast<const T*>(cm), s0, static_cast<T*>(y), sf, states, p);
   return (int)cudaGetLastError();
 }
 
@@ -723,10 +748,13 @@ bool aligned16(const void* ptr) {
 // dtype codes (x, b, c, y): 0 float32 (CUDA cores: block_l 32, one head
 // a block), 1 bfloat16 (tensor cores: block_l 32 with one head a block,
 // or 64 with two).  Strides are in elements; x's (H, P) axes, b's and c's
-// N axis, dt, a, the states and y are contiguous.
+// N axis, dt, a, the states and y are contiguous.  tile_states, when not
+// null, receives the state entering each tile, (B, H, ceil(L / block_l),
+// P, N) f32.
 extern "C" int mamba2_ssd_launch(
     const void* x, const void* dt, const void* a, const void* bm,
-    const void* cm, const void* s0, void* y, void* sf, int dtype, int B,
+    const void* cm, const void* s0, void* y, void* sf, void* tile_states,
+    int dtype, int B,
     int L, int H, int P, int N, long long x_sb, long long x_sl,
     long long b_sb, long long b_sl, long long c_sb, long long c_sl,
     int block_l, int heads_per_block, void* stream) {
@@ -738,6 +766,7 @@ extern "C" int mamba2_ssd_launch(
   const float* af = static_cast<const float*>(a);
   const float* s0f = static_cast<const float*>(s0);
   float* sff = static_cast<float*>(sf);
+  float* stf = static_cast<float*>(tile_states);
   if (dtype == 1) {
     MmaParams p;
     p.L = L; p.H = H; p.P = P; p.N = N; p.head_groups = 0;
@@ -749,9 +778,15 @@ extern "C" int mamba2_ssd_launch(
                b_sl % 8 == 0 && c_sb % 8 == 0 && c_sl % 8 == 0 &&
                N % 8 == 0;
     if (block_l == 32 && heads_per_block == 1)
-      return launch_mma<32, 1>(x, dtf, af, bm, cm, s0f, y, sff, p, B, s);
+      return stf ? launch_mma<32, 1, true>(x, dtf, af, bm, cm, s0f, y, sff,
+                                           stf, p, B, s)
+                 : launch_mma<32, 1, false>(x, dtf, af, bm, cm, s0f, y, sff,
+                                            stf, p, B, s);
     if (block_l == 64 && heads_per_block == 2)
-      return launch_mma<64, 2>(x, dtf, af, bm, cm, s0f, y, sff, p, B, s);
+      return stf ? launch_mma<64, 2, true>(x, dtf, af, bm, cm, s0f, y, sff,
+                                           stf, p, B, s)
+                 : launch_mma<64, 2, false>(x, dtf, af, bm, cm, s0f, y, sff,
+                                            stf, p, B, s);
     return (int)cudaErrorInvalidValue;
   }
   if (block_l != QT || heads_per_block != 1) return (int)cudaErrorInvalidValue;
@@ -762,7 +797,10 @@ extern "C" int mamba2_ssd_launch(
   p.c_sb = c_sb; p.c_sl = c_sl;
   const long long blocks = (long long)B * H;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  return launch<float>(x, dtf, af, bm, cm, s0f, y, sff, p, (int)blocks, s);
+  return stf ? launch<float, true>(x, dtf, af, bm, cm, s0f, y, sff, stf, p,
+                                   (int)blocks, s)
+             : launch<float, false>(x, dtf, af, bm, cm, s0f, y, sff, stf, p,
+                                    (int)blocks, s);
 }
 
 extern "C" const char* mamba2_ssd_error_string(int code) {

@@ -858,10 +858,10 @@ def mamba2_ssd(
     divide ``L`` (ValueError, where the reference asserts); the kernel
     walks the sequence in its own tiles, so it only gates the call and
     sets the plain version's chunk.  The initial state defaults to zeros
-    (f32).  The kernel has no backward yet: under autograd on CUDA tensors
-    it raises NotImplementedError."""
-    _refuse_grad("mamba2_ssd", "item 4c (SSM training)", x, dt, a, b_mat,
-                 c_mat, init_state)
+    (f32).  Under autograd (grad enabled and an input that requires it)
+    the call goes through ``mamba2_ssd.SsdScan``: the forward kernel saves
+    its tile states and the backward kernel gives the six gradients;
+    otherwise it is one forward launch, as in serving."""
     bsz, l, h, p = x.shape
     n = b_mat.shape[-1]
     if chunk is None:
@@ -871,4 +871,4 @@ def mamba2_ssd(
     s0 = (init_state if init_state is not None
           else torch.zeros((bsz, h, p, n), dtype=torch.float32,
                            device=x.device))
-    return _ssd.mamba2_ssd(x, dt, a, b_mat, c_mat, s0, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, a, b_mat, c_mat, s0, chunk=chunk)

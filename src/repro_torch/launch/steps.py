@@ -9,10 +9,10 @@ so the launchers stay family-agnostic:
 
 The train step is the reference's: loss, its gradient, gradient
 accumulation over microbatches, then the AdamW update.  It trains the
-dense family (dense, vlm, audio).  The MoE, SSM and hybrid families wait
-for the slices that give their kernels a backward (``ROADMAP.md`` §A
-items 4b-4d), the encoder–decoder for the one that brings its loss (item
-4e).
+dense family (dense, vlm, audio), the MoE family and the SSM family (the
+SSD's gradient through its backward kernel).  The hybrid waits for a
+slice that fits its training state (``ROADMAP.md`` §A item 4d), the
+encoder–decoder for the one that brings its loss (item 4e).
 """
 from __future__ import annotations
 
@@ -31,9 +31,9 @@ from repro_torch.optim import adamw
 
 #: families whose training waits, and the ROADMAP item that brings it
 _UNTRAINED = {
-    "moe": "§A item 4b (MoE routing gradients)",
-    "ssm": "§A item 4c (a backward for the SSD kernel)",
-    "hybrid": "§A item 4d (after the MoE and SSM items)",
+    "hybrid": "§A item 4d (its training state — bf16 weights, f32 "
+              "gradients and two f32 moments — does not fit one card at "
+              "any honest cut; it comes with item 4e)",
     "encdec": "§A item 4e (encdec_loss, decode_train, kv_override)",
 }
 

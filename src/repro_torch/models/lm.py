@@ -1,5 +1,6 @@
 """Decoder-only LM of the dense, MoE, SSM and hybrid families, in
-PyTorch: serving, and the training loss of the dense family.
+PyTorch: serving, and the training loss of the dense, MoE and SSM
+families.
 
 Parameters keep the reference's *stacked* layout — ``{"blocks": {"b0":
 {...}}, "final_norm", "embed", "lm_head"?}`` with a leading layer axis
@@ -25,9 +26,10 @@ Its cache is ``{"k", "v"}`` or ``{"conv", "ssm"}``, so a hybrid cache
 holds both kinds of leaf under one tree.  A layer's FFN is the MLP, the
 MoE layer (``models/moe.py``) or none.  The train step of
 ``launch/steps.py`` takes ``lm_loss`` for the dense family (dense, vlm,
-audio); training the MoE, SSM and hybrid families waits for later slices
-(``ROADMAP.md`` §A items 4b-4d: the routing gradients, a backward for the
-SSD kernel).
+audio), the MoE family (the gates' gradient through the f32 router) and
+the SSM family (the SSD's through its backward kernel); the hybrid waits
+for a later slice (``ROADMAP.md`` §A item 4d: its training state does
+not fit one card).
 """
 from __future__ import annotations
 

@@ -9,8 +9,14 @@ exactly (conv window, SSM state).
 Prefill runs the chunked SSD scan through the hand-written SSD kernel
 (``ops.mamba2_ssd``; its plain version, ``ref.ssd_chunked``, on a CPU
 tensor) — where the reference calls ``ref.ssd_chunked`` directly, "the
-algorithm the Pallas kernel implements".  Decode takes the O(1)
-recurrent step ``ref.ssd_decode_step`` in plain PyTorch, as the
+algorithm the Pallas kernel implements".  Training runs the same layer
+under autograd: the scan's forward is that kernel, saving the state
+entering each of its tiles, and its gradient the hand-written backward
+kernel (``mamba2_ssd.SsdScan``: B4 and B4′ on the card, autograd through
+``ref.ssd_chunked`` on the CPU, the reference's own gradient); the
+depthwise conv's f32 tap loop, SiLU, softplus, the gated RMSNorm and the
+f32 leaves differentiate through autograd as they are.  Decode takes the
+O(1) recurrent step ``ref.ssd_decode_step`` in plain PyTorch, as the
 reference does.  Shapes, the f32 leaves (``F32_LEAVES``) and the places
 where bf16 rounds follow the reference.
 """

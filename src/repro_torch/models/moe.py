@@ -24,6 +24,18 @@ no accumulating scatter is needed.  The experts are three batched
 products over E (``torch.bmm`` in ``param_dtype``; the reference's
 ``jnp.einsum``, outside any kernel), and the combine accumulates in f32
 in the order ``kk = 0..k-1`` before casting back to ``x.dtype``.
+
+Under autograd (training) the layer differentiates as it stands, to the
+gradient the reference's ``jax.grad`` gives: the gates' cotangent flows
+through ``softmax(vals[:, :k])`` and the stable sort's backward (a
+scatter to the chosen experts' columns) into the f32 logits and so the
+router; the positions and ``keep`` are integers and pass nothing.  A
+dropped choice is weighted 0 in the combine, so its gate gets a zero
+cotangent (the softmax still couples it to the kept gates of its token,
+as in the reference).  The dispatch ``buf[dest] = xf`` passes each kept
+row its slot's gradient (a gather; the spare row is never read, so a
+dropped choice passes 0), and each combine gather accumulates its
+weighted cotangent into its slot.
 """
 from __future__ import annotations
 
