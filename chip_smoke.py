@@ -111,10 +111,11 @@ Phases, each printing one JSON object on a line of its own:
                   and Jamba's prefill shapes, bf16 also under both tiles
                   of positions × heads a block the planner picks from (no
                   library call computes an SSD scan);
-11b. ``ssd_bwd_check`` the hand-written SSD backward kernel against its
-                  plain version (autograd through ``ref.ssd_chunked``) on
-                  the card, its tile states from the forward kernel (held
-                  to the plain forward too), f32 and bf16, at
+11b. ``ssd_bwd_check`` the hand-written SSD backward (two kernels: the
+                  dS pass, then every tile in parallel) against its plain
+                  version (autograd through ``ref.ssd_chunked``) on the
+                  card, its tile states from the forward kernel (held to
+                  the plain forward too), f32 and bf16, at
                   ``ssd_check``'s shapes (ragged L among them, from a
                   random initial state with a random cotangent of the
                   final state), x, b and c as strided slices, and
@@ -122,10 +123,11 @@ Phases, each printing one JSON object on a line of its own:
                   N 128); per element |err| ≤ rtol·|plain| + atol·(its
                   row's scale), (1e-4, 1e-4) in f32 and (1e-2, 1e-3) in
                   bf16; two runs the same bits; at the train shape in bf16
-                  five faults planted in the kernel's gradients must fail
-                  the rule, and the kernel is timed beside the plain
-                  version and the bound (no library call computes an SSD
-                  backward);
+                  six faults planted in the kernels' gradients must fail
+                  the rule, and a call is timed beside the plain version,
+                  the bound and the design's floor (device ms per call
+                  and per kernel), also under 2, 4, 8 and 16 heads a tile
+                  block (no library call computes an SSD backward);
 12. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
                   (random bf16 weights from a seed, on the card) generate
                   32 tokens greedily for 4 prompts of 1024; prefill logits
@@ -192,7 +194,8 @@ Phases, each printing one JSON object on a line of its own:
                   routing choices (its gates from its own logits);
 19. ``ssm_train`` mamba2-1.3b's train step, as ``lm_train``'s, through the
                   SSD kernel saving its tile states (192 launches a step)
-                  and its backward (96).
+                  and its backward (96 calls, each launching the dS pass
+                  and the tile kernel).
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -377,14 +380,11 @@ def time_ms(fn, *, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, *, reps: int, kernel, per_launch: bool = False):
-    """Mean milliseconds the card spends inside ``kernel`` (a name, or a
-    tuple of names whose times add up) per call, from
-    ``torch.profiler``'s device trace — ``ms`` from :func:`time_ms` also
-    holds the host's time to enqueue a call, which is what shows at small
-    shapes.  With ``per_launch`` (a call that launches one kernel) the
-    mean is over the launches the trace recorded, not over ``reps``.
-    ``None`` where the profiler records no device time."""
+def _device_time(fn, *, reps: int, names) -> dict | None:
+    """{name: [µs, launches]} the card spent inside the kernels whose
+    names contain each of ``names`` (an event counts for the first that it
+    contains) over ``reps`` calls of ``fn``, from ``torch.profiler``'s
+    device trace; ``None`` where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,16 +397,40 @@ def device_ms(fn, *, reps: int, kernel, per_launch: bool = False):
         events = prof.key_averages()
     except RuntimeError:      # no device tracing on this machine
         return None
-    names = (kernel,) if isinstance(kernel, str) else kernel
-    total_us, seen = 0.0, 0
+    found = {k: [0.0, 0] for k in names}
     for ev in events:
-        if any(k in ev.key for k in names):
-            total_us += (getattr(ev, "self_device_time_total", 0.0)
-                         or getattr(ev, "self_cuda_time_total", 0.0))
-            seen += ev.count
-    if not total_us:
-        return None
-    return total_us / (seen if per_launch else reps) / 1e3
+        k = next((k for k in names if k in ev.key), None)
+        if k is not None:
+            found[k][0] += (getattr(ev, "self_device_time_total", 0.0)
+                            or getattr(ev, "self_cuda_time_total", 0.0))
+            found[k][1] += ev.count
+    return found
+
+
+def device_ms(fn, *, reps: int, kernel):
+    """Mean milliseconds the card spends inside ``kernel`` (a name, or a
+    tuple of names whose times add up) per call, from
+    ``torch.profiler``'s device trace — ``ms`` from :func:`time_ms` also
+    holds the host's time to enqueue a call, which is what shows at small
+    shapes.  ``None`` where the profiler records no device time."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    found = _device_time(fn, reps=reps, names=names)
+    total_us = sum(us for us, _ in found.values()) if found else 0.0
+    return total_us / reps / 1e3 if total_us else None
+
+
+def device_ms_each(fn, *, reps: int, kernels) -> dict:
+    """Per kernel of a call that launches each of ``kernels`` once: the
+    mean device milliseconds of one launch, over the launches the trace
+    recorded (``None`` for a kernel it did not record), and under
+    ``"per_call"`` their sum — one call's device time."""
+    found = _device_time(fn, reps=reps, names=kernels) or {}
+    each = {k: (found[k][0] / found[k][1] / 1e3
+                if k in found and found[k][1] else None) for k in kernels}
+    each["per_call"] = (sum(each.values())
+                        if all(v is not None for v in each.values())
+                        else None)
+    return each
 
 
 # ---------------------------------------------------------------------------
@@ -1992,12 +2016,15 @@ def ssd_slices_and_state(torch, gen, ms, worst) -> int:
 # ---------------------------------------------------------------------------
 
 #: (name, B, L, H, P, N, chunk): ``ssd_check``'s cases (ragged L among
-#: them) and mamba2-1.3b's train microbatch (train_4k's 4096 positions, 4
-#: rows).  Every case but the train shape runs from a random initial
-#: state with a random cotangent of the final state; the train shape as
-#: the model calls it (zeros, no cotangent)
-SSD_BWD_CASES = SSD_CASES + (("mamba2-1.3b.train", 4, 4096, 64, 64, 128,
-                              64),)
+#: them), one whose P and N are odd (every load and store of the backward
+#: then takes its element path: no 16-, 8- or 4-byte pieces) and
+#: mamba2-1.3b's train microbatch (train_4k's 4096 positions, 4 rows).
+#: Every case but the train shape runs from a random initial state with a
+#: random cotangent of the final state; the train shape as the model
+#: calls it (zeros, no cotangent)
+SSD_BWD_CASES = SSD_CASES + (("odd.p5.n13.h3", 2, 70, 3, 5, 13, 7),
+                             ("mamba2-1.3b.train", 4, 4096, 64, 64, 128,
+                              64))
 SSD_BWD_HEADLINE = ("mamba2-1.3b.train", "bfloat16")
 SSD_BWD_GRADS = ("dx", "ddt", "da", "db", "dc", "d_init_state")
 #: (rtol of |plain|, atol as a share of the row's scale): an element
@@ -2005,7 +2032,7 @@ SSD_BWD_GRADS = ("dx", "ddt", "da", "db", "dc", "d_init_state")
 #: the largest |plain| of its row — a (batch row, head) for dx, ddt and
 #: d_init_state, a batch row for db and dc (sums over the 64 heads), the
 #: tensor for da (a sum over B·L positions).  Set before the first run
-#: from the kernel's formula emulated on the CPU (``ssd_bwd_walk``, f32
+#: from the backward's sums emulated on the CPU (``ssd_bwd_walk``, f32
 #: from the same inputs, at the train shape's L 4096, P 64, N 128):
 #: ``tests/test_torch_ssd_bwd.py`` holds it to a tenth of the rule in
 #: both dtypes and each planted fault to ≥ 30 times the bf16 atol.  The
@@ -2013,10 +2040,18 @@ SSD_BWD_GRADS = ("dx", "ddt", "da", "db", "dc", "d_init_state")
 #: version (one step is 2^-8 of the value)
 SSD_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
 SSD_BWD_ROW_FLOOR = 1e-3
+#: the share of the bf16 atol the kernels' worst gradient may need at the
+#: headline.  Their rounding — each f32 operand of a tensor-core product
+#: as bf16 hi + lo — emulates at about 5e-4 of it on the CPU, and any one
+#: of those operands rounded to bf16 alone at 0.3 or more
+#: (``ssd_bwd_split``, ``tests/test_torch_ssd_bwd.py``): a kernel that
+#: dropped a lo part would meet the rule, but not this
+SSD_BWD_HILO_SHARE = 0.05
 #: the axes a row of each gradient spans (``None``: the whole tensor)
 SSD_BWD_ROW_AXES = {"dx": (1, 3), "ddt": (1,), "da": None, "db": (1, 2),
                     "dc": (1, 2), "d_init_state": (2, 3)}
-SSD_BWD_KERNELS = ("mamba2_ssd_bwd",)
+#: the backward's two kernels (one launch each a call), both dtypes
+SSD_BWD_KERNELS = ("mamba2_ssd_bwd_pass", "mamba2_ssd_bwd_tile")
 #: the plain version's chunk where its gradient at the case's chunk is NaN
 #: (``exp`` of a masked difference above 88 overflows: ROADMAP §C)
 SSD_BWD_FINITE_CHUNK = 16
@@ -2053,17 +2088,14 @@ def _ssd_grads_close(got, want, dtype_name: str, what: str) -> dict:
     return {"need": needs, "max_abs_err": worst}
 
 
-def ssd_bwd_walk(x, dt, a, bm, cm, s0, dy, dsf=None, *, tile=32,
-                 fault=None, cut=None):
-    """The backward kernel's formula in plain PyTorch, f32, vectorised over
+def ssd_bwd_walk(x, dt, a, bm, cm, s0, dy, dsf=None, *, tile=32):
+    """The backward's sums (``csrc/mamba2_ssd_bwd.cu``'s header states
+    them) as one serial walk, in plain PyTorch, f32, vectorised over
     (batch row, head): the forward walk for the state entering each tile of
-    ``tile`` positions, then the tiles last to first carrying dS, ``exp``
-    only where s ≤ t (``csrc/mamba2_ssd_bwd.cu``'s header states the
-    sums) → (dx, ddt, da, db, dc, d_init_state) in f32.  ``fault`` plants
-    one of the faults the card's rule must catch: ``"carry_break"`` (dS
-    not carried into tile ``cut`` − 1), ``"no_decay"`` (dS carried without
-    exp(cum_last)), ``"db_no_state"`` (db without the state-update term),
-    ``"ddt_no_cum"`` (ddt without the path through cum)."""
+    ``tile`` positions, then the tiles last to first, each using the dS
+    carried out of the tile after it, ``exp`` only where s ≤ t → (dx, ddt,
+    da, db, dc, d_init_state) in f32.  The kernels compute the same sums
+    in another order, :func:`ssd_bwd_split`'s."""
     import torch
 
     _, l, _, _ = x.shape
@@ -2110,39 +2142,161 @@ def ssd_bwd_walk(x, dt, a, bm, cm, s0, dy, dsf=None, *, tile=32,
                      + w[..., None] * z)
         dc[:, sl] = (torch.einsum("btsh,bsn->btn", gd_ts, bq)
                      + torch.einsum("bth,bthn->btn", e, u))
-        db[:, sl] = torch.einsum("btsh,btn->bsn", gd_ts, cq)
-        if fault != "db_no_state":
-            db[:, sl] += torch.einsum("bsh,bshp,bhpn->bsn", w, xq, ds)
+        db[:, sl] = (torch.einsum("btsh,btn->bsn", gd_ts, cq)
+                     + torch.einsum("bsh,bshp,bhpn->bsn", w, xq, ds))
         carried = torch.einsum("bth,bthp,btn->bhpn", e, gq, cq)
         dcum = (kk * d[:, None]).sum(2) - d * kk.sum(1) + e * i_t - w * v
         dcum[:, -1] += dec * (ds * sp).sum((-1, -2)) + (w * v).sum(1)
         rc = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
-        ddt[:, sl] = kk.sum(1) + g * v
-        if fault != "ddt_no_cum":
-            ddt[:, sl] += af * rc
+        ddt[:, sl] = kk.sum(1) + g * v + af * rc
         da += (d * rc).sum((0, 1))
-        ds = carried + (ds if fault == "no_decay"
-                        else dec[..., None, None] * ds)
-        if fault == "carry_break" and k == cut:
-            ds = torch.zeros_like(ds)
+        ds = carried + dec[..., None, None] * ds
     return dx, ddt, da, db, dc, ds
 
 
+#: the f32 operands the bf16 kernels feed to the tensor cores as a bf16
+#: high part plus a bf16 low part: the gated c·bᵀ (G, dx's intra term),
+#: the gated dy·xᵀ summed over a block's heads (Gd, dc's and db's), the
+#: saved state (S, u = dy·S), the pass's dS (dS, Z = b·dSᵀ and Y = x·dS)
+#: and the pass's exp(cum)·dy (edy, the carried update)
+SSD_BWD_HILO = ("G", "Gd", "S", "dS", "edy")
+
+
+def _bf16_round(t, *, lo: bool):
+    """``t`` rounded as an operand of a bf16 product: to bf16, and with
+    ``lo`` plus its remainder rounded to bf16 again (hi + lo, about 16
+    significant bits), back in f32."""
+    import torch
+
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float() if lo else hi
+
+
+def ssd_bwd_split(x, dt, a, bm, cm, s0, dy, dsf=None, *, tile=32,
+                  hilo=False, bf16_alone=None, fault=None, cut=None):
+    """The two-kernel backward's formula in plain PyTorch (f32,
+    ``csrc/mamba2_ssd_bwd.cu``'s header states the sums) → (dx, ddt, da,
+    db, dc, d_init_state) in f32.  First the dS pass: dS_k, the cotangent
+    of the state leaving tile k, for every tile, last to first (dS_{k−1} =
+    exp(cum_last) dS_k + Σ_t exp(cum_t) dy_t ⊗ c_t); then every tile at
+    once, each from its own saved state S_k and dS_k — nothing carries
+    between them.  With ``hilo`` each operand of ``SSD_BWD_HILO`` is
+    rounded where the bf16 kernels round it (hi + lo; Gd summed over a
+    tile block's ``dse.SSD_BWD_HEADS_PER_BLOCK`` heads first), and
+    ``bf16_alone`` names one of them
+    to round to bf16 alone instead.  ``fault`` plants one of the faults
+    the card's rule must catch: ``"carry_break"`` (the pass carries no dS
+    into tile ``cut`` − 1), ``"no_decay"`` (it carries dS without
+    exp(cum_last)), ``"db_no_state"`` (db without the state-update term),
+    ``"ddt_no_cum"`` (ddt without the path through cum) or
+    ``"pass_shift"`` (tile k reads dS_{k−1}, tile 0 the pass's final
+    carry)."""
+    import torch
+
+    from repro_torch.core import dse
+
+    bsz, l, h, p = x.shape
+    q = tile
+    nt = -(-l // q)
+    pad = nt * q - l
+
+    def rnd(name, t):
+        if name == bf16_alone:
+            return _bf16_round(t, lo=False)
+        return _bf16_round(t, lo=True) if hilo else t
+
+    def tiles(t):      # (B, L, ...) → (B, nt, q, ...), zeros past L
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((bsz, pad, *t.shape[2:]))], 1)
+        return t.reshape(bsz, nt, q, *t.shape[2:])
+
+    xq, dyq, bq, cq, d = (tiles(v) for v in (x, dy, bm, cm, dt))
+    af = a.float()
+    cum = torch.cumsum(d * af, 2)                        # (B, nt, q, H)
+    last = cum[:, :, -1]                                 # (B, nt, H)
+    dec = torch.exp(last)
+    e = torch.exp(cum)
+    g = torch.exp(last[:, :, None] - cum)
+    w = d * g
+    # the forward's saved states, S_k entering tile k
+    states, st = [], s0.float()
+    for k in range(nt):
+        states.append(st)
+        st = dec[:, k, :, None, None] * st + torch.einsum(
+            "bqhp,bqn->bhpn", xq[:, k] * w[:, k, ..., None], bq[:, k])
+    sk = torch.stack(states, 1)                          # (B, nt, H, P, N)
+    # the dS pass
+    ds = torch.zeros_like(st) if dsf is None else dsf.float()
+    buf = [None] * nt
+    for k in reversed(range(nt)):
+        buf[k] = ds
+        edy = rnd("edy", e[:, k, ..., None] * dyq[:, k])
+        ds = (ds if fault == "no_decay" else dec[:, k, :, None, None] * ds
+              ) + torch.einsum("bthp,btn->bhpn", edy, cq[:, k])
+        if fault == "carry_break" and k == cut:
+            ds = torch.zeros_like(ds)
+    d_init = ds
+    if fault == "pass_shift":
+        buf = [d_init] + buf[:-1]
+    dsk = torch.stack(buf, 1)                            # (B, nt, H, P, N)
+    # every tile at once
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    tri = tri[None, None, :, :, None]
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nt, t, s, H)
+    e_ts = torch.where(tri, torch.exp(torch.where(tri, rel, 0.0)), 0.0)
+    cb = torch.einsum("bktn,bksn->bkts", cq, bq)[..., None]
+    m = torch.einsum("bkthp,bkshp->bktsh", dyq, xq)
+    kk = cb * m * e_ts
+    g_ts = cb * e_ts * d[:, :, None]
+    gd_ts = m * e_ts * d[:, :, None]
+    s_op, ds_op = rnd("S", sk), rnd("dS", dsk)
+    z = torch.einsum("bkhpn,bksn->bkshp", ds_op, bq)
+    v = (xq * z).sum(-1)                                 # (B, nt, s, H)
+    u = torch.einsum("bkthp,bkhpn->bkthn", dyq, s_op)
+    i_t = (cq[:, :, :, None, :] * u).sum(-1)
+    y = torch.einsum("bkshp,bkhpn->bkshn", xq, ds_op)
+    dx = (torch.einsum("bktsh,bkthp->bkshp", rnd("G", g_ts), dyq)
+          + w[..., None] * z)
+    hb = dse.SSD_BWD_HEADS_PER_BLOCK if hilo or bf16_alone else h
+    groups = -(-h // hb)
+    gd = torch.cat([gd_ts, gd_ts.new_zeros((*gd_ts.shape[:4],
+                                            groups * hb - h))], -1)
+    gd = rnd("Gd", gd.reshape(*gd.shape[:4], groups, hb).sum(-1))
+    dc = (torch.einsum("bktsg,bksn->bktn", gd, bq)
+          + torch.einsum("bkth,bkthn->bktn", e, u))
+    db = torch.einsum("bktsg,bktn->bksn", gd, cq)
+    if fault != "db_no_state":
+        db = db + torch.einsum("bksh,bkshn->bksn", w, y)
+    dcum = (kk * d[:, :, None]).sum(3) - d * kk.sum(2) + e * i_t - w * v
+    dcum[:, :, -1] += dec * (dsk * sk).sum((-1, -2)) + (w * v).sum(2)
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = kk.sum(2) + g * v
+    if fault != "ddt_no_cum":
+        ddt = ddt + af * rc
+    da = (d * rc).sum((0, 1, 2))
+
+    def untile(t):
+        return t.reshape(bsz, nt * q, *t.shape[3:])[:, :l]
+
+    return untile(dx), untile(ddt), da, untile(db), untile(dc), d_init
+
+
 SSD_BWD_FAULTS = ("carry_break", "no_decay", "db_no_state", "ddt_no_cum",
-                  "da_zero")
+                  "da_zero", "pass_shift")
 
 
 def _ssd_planted_faults(inputs, got, want, dtype_name: str) -> dict:
     """The rule against faults planted in the kernel's own gradients
     ``got`` at one shape: each fault's effect, the difference between
-    :func:`ssd_bwd_walk` with and without it on the same ``inputs`` (x, dt,
-    a, b, c, init state, dy, state cotangent), is added to ``got`` (``da``
-    zero is set), and the result must fail the rule.  "carry_break" cuts
-    the carry at the middle tile boundary.  Beside each: per gradient the
-    share of the row's scale it needs, and whether the rule caught it."""
+    :func:`ssd_bwd_split` with and without it on the same ``inputs`` (x,
+    dt, a, b, c, init state, dy, state cotangent), is added to ``got``
+    (``da`` zero is set), and the result must fail the rule.
+    "carry_break" cuts the carry at the middle tile boundary.  Beside
+    each: per gradient the share of the row's scale it needs, and whether
+    the rule caught it."""
     x = inputs[0]
     cut = -(-x.shape[1] // 32) // 2
-    clean = ssd_bwd_walk(*inputs)
+    clean = ssd_bwd_split(*inputs)
     atol = SSD_BWD_TOL[dtype_name][1]
     report = {}
     for fault in SSD_BWD_FAULTS:
@@ -2150,7 +2304,7 @@ def _ssd_planted_faults(inputs, got, want, dtype_name: str) -> dict:
             bad = list(got)
             bad[2] = got[2] * 0
         else:
-            planted = ssd_bwd_walk(*inputs, fault=fault, cut=cut)
+            planted = ssd_bwd_split(*inputs, fault=fault, cut=cut)
             bad = [(g.float() + (p_ - c)).to(g.dtype)
                    for g, p_, c in zip(got, planted, clean)]
         needs = {name: _ssd_need(b_, w, name, dtype_name)
@@ -2161,6 +2315,37 @@ def _ssd_planted_faults(inputs, got, want, dtype_name: str) -> dict:
             raise AssertionError(f"the SSD backward rule lets a planted "
                                  f"fault pass: {fault} needs only {worst}")
     return report
+
+
+def _ssd_hilo_check(inputs, got, want, needs: dict) -> dict:
+    """The bf16 kernels' hi + lo, at one shape: their gradients ``got``
+    (whose needs of the rule against ``want`` are ``needs``) need at most
+    ``SSD_BWD_HILO_SHARE`` of the bf16 atol, and each operand of
+    ``SSD_BWD_HILO`` rounded to bf16 alone — its effect,
+    :func:`ssd_bwd_split` with ``bf16_alone`` less with hi + lo for all,
+    added to ``got`` — needs more → {"share", "bound", "lo_dropped": {op:
+    share}}; raises where either fails."""
+    atol = SSD_BWD_TOL["bfloat16"][1]
+    share = max(needs.values()) / atol
+    if not share <= SSD_BWD_HILO_SHARE:
+        raise AssertionError(f"the bf16 SSD backward needs {share} of the "
+                             f"rule, beyond the {SSD_BWD_HILO_SHARE} its "
+                             f"hi + lo operands allow")
+    clean = ssd_bwd_split(*inputs, hilo=True)
+    dropped = {}
+    for op in SSD_BWD_HILO:
+        alone = ssd_bwd_split(*inputs, hilo=True, bf16_alone=op)
+        dropped[op] = max(
+            _ssd_need((g.float() + (a_ - c)).to(g.dtype), w, name,
+                      "bfloat16")
+            for name, g, a_, c, w in zip(SSD_BWD_GRADS, got, alone, clean,
+                                         want)) / atol
+        if not dropped[op] > SSD_BWD_HILO_SHARE:
+            raise AssertionError(f"the SSD backward's hi + lo bound lets "
+                                 f"{op} in bf16 alone pass: it needs only "
+                                 f"{dropped[op]} of the rule")
+    return {"share": share, "bound": SSD_BWD_HILO_SHARE,
+            "lo_dropped": dropped}
 
 
 def _ssd_bwd_work(b, l, h, p, n, q):
@@ -2232,8 +2417,9 @@ def ssd_bwd_check(torch) -> dict:
     inputs — the tile states from the forward kernel, which is held to the
     plain forward too — at every case in both dtypes, x, b and c also as
     strided column slices; two runs the same bits.  At the train shape in
-    bf16, faults planted in the kernel's gradients must fail the rule, and
-    the kernel is timed beside the plain version and the bound (no PyTorch
+    bf16, faults planted in the kernels' gradients must fail the rule, the
+    kernels must keep within the hi + lo bound (``_ssd_hilo_check``), and
+    they are timed beside the plain version and the bound (no PyTorch
     call computes an SSD backward)."""
     from repro_torch.kernels import mamba2_ssd as ms
 
@@ -2258,6 +2444,8 @@ def ssd_bwd_check(torch) -> dict:
             if (name, dt_name) == SSD_BWD_HEADLINE:
                 row["planted_faults"] = _ssd_planted_faults(inputs, got,
                                                             want, dt_name)
+                row["hilo"] = _ssd_hilo_check(inputs, got, want,
+                                              row["need"])
                 row.update(_ssd_bwd_times(torch, run, plain, inputs, got,
                                           b, l, h, p, n))
             shapes.append(row)
@@ -2295,25 +2483,57 @@ def _ssd_bwd_slices(torch, gen, ms, worst, shapes) -> int:
     return n_cmp
 
 
+def _ssd_bwd_design_bytes(b, l, h, p, n, itemsize, *, tile: int,
+                          heads_per_block: int, state_grad: bool) -> int:
+    """Bytes the two-kernel backward moves at one shape, each kernel's
+    reads and writes counted once: the pass reads dy, c, dt (and the
+    state's cotangent) and writes dS_k for every tile and the initial
+    state's gradient; the tile kernel reads x, dy, b, c, dt, the saved
+    states and dS_k and writes dx, ddt and the db, dc and da partials;
+    the wrapper's sums read the partials and write db, dc and da."""
+    nt = -(-l // tile)
+    xs = b * l * h * p * itemsize              # x, dy or dx
+    bc = b * l * n * itemsize                  # b, c, db or dc
+    dts = b * l * h * 4                        # dt or ddt
+    tiles = b * h * nt * p * n * 4             # the states or dS_k
+    state = b * h * p * n * 4
+    parts = 2 * b * -(-h // heads_per_block) * l * n * 4 + b * h * nt * 4
+    pass_ = xs + bc + dts + tiles + state + (state if state_grad else 0)
+    tile = 2 * xs + 2 * bc + dts + 2 * tiles + xs + dts + parts
+    sums = parts + 2 * bc + h * 4
+    return pass_ + tile + sums
+
+
 def _ssd_bwd_times(torch, run, plain, inputs, got, b, l, h, p, n) -> dict:
-    """ms of the kernel (CUDA events, warm L2; device ms from the
-    profiler) and of the plain version at one shape, and the bound: the
-    bytes the backward must move (x, dt, a, b, c, the initial state, dy
-    and the state's cotangent read once; the six gradients written once —
-    the saved tile states and the partial sums are the design's own cost)
-    at 3.35 TB/s, or ``_ssd_bwd_work`` at the bf16 tensor-core rate."""
+    """ms of a call (CUDA events, warm L2; device ms from the profiler, the
+    two kernels summed, and each kernel's own) and of the plain version at
+    one shape; the bound: the bytes the backward must move (x, dt, a, b,
+    c, the initial state, dy and the state's cotangent read once; the six
+    gradients written once) at 3.35 TB/s, or ``_ssd_bwd_work`` at the
+    bf16 tensor-core rate; and beside it the design's floor, the bytes its
+    two kernels move (``_ssd_bwd_design_bytes``: the saved states, dS_k
+    and the partials are its own cost) at 3.35 TB/s."""
+    from repro_torch.core import dse
+
     ms_ = time_ms(run, warmup=1, reps=5)
-    dev_ms = device_ms(run, reps=3, kernel=SSD_BWD_KERNELS, per_launch=True)
+    each = device_ms_each(run, reps=3, kernels=SSD_BWD_KERNELS)
     plain_ms = time_ms(plain, warmup=1, reps=2)
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (*inputs, *got) if t is not None)
     flops = _ssd_bwd_work(b, l, h, p, n, SSD_WORK_TILE)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
-    return {"ms": ms_, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+    design = _ssd_bwd_design_bytes(
+        b, l, h, p, n, inputs[0].element_size(), tile=dse.SSD_BWD_BLOCK_L,
+        heads_per_block=dse.SSD_BWD_HEADS_PER_BLOCK,
+        state_grad=inputs[7] is not None)
+    return {"ms": ms_, "device_ms": each["per_call"],
+            "device_ms_each": {k: each[k] for k in SSD_BWD_KERNELS},
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": flops, "library_ms": None}
+            "bytes": n_bytes, "flops": flops, "design_bytes": design,
+            "design_floor_ms": design / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -3702,10 +3922,13 @@ def main(argv=None) -> int:
         "launches": mb_launches,
         "max_abs_err": max(ssd_bwd["max_abs_err_f32"],
                            ssd_bwd["max_abs_err_bf16"]),
-        "ms": sbhead["ms"], "plain_ms": sbhead["plain_ms"],
+        "ms": sbhead["ms"], "device_ms": sbhead["device_ms"],
+        "device_ms_each": sbhead["device_ms_each"],
+        "plain_ms": sbhead["plain_ms"],
         "bound_ms": sbhead["bound_ms"], "bound_by": sbhead["bound_by"],
         "library_ms": None,
-        "timed_at": f"{SSD_BWD_HEADLINE[0]} {SSD_BWD_HEADLINE[1]} (no TPU "
+        "timed_at": f"{SSD_BWD_HEADLINE[0]} {SSD_BWD_HEADLINE[1]}, per call "
+                    "of the dS pass and the tile kernel (no TPU "
                     "kernel: the counterpart of XLA's autodiff of "
                     "ref.ssd_chunked; no PyTorch call computes an SSD "
                     "backward)",

@@ -930,13 +930,22 @@ SSD_MMA_TILES = (SSD_MMA_NARROW, SSD_MMA_WIDE)
 #: N padded with zeros to these widths
 SSD_MAX_HEAD_DIM = 64
 SSD_MAX_STATE_DIM = 128
-#: the SSD backward (``kernels/csrc/mamba2_ssd_bwd.cu``, CUDA cores, f32
-#: arithmetic for both input dtypes): 256 threads as 16 × 16; a block
-#: walks one (batch row, head) from the last tile to the first,
-#: ``SSD_BWD_BLOCK_L`` positions at a time, reading the state the forward
-#: saved at the start of each tile.  A forward that saves its states
-#: therefore takes tiles of this length (both routes have one)
+#: the SSD backward (``kernels/csrc/mamba2_ssd_bwd.cu``): a dS pass walks
+#: each (batch row, head) — in f32 each (batch row, head,
+#: ``SSD_BWD_PASS_ROWS`` rows of P) — from the last tile to the first and
+#: writes the cotangent of the state leaving every tile; then a tile
+#: kernel runs every (batch row, tile, ``SSD_BWD_HEADS_PER_BLOCK`` heads)
+#: in parallel, reading the state the forward saved at the start of the
+#: tile.  Tiles of ``SSD_BWD_BLOCK_L`` positions, so a forward that saves
+#: its states takes tiles of this length (both routes have one)
 SSD_BWD_BLOCK_L = 32
+SSD_BWD_PASS_ROWS = 16
+#: heads a tile block holds, one after the other: they share the tile's b
+#: and c, so db and dc leave as partials summed over them — a sixteenth
+#: of the per-head partials' bytes, 2048 blocks at mamba2-1.3b's train
+#: shape.  16 ran fastest of 2, 4, 8 and 16 there on the card (PERF.md
+#: §6); the kernel's ``HB``, which a test holds equal to this
+SSD_BWD_HEADS_PER_BLOCK = 16
 assert SSD_BWD_BLOCK_L == SSD_BLOCK_L == SSD_MMA_NARROW[0]
 
 
@@ -1034,42 +1043,81 @@ def plan_ssd_blocks(*, batch: int, length: int, heads: int, head_dim: int,
     )
 
 
-def ssd_bwd_smem_bytes(*, head_dim: int, state_dim: int) -> int:
-    """Shared memory one block of the backward asks for, all f32: c and b
-    of a tile (``2 × block_l × pitch``), x and dy (``2 × block_l × P``
-    made odd), the state entering the tile and the cotangent of the state
-    leaving it (``2 × P × pitch``), the gated c·bᵀ, the gated dy·xᵀ and
-    their product (``3 × block_l × (block_l + 1)``), six per-position
-    vectors and eight per-warp partials; a row of ``N`` (``P``) takes the
-    odd pitch ``N | 1`` (``P | 1``) — the formula of
-    ``mamba2_ssd_bwd.cu``."""
-    q = SSD_BWD_BLOCK_L
+@dataclass
+class SsdBwdPlan:
+    """Tiling of one SSD backward (two launches): ``blocks`` holds
+    ``route`` (``"mma"`` for bf16, ``"cuda_core"`` for f32), ``block_l``
+    and ``heads_per_block``; ``grids`` the pass's blocks, (B·H, 1) in
+    bf16 and (B·H, ceil(P / 16)) in f32, and the tile kernel's (B,
+    n_tiles, ceil(H / heads_per_block)) — the launcher launches these,
+    refusing grids that do not cover the problem; ``smem_bytes`` each
+    kernel's shared memory."""
+
+    blocks: dict
+    grids: dict
+    smem_bytes: dict
+
+
+def ssd_bwd_smem_bytes(*, head_dim: int, state_dim: int,
+                       dtype: str) -> dict:
+    """Shared memory of each backward kernel, ``{"pass": ..., "tile":
+    ...}`` — the formulas of ``mamba2_ssd_bwd.cu``.  bf16 (the tiles are
+    padded, so P and N do not enter): the pass holds c, dy and dt, two
+    stages each (rows of 128 + 8 and 64 + 8 bf16); the tile kernel c, b,
+    x, dy, the state's and dS's hi and lo parts and G's hi and lo (rows
+    padded by 8 bf16), then 19 per-position f32 vectors and 10 f32
+    scalars.  f32: the pass c (rows of 128) and the dy slice; the
+    tile kernel c and b of a tile (``2 × block_l × pitch``), x and dy
+    (``2 × block_l × P`` made odd), the state entering the tile and the
+    cotangent of the state leaving it (``2 × P × pitch``), the gated c·bᵀ,
+    the gated dy·xᵀ and their product (``3 × block_l × (block_l + 1)``),
+    six per-position vectors and eight per-warp partials; a row of ``N``
+    (``P``) takes the odd pitch ``N | 1`` (``P | 1``)."""
+    q, rows = SSD_BWD_BLOCK_L, SSD_BWD_PASS_ROWS
+    if dtype == "bfloat16":
+        cp, xp, gp = SSD_MAX_STATE_DIM + 8, SSD_MAX_HEAD_DIM + 8, q + 8
+        return {"pass": 2 * (2 * q * cp + 2 * q * xp + 4 * q),
+                "tile": 2 * (2 * q * cp + 2 * q * xp
+                             + 4 * SSD_MAX_HEAD_DIM * cp + 2 * q * gp)
+                + 4 * (19 * q + 8 + 2)}
     npitch, xpitch = state_dim | 1, head_dim | 1
-    return 4 * (2 * q * npitch + 2 * q * xpitch + 2 * head_dim * npitch
-                + 3 * q * (q + 1) + 6 * q + 8)
+    return {"pass": 4 * (q * SSD_MAX_STATE_DIM + q * rows),
+            "tile": 4 * (2 * q * npitch + 2 * q * xpitch
+                         + 2 * head_dim * npitch + 3 * q * (q + 1)
+                         + 6 * q + 8)}
 
 
-# the widest head and state fit one block of the backward
-assert ssd_bwd_smem_bytes(head_dim=SSD_MAX_HEAD_DIM,
-                          state_dim=SSD_MAX_STATE_DIM) <= H100.smem_per_block
+# each kernel of either route fits one block's shared memory at the
+# widest head and state
+assert all(v <= H100.smem_per_block for dt in ("bfloat16", "float32")
+           for v in ssd_bwd_smem_bytes(head_dim=SSD_MAX_HEAD_DIM,
+                                       state_dim=SSD_MAX_STATE_DIM,
+                                       dtype=dt).values())
 
 
 @functools.lru_cache(maxsize=4096)
 def plan_ssd_bwd_blocks(*, batch: int, length: int, heads: int,
                         head_dim: int, state_dim: int,
-                        dtype: str) -> SsdBlockPlan:
-    """Tile the SSD backward on the H100: one block of 256 threads per
-    (batch row, head) walks its tiles of ``SSD_BWD_BLOCK_L`` positions
-    from last to first, the cotangent of the (P, N) state in shared
-    memory.  f32 and bf16 inputs take the same CUDA-core route (f32
-    arithmetic).  Raises :class:`ValueError` where
+                        dtype: str) -> SsdBwdPlan:
+    """Tile the SSD backward on the H100: the dS pass, one block of 8
+    warps per (batch row, head) (f32: of 4 warps per (batch row, head, 16
+    rows of P)) walking its tiles of ``SSD_BWD_BLOCK_L`` positions from
+    last to first; then the tile kernel, one block of 8 warps per (batch
+    row, tile, ``SSD_BWD_HEADS_PER_BLOCK`` heads), all in parallel.  bf16
+    runs the products on the tensor cores (``"mma"``), f32 on the CUDA
+    cores (``"cuda_core"``).  Raises :class:`ValueError` where
     :func:`plan_ssd_blocks` does."""
     _check_ssd_problem(batch, length, heads, head_dim, state_dim)
-    if dtype not in ("float32", "bfloat16"):
+    routes = {"bfloat16": "mma", "float32": "cuda_core"}
+    if dtype not in routes:
         raise ValueError(f"SSD backward: no route for {dtype}")
-    return SsdBlockPlan(
-        "mamba2_ssd_bwd", {"route": "cuda_core",
-                           "block_l": SSD_BWD_BLOCK_L, "heads_per_block": 1},
-        ssd_bwd_smem_bytes(head_dim=head_dim, state_dim=state_dim),
-        batch * heads,
+    hb = SSD_BWD_HEADS_PER_BLOCK
+    return SsdBwdPlan(
+        {"route": routes[dtype], "block_l": SSD_BWD_BLOCK_L,
+         "heads_per_block": hb},
+        {"pass": (batch * heads, 1 if dtype == "bfloat16"
+                  else -(-head_dim // SSD_BWD_PASS_ROWS)),
+         "tile": (batch, -(-length // SSD_BWD_BLOCK_L), -(-heads // hb))},
+        ssd_bwd_smem_bytes(head_dim=head_dim, state_dim=state_dim,
+                           dtype=dtype),
     )

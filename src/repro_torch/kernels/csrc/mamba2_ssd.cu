@@ -129,34 +129,6 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                :: "r"(smem_u32(smem)), "l"(gmem) : "memory");
 }
 
-// A fragment of a 16 x 16 tile stored transposed, (k x m) row-major:
-// ldmatrix.trans of the four 8 x 8 blocks (m 0-7 | 8-15) x (k 0-7 | 8-15)
-__device__ __forceinline__ void ldmatrix_a_trans(uint32_t (&a)[4],
-                                                 const uint16_t* tile,
-                                                 int pitch, int lane) {
-  const uint16_t* p = tile + ((lane & 7) + (lane >> 4) * 8) * pitch +
-                      ((lane >> 3) & 1) * 8;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-
-// two f32 -> a bf16 high part and a bf16 low part (v - hi), packed
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16x2(v0 - __low2float(h), v1 - __high2float(h));
-}
-
-// a packed pair of bf16 times (w0, w1) in f32, split into hi and lo
-__device__ __forceinline__ void scale_split(uint32_t v, float w0, float w1,
-                                            uint32_t& hi, uint32_t& lo) {
-  split2(__uint_as_float(v << 16) * w0, __uint_as_float(v & 0xffff0000u) * w1,
-         hi, lo);
-}
-
 // the thread's state fragments -> hi and lo tiles in shared memory
 __device__ __forceinline__ void write_state(uint16_t* shi, uint16_t* slo,
                                             const float (&st)[8][4], int row,

@@ -1,5 +1,5 @@
 // Fragment helpers for bf16 tensor-core products on Hopper (sm_90a), shared
-// by flash_attention.cu and fused_mlp.cu.
+// by the attention, fused-MLP and SSD kernels.
 //
 // The product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
 // C (16 x 8, f32) += A (16 x 16, bf16) . B (16 x 8, bf16), one warp.  With
@@ -15,8 +15,12 @@
 // one ldmatrix phase reads into eight different bank groups.
 //   A row-major (rows x k):            ldmatrix_a       (x4)
 //   B stored as (cols x k), row-major:  ldmatrix_b_nk   (x4: two 8-col blocks)
+//                                       ldmatrix_b_nk1  (x2: one block)
 //   B stored as (k x cols), row-major:  ldmatrix_b_kn   (x4.trans: two blocks)
 //                                       ldmatrix_b_kn1  (x2.trans: one block)
+//   A stored as (k x rows), row-major:  ldmatrix_a_trans (x4.trans)
+// An f32 operand enters as a bf16 high part plus a bf16 low part (split2,
+// scale_split): two mma, about 16 significant bits.
 // Tiles arrive through cp.async (16 bytes a thread, global -> shared, L2
 // only), committed in groups and waited for with cp_async_wait<N>.
 
@@ -72,6 +76,16 @@ __device__ __forceinline__ void ldmatrix_b_nk(uint32_t (&b)[4],
       : "r"(smem_u32(p)) : "memory");
 }
 
+// the same for one 8-column block (lanes 0..15 give the addresses)
+__device__ __forceinline__ void ldmatrix_b_nk1(uint32_t (&b)[2],
+                                               const uint16_t* tile,
+                                               int pitch, int lane) {
+  const uint16_t* p = tile + (lane & 7) * pitch + ((lane >> 3) & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1]) : "r"(smem_u32(p)) : "memory");
+}
+
 // B fragments of two 8-column blocks from a tile stored (k x cols)
 // row-major, 16 k deep: the transposing load
 __device__ __forceinline__ void ldmatrix_b_kn(uint32_t (&b)[4],
@@ -121,6 +135,34 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16x2(c0[2], c0[3]);
   a[2] = pack_bf16x2(c1[0], c1[1]);
   a[3] = pack_bf16x2(c1[2], c1[3]);
+}
+
+// A fragment of a 16 x 16 tile stored transposed, (k x m) row-major:
+// ldmatrix.trans of the four 8 x 8 blocks (m 0-7 | 8-15) x (k 0-7 | 8-15)
+__device__ __forceinline__ void ldmatrix_a_trans(uint32_t (&a)[4],
+                                                 const uint16_t* tile,
+                                                 int pitch, int lane) {
+  const uint16_t* p = tile + ((lane & 7) + (lane >> 4) * 8) * pitch +
+                      ((lane >> 3) & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// two f32 -> a bf16 high part and a bf16 low part (v - hi), packed
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16x2(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// a packed pair of bf16 times (w0, w1) in f32, split into hi and lo
+__device__ __forceinline__ void scale_split(uint32_t v, float w0, float w1,
+                                            uint32_t& hi, uint32_t& lo) {
+  split2(__uint_as_float(v << 16) * w0, __uint_as_float(v & 0xffff0000u) * w1,
+         hi, lo);
 }
 
 // a (rows x cols) tile of a row-major global matrix (leading dimension ld

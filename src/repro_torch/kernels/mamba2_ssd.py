@@ -34,18 +34,22 @@ memory (f32 keeps f32 accuracy).
 **The backward** (``csrc/mamba2_ssd_bwd.cu``) has no TPU kernel to
 replace: the reference trains Mamba-2 by XLA's autodiff of
 ``src/repro/kernels/ref.py:300 ssd_chunked`` (called at
-``src/repro/models/mamba2.py:107``), and this is its counterpart.  A
-block walks one (batch row, head) from its last tile to its first,
-carrying the cotangent of the (P, N) state; the state entering each tile
-is the forward's own, which the forward writes when asked
-(``return_states``; serving asks for none).  It is deterministic: b and
-c are shared by every head, so db and dc leave the kernel as per-head
-partials and ``da`` as per-(batch row, head) partials, summed here in a
-fixed order; no float atomics.  ``exp`` is taken only where ``s ≤ t``,
-so its gradient stays finite where the plain version's ``0·inf`` is NaN
-(``ROADMAP.md`` §C).  This first backward runs every product on the
-CUDA cores in f32 (bf16 inputs widened as they load): simple and right
-before fast.  :class:`SsdScan` joins forward and backward for autograd;
+``src/repro/models/mamba2.py:107``), and this is its counterpart.  The
+carried cotangent of the (P, N) state enters a tile's sums in only a few
+places, and its recurrence does not depend on the rest, so it is two
+kernels: a dS pass that walks each (batch row, head) from the last tile
+to the first and writes the cotangent of the state leaving every tile,
+then a tile kernel that runs every (batch row, tile, group of heads) in
+parallel from that and the state entering the tile — the
+forward's own, which it writes when asked (``return_states``; serving
+asks for none).  In bf16 both run their products on the tensor cores
+(f32 operands as bf16 hi + lo parts), in f32 on the CUDA cores.  It is
+deterministic: b and c are shared by every head, so db and dc leave the
+tile kernel as partials summed over its group of heads, and ``da`` as
+per-(batch row, head, tile) partials, summed here in a fixed order; no
+float atomics.  ``exp`` is taken only where ``s ≤ t``, so its gradient
+stays finite where the plain version's ``0·inf`` is NaN (``ROADMAP.md``
+§C).  :class:`SsdScan` joins forward and backward for autograd;
 :func:`ssd_scan` takes it only where a gradient is wanted.
 
 The libraries are built by ``nvcc`` at first use (``repro_torch.kernels.
@@ -94,8 +98,8 @@ def _declare(lib) -> None:
 
 def _declare_bwd(lib) -> None:
     fn = lib.mamba2_ssd_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.mamba2_ssd_bwd_error_string.argtypes = [ctypes.c_int]
@@ -328,11 +332,12 @@ def mamba2_ssd_bwd(
     final state) against the cotangents ``y_grad`` and ``state_grad``:
     dx, db and dc in x's dtype, the rest f32.
 
-    On a CUDA tensor this launches the hand-written backward kernel on the
-    current stream (and adds one to ``bwd_launches``) or raises; it needs
-    ``states``, the forward's tile states (``return_states``).  Only a CPU
-    tensor takes :func:`mamba2_ssd_bwd_plain` (with ``chunk``).
-    Deterministic: the same inputs give the same bits."""
+    On a CUDA tensor this launches the hand-written backward — the dS
+    pass, then the tile kernel — on the current stream (and adds one to
+    ``bwd_launches``: one per call) or raises; it needs ``states``, the
+    forward's tile states (``return_states``).  Only a CPU tensor takes
+    :func:`mamba2_ssd_bwd_plain` (with ``chunk``).  Deterministic: the
+    same inputs give the same bits."""
     global bwd_launches
     _check(x, dt, a, b_mat, c_mat, init_state)
     bsz, l, h, p = x.shape
@@ -341,9 +346,10 @@ def mamba2_ssd_bwd(
     plan = plan_ssd_bwd_blocks(batch=bsz, length=l, heads=h, head_dim=p,
                                state_dim=n, dtype=dtype)
     q = plan.blocks["block_l"]
+    nt = -(-l // q)
     for name, t, shape in (("y_grad", y_grad, x.shape),
                            ("state_grad", state_grad, (bsz, h, p, n)),
-                           ("states", states, (bsz, h, -(-l // q), p, n))):
+                           ("states", states, (bsz, h, nt, p, n))):
         if t is not None and (tuple(t.shape) != tuple(shape)
                               or t.device != x.device):
             raise ValueError(
@@ -364,34 +370,39 @@ def mamba2_ssd_bwd(
     dsf = None if state_grad is None else state_grad.float().contiguous()
     states = states.float().contiguous()
     dev = x.device
+    groups = plan.grids["tile"][2]
+    f32 = dict(dtype=torch.float32, device=dev)
+    ds_tiles = torch.empty((bsz, h, nt, p, n), **f32)   # the pass's dS_k
     dx = torch.empty((bsz, l, h, p), dtype=x.dtype, device=dev)
-    ddt = torch.empty((bsz, l, h), dtype=torch.float32, device=dev)
-    db_part = torch.empty((bsz, h, l, n), dtype=torch.float32, device=dev)
+    ddt = torch.empty((bsz, l, h), **f32)
+    db_part = torch.empty((bsz, groups, l, n), **f32)
     dc_part = torch.empty_like(db_part)
-    da_part = torch.empty((bsz, h), dtype=torch.float32, device=dev)
-    d_init = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    da_part = torch.empty((bsz, h, nt), **f32)
+    d_init = torch.empty((bsz, h, p, n), **f32)
     lib = BWD_LIBRARY.load()
     rc = _on_device(x, lambda: lib.mamba2_ssd_bwd_launch(
         x.data_ptr(), dtf.data_ptr(), af.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(), states.data_ptr(), dy.data_ptr(),
-        None if dsf is None else dsf.data_ptr(), dx.data_ptr(),
-        ddt.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-        da_part.data_ptr(), d_init.data_ptr(), _DTYPE_CODES[x.dtype], bsz,
-        l, h, p, n, x.stride(0), x.stride(1), b_mat.stride(0),
-        b_mat.stride(1), c_mat.stride(0), c_mat.stride(1), q,
+        None if dsf is None else dsf.data_ptr(), ds_tiles.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), db_part.data_ptr(),
+        dc_part.data_ptr(), da_part.data_ptr(), d_init.data_ptr(),
+        _DTYPE_CODES[x.dtype], bsz, l, h, p, n, x.stride(0), x.stride(1),
+        b_mat.stride(0), b_mat.stride(1), c_mat.stride(0), c_mat.stride(1),
+        q, *plan.grids["pass"], *plan.grids["tile"],
         torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         msg = lib.mamba2_ssd_bwd_error_string(rc).decode()
         raise RuntimeError(
             f"mamba2_ssd_bwd launch failed: {msg} (code {rc}); x "
-            f"{tuple(x.shape)} N {n} {x.dtype} grid {plan.grid} smem "
+            f"{tuple(x.shape)} N {n} {x.dtype} grids {plan.grids} smem "
             f"{plan.smem_bytes}")
     with _LOCK:
         bwd_launches += 1
-    # the heads' (and batch rows') partials, summed in a fixed order
+    # the head groups' (and batch rows' and tiles') partials, summed in a
+    # fixed order
     db = db_part.sum(1).to(x.dtype)
     dc = dc_part.sum(1).to(x.dtype)
-    return dx, ddt, da_part.sum(0), db, dc, d_init
+    return dx, ddt, da_part.sum((0, 2)), db, dc, d_init
 
 
 class SsdScan(torch.autograd.Function):

@@ -9,11 +9,16 @@ versions), at the shapes of ``tests/test_kernels.py`` (B 2, L 32, H 4, P
 random cotangent of the final state.  f32 at the oracle tolerance 1e-4;
 bf16 by the rule ``chip_smoke.py`` holds the card's kernel to.
 
-The CUDA kernel's own arithmetic cannot run here.  Its formula, written
-out in plain PyTorch (``chip_smoke.ssd_bwd_walk``: the tile walk, ``exp``
-only where s ≤ t), is held against the plain backward, and at the train
-shape's length it sets the card's bf16 rule and shows that the rule
-catches the faults ``chip_smoke.py`` plants in the kernel's gradients.
+The CUDA kernels' own arithmetic cannot run here.  Their sums, written
+out in plain PyTorch — ``chip_smoke.ssd_bwd_walk`` (one serial walk of
+the tiles carrying dS, ``exp`` only where s ≤ t) and
+``chip_smoke.ssd_bwd_split`` (the dS pass, then every tile on its own, as
+the two kernels compute it, with the bf16 kernels' hi + lo rounding on
+request) — are held against the plain backward, and at the train shape's
+length they set the card's bf16 rule, show why the bf16 kernels split
+their f32 operands into hi + lo, and show that the rule catches the
+faults ``chip_smoke.py`` plants in the kernels' gradients and that its
+hi + lo bound catches an operand in bf16 alone.
 The plain gradient is NaN where ``exp`` of a masked (t, s) difference
 overflows, in both packages; the kernel's formula stays finite there
 (ROADMAP §C)."""
@@ -190,19 +195,36 @@ def test_serving_launches_the_forward_alone_without_states(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,l,h,p,n,tile", [
-    (2, 32, 4, 8, 8, 32), (2, 37, 3, 8, 8, 32), (1, 100, 5, 7, 20, 32),
-    (2, 64, 2, 16, 16, 16)])
+FORMULA_SHAPES = [(2, 32, 4, 8, 8, 32), (2, 37, 3, 8, 8, 32),
+                  (1, 100, 5, 7, 20, 32), (2, 64, 2, 16, 16, 16)]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,tile", FORMULA_SHAPES)
 def test_the_kernel_formula_equals_the_plain_backward(b, l, h, p, n, tile):
-    """``chip_smoke.ssd_bwd_walk`` — the sums ``csrc/mamba2_ssd_bwd.cu``
-    computes, tile by tile — against autograd through ``ssd_chunked``, f32,
-    ragged tiles and odd widths included."""
+    """``chip_smoke.ssd_bwd_walk`` — the sums ``csrc/mamba2_ssd_bwd.cu``'s
+    header states, as one serial walk of the tiles carrying dS — against
+    autograd through ``ssd_chunked``, f32, ragged tiles and odd widths
+    included."""
     arrs = _inputs(l + n, b, l, h, p, n)
     ins = _t(arrs)
     chunk = max(c for c in range(1, chip_smoke.SSD_BWD_FINITE_CHUNK + 1)
                 if l % c == 0)         # short enough for a finite plain
     want = tms.mamba2_ssd_bwd_plain(*ins, chunk=chunk)
     got = chip_smoke.ssd_bwd_walk(*ins, tile=tile)
+    _close(got, want, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("b,l,h,p,n,tile", FORMULA_SHAPES)
+def test_the_split_formula_equals_the_plain_backward(b, l, h, p, n, tile):
+    """``chip_smoke.ssd_bwd_split`` — the dS pass, then every tile from its
+    own saved state and dS, as the two kernels compute it — against
+    autograd through ``ssd_chunked``, f32, at the walk's shapes."""
+    arrs = _inputs(l + n, b, l, h, p, n)
+    ins = _t(arrs)
+    chunk = max(c for c in range(1, chip_smoke.SSD_BWD_FINITE_CHUNK + 1)
+                if l % c == 0)
+    want = tms.mamba2_ssd_bwd_plain(*ins, chunk=chunk)
+    got = chip_smoke.ssd_bwd_split(*ins, tile=tile)
     _close(got, want, ORACLE_TOL)
 
 
@@ -237,11 +259,76 @@ def test_the_kernel_formula_meets_the_card_rule_at_the_train_length(dtype):
         assert chip_smoke._ssd_need(g, w, name, dtype) <= 0.1 * rule, name
 
 
+def _split_needs(inputs, want, dtype, **kw):
+    """The share of the card's rule each gradient of
+    ``chip_smoke.ssd_bwd_split(**kw)`` needs (need / atol)."""
+    rule = chip_smoke.SSD_BWD_TOL[dtype][1]
+    got = chip_smoke.ssd_bwd_split(*inputs, **kw)
+    return {name: chip_smoke._ssd_need(g.to(w.dtype), w, name, dtype) / rule
+            for name, g, w in zip(GRADS, got, want)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_split_formula_with_the_kernels_rounding_meets_the_card_rule(
+        dtype):
+    """The two kernels' arithmetic at the train length, rounded where each
+    route rounds — bf16: every f32 operand of a tensor-core product (G,
+    Gd summed over a block's heads, S, dS, exp(cum)·dy) as bf16 hi + lo;
+    f32: none, the CUDA cores' f32 — needs a tenth of the unchanged rule
+    at most."""
+    inputs, _, want = _train_length_case(getattr(torch, dtype))
+    needs = _split_needs(inputs, want, dtype, hilo=dtype == "bfloat16")
+    for name, need in needs.items():
+        assert need <= 0.1, (name, need)
+
+
+@pytest.mark.parametrize("operand", chip_smoke.SSD_BWD_HILO)
+def test_rounding_one_operand_to_bf16_alone_spends_the_rule(operand):
+    """Why the bf16 kernels take each f32 operand as hi + lo: rounding
+    any one of them to bf16 alone (the rest hi + lo) needs at least 0.3
+    of the card's bf16 rule — three times the tenth the kernels' own
+    arithmetic may spend — where hi + lo for all needs under 1/100 (at
+    this seed G, Gd and exp(cum)·dy miss the rule outright)."""
+    inputs, _, want = _train_length_case(torch.bfloat16)
+    assert max(_split_needs(inputs, want, "bfloat16", hilo=True).values()) \
+        < 0.01
+    alone = _split_needs(inputs, want, "bfloat16", hilo=True,
+                         bf16_alone=operand)
+    assert max(alone.values()) >= 0.3, alone
+    if operand in ("G", "Gd", "edy"):
+        assert max(alone.values()) > 1.0, alone
+
+
+def test_the_hilo_bound_catches_an_operand_in_bf16_alone():
+    """``chip_smoke._ssd_hilo_check`` at the train length, with the bf16
+    kernels' rounding emulated (``ssd_bwd_split`` with hi + lo) in the
+    place of their gradients: that keeps within ``SSD_BWD_HILO_SHARE`` of
+    the rule, each operand of ``SSD_BWD_HILO`` rounded to bf16 alone — a
+    kernel that dropped that lo part — is caught, and gradients with S in
+    bf16 alone are refused."""
+    inputs, _, want = _train_length_case(torch.bfloat16)
+
+    def check(**kw):
+        got = [g.to(w.dtype) for g, w in
+               zip(chip_smoke.ssd_bwd_split(*inputs, **kw), want)]
+        needs = {name: chip_smoke._ssd_need(g, w, name, "bfloat16")
+                 for name, g, w in zip(GRADS, got, want)}
+        return chip_smoke._ssd_hilo_check(inputs, got, want, needs)
+
+    report = check(hilo=True)
+    assert report["share"] < 0.01 < chip_smoke.SSD_BWD_HILO_SHARE
+    assert set(report["lo_dropped"]) == set(chip_smoke.SSD_BWD_HILO)
+    assert min(report["lo_dropped"].values()) >= 0.3, report
+    with pytest.raises(AssertionError, match="beyond"):
+        check(hilo=True, bf16_alone="S")
+
+
 def test_the_card_rule_catches_planted_faults():
     """``chip_smoke.py``'s planted faults — dS not carried across the
     middle tile boundary, dS carried without its decay, db without the
-    state-update term, ddt without the path through cum, da zero — each
-    fail the bf16 rule by a wide margin (≥ 30 times its 1e-3)."""
+    state-update term, ddt without the path through cum, da zero, and
+    tile k reading the pass's dS_{k−1} — each fail the bf16 rule by a
+    wide margin (≥ 30 times its 1e-3)."""
     inputs, got, want = _train_length_case(torch.bfloat16)
     report = chip_smoke._ssd_planted_faults(inputs, got, want, "bfloat16")
     assert set(report) == set(chip_smoke.SSD_BWD_FAULTS)
@@ -283,9 +370,12 @@ def test_a_forward_that_saves_states_takes_the_backward_tile():
     assert dse.plan_ssd_blocks(dtype="float32", save_states=True,
                                **kw).blocks["block_l"] == 32
     bwd = dse.plan_ssd_bwd_blocks(dtype="bfloat16", **kw)
-    assert bwd.grid == 4 * 64 and bwd.blocks["block_l"] == 32
-    # one block an SM at the widest head and state
-    assert 228 * 1024 // 2 < bwd.smem_bytes <= dse.H100.smem_per_block
+    assert bwd.blocks == {"route": "mma", "block_l": 32,
+                          "heads_per_block": 16}
+    assert bwd.grids == {"pass": (4 * 64, 1), "tile": (4, 128, 4)}
+    # two tile blocks an SM at the widest head and state (each block holds
+    # 1 KB of the SM's 228 KB besides)
+    assert 2 * (bwd.smem_bytes["tile"] + 1024) <= 228 * 1024
 
 
 def test_the_backward_planner_raises_where_the_forward_does():
@@ -300,20 +390,73 @@ def test_the_backward_planner_raises_where_the_forward_does():
                                 state_dim=8, dtype="float16")
 
 
+def test_the_backward_planner_names_both_grids():
+    """Both routes: the dS pass per (batch row, head) — f32: per (batch
+    row, head, 16 rows of P) — the tile kernel per (batch row, tile, 16
+    heads), a ragged last tile and a ragged last group of heads counted
+    in."""
+    kw = dict(batch=3, length=100, heads=20, head_dim=17, state_dim=20)
+    for dtype, route, rows in (("bfloat16", "mma", 1),
+                               ("float32", "cuda_core", 2)):
+        plan = dse.plan_ssd_bwd_blocks(dtype=dtype, **kw)
+        assert plan.blocks["route"] == route
+        assert plan.grids == {"pass": (60, rows), "tile": (3, 4, 2)}
+        assert plan.smem_bytes == dse.ssd_bwd_smem_bytes(
+            head_dim=17, state_dim=20, dtype=dtype)
+
+
+def _expr(src, start):
+    """The expression from ``start`` to the next ``;``, whitespace cut."""
+    return " ".join(src[src.index(start):].split(";")[0].split())
+
+
 def test_the_backward_smem_formula_is_the_kernels():
-    """``dse.ssd_bwd_smem_bytes`` is the launcher's formula, and the
-    launcher takes exactly the planner's tile."""
+    """``dse.ssd_bwd_smem_bytes`` is each launch's formula in
+    ``csrc/mamba2_ssd_bwd.cu`` — bf16: the pass's static tiles and the tile
+    kernel's ``TileSmem``; f32: the pass's static tiles and the tile
+    kernel's launch formula — and the kernels take exactly the planner's
+    tile, pass rows and heads a tile block, and launch the planner's
+    grids."""
     src = tms.BWD_LIBRARY.source.read_text()
     assert "constexpr int BQ = %d;" % dse.SSD_BWD_BLOCK_L in src
-    formula = " ".join(src[src.index("const size_t smem ="):].split(";")[0]
-                       .split())
-    assert formula == ("const size_t smem = 4 * (2 * (size_t)BQ * p.NP + "
-                       "2 * (size_t)BQ * p.XP + 2 * (size_t)p.P * p.NP + "
-                       "3 * (size_t)BQ * GP + 6 * BQ + 8)")
-    assert dse.ssd_bwd_smem_bytes(head_dim=64, state_dim=128) == 4 * (
-        2 * 32 * 129 + 2 * 32 * 65 + 2 * 64 * 129 + 3 * 32 * 33 + 6 * 32 + 8)
-    assert dse.ssd_bwd_smem_bytes(head_dim=16, state_dim=16) == \
-        dse.ssd_bwd_smem_bytes(head_dim=16, state_dim=17)   # odd pitch
+    assert "constexpr int PASS_ROWS = %d;" % dse.SSD_BWD_PASS_ROWS in src
+    assert "constexpr int HB = %d;" % dse.SSD_BWD_HEADS_PER_BLOCK in src
+    assert "p.ntiles = tile_k;" in src and "p.groups = tile_g;" in src
+    assert "mamba2_ssd_bwd_pass_kernel<<<(unsigned)pass_x," in src
+    assert "const dim3 pass_grid((unsigned)pass_x, (unsigned)pass_y);" in src
+    assert _expr(src, "const long long tile_blocks =") == (
+        "const long long tile_blocks = (long long)tile_b * tile_k * tile_g")
+    assert "constexpr int PASS_STAGES = 2;" in src
+    assert _expr(src, "constexpr int PASS_SMEM =") == (
+        "constexpr int PASS_SMEM = PASS_STAGES * (2 * BQ * CPITCH + "
+        "2 * BQ * XPITCH + 4 * BQ)")
+    assert "uint16_t cs0[PASS_STAGES * BQ * CPITCH];" in src
+    assert "uint16_t dys0[PASS_STAGES * BQ * XPITCH];" in src
+    assert "float dts0[PASS_STAGES * BQ];" in src
+    assert _expr(src, "static constexpr int BYTES =") == (
+        "static constexpr int BYTES = 2 * (2 * CB + 2 * XT + 4 * ST + 2 * GT)"
+        " + 4 * (19 * BQ + 8 + 2)")
+    assert "__shared__ float cs[BQ * MAX_N];" in src
+    assert "__shared__ float dys[BQ * PASS_ROWS];" in src
+    assert _expr(src, "const size_t smem =") == (
+        "const size_t smem = 4 * (2 * (size_t)BQ * p.NP + "
+        "2 * (size_t)BQ * p.XP + 2 * (size_t)p.P * p.NP + "
+        "3 * (size_t)BQ * GP + 6 * BQ + 8)")
+    cp, xp, gp = 128 + 8, 64 + 8, 32 + 8
+    assert dse.ssd_bwd_smem_bytes(head_dim=16, state_dim=16,
+                                  dtype="bfloat16") == {
+        "pass": 2 * (2 * 32 * cp + 2 * 32 * xp + 4 * 32),
+        "tile": 2 * (2 * 32 * cp + 2 * 32 * xp + 4 * 64 * cp + 2 * 32 * gp)
+        + 4 * (19 * 32 + 10)}
+    assert dse.ssd_bwd_smem_bytes(head_dim=64, state_dim=128,
+                                  dtype="float32") == {
+        "pass": 4 * (32 * 128 + 32 * 16),
+        "tile": 4 * (2 * 32 * 129 + 2 * 32 * 65 + 2 * 64 * 129
+                     + 3 * 32 * 33 + 6 * 32 + 8)}
+    assert dse.ssd_bwd_smem_bytes(head_dim=16, state_dim=16,
+                                  dtype="float32") == \
+        dse.ssd_bwd_smem_bytes(head_dim=16, state_dim=17,
+                               dtype="float32")   # odd pitch
 
 
 # ---------------------------------------------------------------------------
