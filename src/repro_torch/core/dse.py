@@ -906,6 +906,94 @@ def plan_mlp_blocks(*, m: int, d: int, f: int, dtype: str) -> MlpBlockPlan:
 
 
 # ---------------------------------------------------------------------------
+# NVIDIA H100: tiles of the fused MLP's backward
+# ---------------------------------------------------------------------------
+
+#: ``kernels/csrc/fused_mlp_bwd.cu``, three kernels of ``MLP_THREADS``
+#: threads a call.  The hidden kernel gives each (rows of M, columns of F)
+#: tile of ``MLP_BWD_HIDDEN_TILE`` its g, u and dh over all of D and
+#: writes h, du and dg once; the weight-gradient kernel sums dWd, dWu and
+#: dWg over all of M and the dx kernel sums over all of F, one output
+#: tile of ``MLP_BWD_GEMM_TILE`` a block, each walking its reduction
+#: ``MLP_BWD_CHUNK_K`` deep at a time in order.  bf16 (tensor cores)
+#: keeps ``MLP_BWD_STAGES`` chunks in flight by ``cp.async``; f32 (CUDA
+#: cores) one.  The kernel's constants of the same names; a test holds
+#: them equal
+MLP_BWD_HIDDEN_TILE = {"bfloat16": (128, 64), "float32": (64, 64)}
+MLP_BWD_GEMM_TILE = {"bfloat16": (128, 128), "float32": (64, 64)}
+MLP_BWD_CHUNK_K = {"bfloat16": 32, "float32": 16}
+MLP_BWD_STAGES = 3
+
+
+@dataclass
+class MlpBwdPlan:
+    """Tiling of one fused-MLP backward (three launches): ``route``
+    (``"mma"`` for bf16, ``"cuda_core"`` for f32); ``grids`` the blocks of
+    each kernel (``"hidden"``, ``"wgrad"`` — the weight gradients' tiles
+    of all two or three products in one launch — and ``"dx"``);
+    ``hidden_bytes`` the scratch the wrapper allocates for h, du and dg
+    (bf16: each as a bf16 high and low plane; f32: one f32 plane; 4 bytes
+    an element either way); ``smem_bytes`` each kernel's shared
+    memory."""
+
+    route: str
+    grids: dict
+    hidden_bytes: int
+    smem_bytes: dict
+
+
+def mlp_bwd_smem_bytes(dtype: str) -> dict:
+    """Shared memory of each backward kernel — the formulas of
+    ``fused_mlp_bwd.cu``.  bf16, per stage: the hidden kernel's x and dy
+    chunks (``rows × (k + 8)``), Wu's and Wg's (``k × (cols + 8)``) and
+    Wd's (``cols × (k + 8)``); the two GEMM kernels' A and B chunks with a
+    low plane each, either layout (``4 × max(rows × (k + 8), k × (rows +
+    8))``), all bf16.  f32: two (hidden: five) chunks of ``k × (tile +
+    4)`` floats."""
+    (hm, hn), (gm, gn) = MLP_BWD_HIDDEN_TILE[dtype], MLP_BWD_GEMM_TILE[dtype]
+    k = MLP_BWD_CHUNK_K[dtype]
+    if dtype == "bfloat16":
+        pad = MMA_ROW_PAD
+        hidden = 2 * hm * (k + pad) + 2 * k * (hn + pad) + hn * (k + pad)
+        gemm = 4 * max(gm * (k + pad), k * (gm + pad))
+        return {"hidden": 2 * MLP_BWD_STAGES * hidden,
+                "gemm": 2 * MLP_BWD_STAGES * gemm}
+    return {"hidden": 4 * k * (2 * (hm + 4) + 3 * (hn + 4)),
+            "gemm": 4 * k * ((gm + 4) + (gn + 4))}
+
+
+assert all(v <= H100.smem_per_block for dt in MLP_BWD_CHUNK_K
+           for v in mlp_bwd_smem_bytes(dt).values())
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_mlp_bwd_blocks(*, m: int, d: int, f: int, gated: bool,
+                        dtype: str) -> MlpBwdPlan:
+    """Tile the fused MLP's backward on the H100: one block per hidden
+    tile, per weight-gradient tile (dWd (F, D); dWu and, gated, dWg (D,
+    F)) and per dx tile (M, D).  Raises :class:`ValueError` where
+    :func:`plan_mlp_blocks` does (the same ``MLP_MAX_D``: the forward's
+    limit binds the pair) and for a dtype with no route."""
+    plan_mlp_blocks(m=m, d=d, f=f, dtype=dtype)     # the forward's checks
+    routes = {"bfloat16": "mma", "float32": "cuda_core"}
+    if dtype not in routes:
+        raise ValueError(f"fused MLP backward: no route for {dtype}")
+    (hm, hn), (gm, gn) = MLP_BWD_HIDDEN_TILE[dtype], MLP_BWD_GEMM_TILE[dtype]
+
+    def tiles(rows, cols, tm, tn):
+        return -(-rows // tm) * -(-cols // tn)
+
+    wgrad = tiles(f, d, gm, gn) + (2 if gated else 1) * tiles(d, f, gm, gn)
+    return MlpBwdPlan(
+        routes[dtype],
+        {"hidden": tiles(m, f, hm, hn), "wgrad": wgrad,
+         "dx": tiles(m, d, gm, gn)},
+        (3 if gated else 2) * 4 * m * f,
+        mlp_bwd_smem_bytes(dtype),
+    )
+
+
+# ---------------------------------------------------------------------------
 # NVIDIA H100: tile selection for the Mamba-2 SSD kernel
 # ---------------------------------------------------------------------------
 

@@ -65,9 +65,12 @@
 
 #include <cooperative_groups.h>
 
+#include "mlp_act.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
+
+using mlp_act::activate;
 
 constexpr int THREADS = 256;
 constexpr int BF = 64;            // hidden columns per tile
@@ -82,22 +85,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even
-}
-
-// 0 silu, 1 gelu (tanh form, as jax.nn.gelu), 2 relu, 3 squared relu
-__device__ __forceinline__ float activate(int act, float v) {
-  switch (act) {
-    case 0: return v / (1.f + expf(-v));
-    case 1: {
-      const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-      return 0.5f * v * (1.f + tanhf(inner));
-    }
-    case 2: return fmaxf(v, 0.f);
-    default: {
-      const float r = fmaxf(v, 0.f);
-      return r * r;
-    }
-  }
 }
 
 // R consecutive floats from shared memory (R is 2, 4, 8 or 16)

@@ -1,0 +1,42 @@
+// The MLP activations of the fused-MLP kernels (fused_mlp.cu, the forward;
+// fused_mlp_bwd.cu, the backward) and their derivatives, in f32.
+// act: 0 silu, 1 gelu (tanh form, as jax.nn.gelu), 2 relu, 3 squared relu.
+
+#pragma once
+
+namespace mlp_act {
+
+__device__ __forceinline__ float activate(int act, float v) {
+  switch (act) {
+    case 0: return v / (1.f + expf(-v));
+    case 1: {
+      const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+      return 0.5f * v * (1.f + tanhf(inner));
+    }
+    case 2: return fmaxf(v, 0.f);
+    default: {
+      const float r = fmaxf(v, 0.f);
+      return r * r;
+    }
+  }
+}
+
+// d activate(act, v) / dv; relu's is 0 at 0, as jax.nn.relu's
+__device__ __forceinline__ float activate_grad(int act, float v) {
+  switch (act) {
+    case 0: {
+      const float s = 1.f / (1.f + expf(-v));
+      return s * (1.f + v * (1.f - s));
+    }
+    case 1: {
+      const float c = 0.7978845608028654f;
+      const float t = tanhf(c * (v + 0.044715f * v * v * v));
+      return 0.5f * (1.f + t) +
+             0.5f * v * (1.f - t * t) * c * (1.f + 3.f * 0.044715f * v * v);
+    }
+    case 2: return v > 0.f ? 1.f : 0.f;
+    default: return v > 0.f ? 2.f * v : 0.f;
+  }
+}
+
+}  // namespace mlp_act

@@ -35,20 +35,36 @@ hidden axis is also split (:func:`repro_torch.core.dse.plan_mlp_blocks`):
 each split writes an f32 partial and a second pass of the same launch
 sums them in a fixed order and rounds.
 
-The library is built by ``nvcc`` at first use (``repro_torch.kernels.
-build``).  Beside the kernel sits its plain PyTorch version,
-:func:`fused_mlp_plain` (the port's ``ref.mlp``); :func:`fused_mlp`
-takes it **only** for a tensor that lies on the CPU — on a CUDA tensor it
-launches the kernel or raises.
+**The backward** (``csrc/fused_mlp_bwd.cu``, :func:`fused_mlp_bwd`) is
+the counterpart of XLA's autodiff of the reference's streamed MLP
+(``src/repro/models/layers.py:531 _mlp_streamed``); it has no TPU
+kernel.  From x, the weights and dy it recomputes the gate and up
+products tile by tile — the forward saves no hidden — and gives dx, dWg,
+dWu and dWd (:func:`fused_mlp_bwd_plain` states the sums).  Three
+launches a call, deterministic (fixed-order sums, no atomics): the hidden
+kernel writes h, du and dg for every (row tile, hidden tile) once; the
+weight-gradient kernel sums dWd = hᵀ·dy, dWu = xᵀ·du and dWg = xᵀ·dg
+over all rows in order; the dx kernel sums du·Wuᵀ + dg·Wgᵀ over the
+hidden axis.  bf16 on the tensor cores (``mma.sync``), the f32 h, du and
+dg entering their products as bf16 hi + lo; f32 on the CUDA cores.
+:class:`FusedMlp` ties the two kernels into autograd; :func:`mlp` takes
+it where a gradient is wanted and one forward launch otherwise.
+
+The libraries are built by ``nvcc`` at first use (``repro_torch.kernels.
+build``).  Beside each kernel sits its plain PyTorch version,
+:func:`fused_mlp_plain` (the port's ``ref.mlp``) and
+:func:`fused_mlp_bwd_plain`; the wrappers take them **only** for a tensor
+that lies on the CPU — on a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 
 import torch
 
-from repro_torch.core.dse import plan_mlp_blocks
+from repro_torch.core.dse import plan_mlp_blocks, plan_mlp_bwd_blocks
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
@@ -59,9 +75,12 @@ ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2, "squared_relu": 3}
 
 #: kernel launches so far (one per call that reached the card), and
 #: calls of the plain version on a CUDA tensor (the wrapper never makes
-#: one; a comparison harness does).  Guarded by ``_LOCK``.
+#: one; a comparison harness does); the same for the backward (one per
+#: call, which launches its three kernels).  Guarded by ``_LOCK``.
 launches = 0
 plain_cuda_calls = 0
+bwd_launches = 0
+bwd_plain_cuda_calls = 0
 
 _LOCK = threading.Lock()
 
@@ -75,16 +94,29 @@ def _declare(lib) -> None:
     lib.fused_mlp_error_string.restype = ctypes.c_char_p
 
 
+def _declare_bwd(lib) -> None:
+    fn = lib.fused_mlp_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.fused_mlp_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
+
+
 #: ``csrc/fused_mlp.cu`` → ``build/libfused_mlp.so``
 LIBRARY = CudaLibrary("fused_mlp", _declare)
+#: ``csrc/fused_mlp_bwd.cu`` → ``build/libfused_mlp_bwd.so``
+BWD_LIBRARY = CudaLibrary("fused_mlp_bwd", _declare_bwd)
 
 
 def reset_counts() -> None:
-    """Zero ``launches`` and ``plain_cuda_calls``."""
-    global launches, plain_cuda_calls
+    """Zero the launch and plain-call counts of both kernels."""
+    global launches, plain_cuda_calls, bwd_launches, bwd_plain_cuda_calls
     with _LOCK:
         launches = 0
         plain_cuda_calls = 0
+        bwd_launches = 0
+        bwd_plain_cuda_calls = 0
 
 
 def _check(x, w_gate, w_up, w_down, act: str) -> None:
@@ -114,6 +146,14 @@ def _check(x, w_gate, w_up, w_down, act: str) -> None:
         raise ValueError(
             f"fused_mlp: x on {x.device}, weights on "
             f"{[str(w.device) for w in ws]}")
+
+
+def _on_device(x: torch.Tensor, launch) -> int:
+    """``launch()`` with ``x``'s card current (per-thread selection)."""
+    if x.device.index == torch.cuda.current_device():
+        return launch()
+    with torch.cuda.device(x.device):
+        return launch()
 
 
 def fused_mlp_plain(
@@ -180,11 +220,7 @@ def fused_mlp(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
 
-    if x.device.index == torch.cuda.current_device():
-        rc = launch()
-    else:
-        with torch.cuda.device(x.device):
-            rc = launch()
+    rc = _on_device(x, launch)
     if rc != 0:
         msg = lib.fused_mlp_error_string(rc).decode()
         raise RuntimeError(
@@ -193,3 +229,178 @@ def fused_mlp(
     with _LOCK:
         launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+def act_grad(name: str, v: torch.Tensor) -> torch.Tensor:
+    """The derivative of ``ref._act(name, ·)`` at ``v``: silu, gelu in
+    the tanh form, relu (0 at 0, as ``jax.nn.relu``), squared relu."""
+    if name == "silu":
+        s = torch.sigmoid(v)
+        return s * (1 + v * (1 - s))
+    if name == "gelu":
+        c = math.sqrt(2 / math.pi)
+        t = torch.tanh(c * (v + 0.044715 * v ** 3))
+        return 0.5 * (1 + t) + 0.5 * v * (1 - t * t) * c * (
+            1 + 3 * 0.044715 * v * v)
+    if name == "relu":
+        return (v > 0).to(v.dtype)
+    if name == "squared_relu":
+        return 2 * torch.clamp_min(v, 0.0)
+    raise ValueError(name)
+
+
+def _check_bwd(x, w_gate, w_up, w_down, dy, act: str) -> None:
+    _check(x, w_gate, w_up, w_down, act)
+    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"fused_mlp_bwd: dy {tuple(dy.shape)} on "
+                         f"{dy.device} does not fit x {tuple(x.shape)} on "
+                         f"{x.device}")
+
+
+def mlp_bwd_hidden(x, w_gate, w_up, w_down, dy, *, act: str = "silu",
+                   deriv=None):
+    """The backward's recompute over all of F, in f32 → (h, du, dg or
+    None): g = x·Wg and u = x·Wu, dh = dy·Wdᵀ; gated h = act(g)·u, du =
+    dh·act(g), dg = dh·u·act′(g); ungated h = act(u), du = dh·act′(u).
+    ``deriv`` stands in for act′ (default :func:`act_grad`)."""
+    deriv = deriv or (lambda v: act_grad(act, v))
+    xf = x.float()
+    u = xf @ w_up.float()
+    dh = dy.float() @ w_down.float().T
+    if w_gate is None:
+        return ref._act(act, u), dh * deriv(u), None
+    g = xf @ w_gate.float()
+    a = ref._act(act, g)
+    return a * u, dh * a, dh * u * deriv(g)
+
+
+def mlp_bwd_sums(x, w_gate, w_up, dy, h, du, dg):
+    """The gradients from :func:`mlp_bwd_hidden`'s terms, in f32 → (dx,
+    dWg or None, dWu, dWd): dWd = hᵀ·dy, dWu = xᵀ·du, dWg = xᵀ·dg, dx =
+    du·Wuᵀ + dg·Wgᵀ."""
+    xf = x.float()
+    dwd = h.T @ dy.float()
+    dwu = xf.T @ du
+    dx = du @ w_up.float().T
+    dwg = None
+    if dg is not None:
+        dwg = xf.T @ dg
+        dx += dg @ w_gate.float().T
+    return dx, dwg, dwu, dwd
+
+
+def fused_mlp_bwd_plain(
+    x: torch.Tensor,
+    w_gate: torch.Tensor | None,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    dy: torch.Tensor,
+    *,
+    act: str = "silu",
+):
+    """The backward kernel's plain PyTorch version → (dx, dWg or None,
+    dWu, dWd), each in its input's dtype: :func:`mlp_bwd_hidden`, then
+    :func:`mlp_bwd_sums`, summed in f32 over all of F and rounded once."""
+    global bwd_plain_cuda_calls
+    if x.is_cuda:
+        with _LOCK:
+            bwd_plain_cuda_calls += 1
+    h, du, dg = mlp_bwd_hidden(x, w_gate, w_up, w_down, dy, act=act)
+    dx, dwg, dwu, dwd = mlp_bwd_sums(x, w_gate, w_up, dy, h, du, dg)
+    return (dx.to(x.dtype), None if dwg is None else dwg.to(w_gate.dtype),
+            dwu.to(w_up.dtype), dwd.to(w_down.dtype))
+
+
+def fused_mlp_bwd(
+    x: torch.Tensor,                  # (M, D)
+    w_gate: torch.Tensor | None,      # (D, F) or None (ungated)
+    w_up: torch.Tensor,               # (D, F)
+    w_down: torch.Tensor,             # (F, D)
+    dy: torch.Tensor,                 # (M, D)
+    *,
+    act: str = "silu",
+):
+    """The gradients of :func:`fused_mlp` for the cotangent ``dy`` →
+    (dx, dWg or None, dWu, dWd) in the inputs' dtype.
+
+    On a CUDA tensor this launches the hand-written backward (its three
+    kernels on the calling thread's current stream; one added to
+    ``bwd_launches``) or raises: what :func:`fused_mlp` refuses, or a
+    ``dy`` that does not fit x.  The kernels tile by
+    :func:`repro_torch.core.dse.plan_mlp_bwd_blocks`.  Only a CPU tensor
+    takes :func:`fused_mlp_bwd_plain`.  Deterministic: the same inputs
+    give the same bits."""
+    global bwd_launches
+    _check_bwd(x, w_gate, w_up, w_down, dy, act)
+    m, d = x.shape
+    f = w_up.shape[1]
+    plan = plan_mlp_bwd_blocks(m=m, d=d, f=f, gated=w_gate is not None,
+                               dtype=str(x.dtype).removeprefix("torch."))
+    if not x.is_cuda:
+        return fused_mlp_bwd_plain(x, w_gate, w_up, w_down, dy, act=act)
+    x, w_up, w_down = x.contiguous(), w_up.contiguous(), w_down.contiguous()
+    dy = dy.to(x.dtype).contiguous()
+    if w_gate is not None:
+        w_gate = w_gate.contiguous()
+    dx = torch.empty_like(x)
+    dwu, dwd = torch.empty_like(w_up), torch.empty_like(w_down)
+    dwg = None if w_gate is None else torch.empty_like(w_gate)
+    hidden = torch.empty(plan.hidden_bytes, dtype=torch.uint8,
+                         device=x.device)
+    lib = BWD_LIBRARY.load()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch() -> int:
+        return lib.fused_mlp_bwd_launch(
+            x.data_ptr(), ptr(w_gate), w_up.data_ptr(), w_down.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), ptr(dwg), dwu.data_ptr(),
+            dwd.data_ptr(), hidden.data_ptr(), _DTYPE_CODES[x.dtype], m, d,
+            f, ACT_CODES[act], int(w_gate is not None),
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+    rc = _on_device(x, launch)
+    if rc != 0:
+        msg = lib.fused_mlp_bwd_error_string(rc).decode()
+        raise RuntimeError(
+            f"fused_mlp_bwd launch failed: {msg} (code {rc}); x "
+            f"{tuple(x.shape)} F {f} {x.dtype} plan {plan}")
+    with _LOCK:
+        bwd_launches += 1
+    return dx, dwg, dwu, dwd
+
+
+class FusedMlp(torch.autograd.Function):
+    """Differentiable fused MLP: forward :func:`fused_mlp`, backward
+    :func:`fused_mlp_bwd`.  It saves only x and the weights — no hidden:
+    the backward recomputes it."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, act):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        ctx.act = act
+        return fused_mlp(x, w_gate, w_up, w_down, act=act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down = ctx.saved_tensors
+        dx, dwg, dwu, dwd = fused_mlp_bwd(x, w_gate, w_up, w_down, dy,
+                                          act=ctx.act)
+        return dx, dwg, dwu, dwd, None
+
+
+def mlp(x, w_gate, w_up, w_down, *, act: str = "silu") -> torch.Tensor:
+    """:class:`FusedMlp` where a gradient is wanted (grad enabled and an
+    input that requires it); otherwise one forward launch — serving's cost
+    is unchanged."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w_gate, w_up, w_down)):
+        return FusedMlp.apply(x, w_gate, w_up, w_down, act)
+    return fused_mlp(x, w_gate, w_up, w_down, act=act)

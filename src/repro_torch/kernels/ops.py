@@ -813,11 +813,10 @@ def fused_mlp(
     ``F`` must be multiples of them, so the inputs the TPU wrapper refuses
     raise ValueError here too — and change nothing: the kernel tiles with
     :func:`repro_torch.core.dse.plan_mlp_blocks`.  ``None`` checks
-    nothing (there the TPU wrapper picks a divisor).  The kernel has no
-    backward yet: under autograd on CUDA tensors it raises
-    NotImplementedError."""
-    _refuse_grad("fused_mlp", "item 4f (the streamed MLP)", x, w_gate, w_up,
-                 w_down)
+    nothing (there the TPU wrapper picks a divisor).  Differentiable:
+    under autograd it is ``FusedMlp`` (the forward kernel, then the
+    backward kernel for the gradients); without, one forward launch as in
+    serving."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     f = w_up.shape[1]
@@ -826,7 +825,7 @@ def fused_mlp(
         raise ValueError(
             f"fused_mlp: M {m} / F {f} are not multiples of block_m "
             f"{block_m} / block_f {block_f}")
-    out = _mlp.fused_mlp(x.reshape(m, d), w_gate, w_up, w_down, act=act)
+    out = _mlp.mlp(x.reshape(m, d), w_gate, w_up, w_down, act=act)
     return out.reshape(*lead, d)
 
 

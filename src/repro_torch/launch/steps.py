@@ -8,11 +8,11 @@ so the launchers stay family-agnostic:
   ``decode_step(params, cache, token, pos)  -> (logits, cache)``
 
 The train step is the reference's: loss, its gradient, gradient
-accumulation over microbatches, then the AdamW update.  It trains the
-dense family (dense, vlm, audio), the MoE family and the SSM family (the
-SSD's gradient through its backward kernel).  The hybrid waits for a
-slice that fits its training state (``ROADMAP.md`` §A item 4d), the
-encoder–decoder for the one that brings its loss (item 4e).
+accumulation over microbatches, then the AdamW update.  It trains every
+family: dense (dense, vlm, audio), MoE, SSM (the SSD's gradient through
+its backward kernel), the hybrid (Jamba's superblock of all three) and
+the encoder–decoder (``encdec.encdec_loss``), with ``mlp_impl`` dense or
+streamed (the fused MLP's gradient through its backward kernel).
 """
 from __future__ import annotations
 
@@ -29,20 +29,9 @@ from repro_torch.optim import adamw
 # family dispatch
 # ---------------------------------------------------------------------------
 
-#: families whose training waits, and the ROADMAP item that brings it
-_UNTRAINED = {
-    "hybrid": "§A item 4d (its training state — bf16 weights, f32 "
-              "gradients and two f32 moments — does not fit one card at "
-              "any honest cut; it comes with item 4e)",
-    "encdec": "§A item 4e (encdec_loss, decode_train, kv_override)",
-}
-
-
 def model_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder–decoder's loss (encdec_loss) is not "
-            f"ported yet — ROADMAP.md {_UNTRAINED['encdec']}")
+        return encdec.encdec_loss(params, cfg, batch)
     return lm.lm_loss(params, cfg, batch)
 
 
@@ -133,10 +122,6 @@ def make_train_step(
     too), as the reference's ``lax.scan`` over microbatches does.  The
     returned step leaves its arguments unchanged (``adamw.apply`` is
     functional)."""
-    if cfg.family in _UNTRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet — ROADMAP.md {_UNTRAINED[cfg.family]}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} < 1")
 

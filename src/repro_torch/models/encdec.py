@@ -1,5 +1,5 @@
 """Encoder–decoder backbone (seamless-m4t style; frontend stubbed), in
-PyTorch: the serving half of ``src/repro/models/encdec.py``.
+PyTorch: ``src/repro/models/encdec.py``, serving and training.
 
 The speech/text frontend is a stub: callers hand in precomputed frame
 embeddings (B, T, D).  The backbone is real: a bidirectional encoder
@@ -16,26 +16,31 @@ across with :func:`repro_torch.models.lm.lm_params_from_numpy`.  Where
 the reference scans over the layer axis the port runs a Python loop.
 
 Entry points:
+  ``encdec_loss``     — training: ``encode``, the teacher-forced
+                        ``decode_train`` (causal self-attention, then
+                        non-causal cross-attention over the memory through
+                        ``attention_layer(kv_override=...)``, then the
+                        MLP, per decoder layer) and the streaming chunked
+                        cross-entropy over ``lm_head``; under autograd
+                        with ``cfg.remat`` every encoder and decoder layer
+                        is recomputed in the backward, as the reference's
+                        ``jax.checkpoint`` per layer
   ``encdec_prefill``  — encode, the cross K/V per decoder layer, and the
                         first decode step (BOS = 0 at position 0) from a
                         1-long self cache; returns (logits, cache)
   ``encdec_decode``   — one decoder step; the self cache is updated in
                         place
   ``init_cache``      — zeroed caches ``{"ck", "cv", "k", "v"}``
-
-The training half — ``encdec_loss``, the teacher-forced ``decode_train``
-and the ``kv_override`` cross-attention it uses — comes with the slice
-that trains the encoder–decoder (``ROADMAP.md`` §A item 4e; the dense
-family trains since item 4a).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from . import layers as L
-from .lm import _layer
+from .lm import _EmbedRows, _layer, _unbind_layers, chunked_ce_loss
 
 
 # ---------------------------------------------------------------------------
@@ -73,22 +78,49 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _run_layers(blocks: dict, n: int, cfg: ModelConfig, body,
+                h: torch.Tensor) -> torch.Tensor:
+    """``h = body(p, h)`` for each of the ``n`` stacked layers of
+    ``blocks`` in turn.  Under autograd each layer's parameters come from
+    one ``torch.unbind`` of the stacked leaves (``lm._unbind_layers``),
+    and with ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped and recomputed in the backward, as the reference's
+    ``jax.checkpoint(body)`` does per layer."""
+    if not torch.is_grad_enabled():
+        for li in range(n):
+            h = body(_layer(blocks, li), h)
+        return h
+    for p in _unbind_layers(blocks, n):
+        if cfg.remat:
+            h = torch.utils.checkpoint.checkpoint(body, p, h,
+                                                  use_reentrant=False)
+        else:
+            h = body(p, h)
+    return h
+
+
+def _positions(h: torch.Tensor) -> torch.Tensor:
+    bsz, s = h.shape[0], h.shape[1]
+    return torch.arange(s, dtype=torch.int32, device=h.device).expand(bsz, s)
+
+
 def encode(params: dict, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T, D) stub embeddings → encoder memory (B, T, D)."""
     h = frames.to(cfg.param_dtype)
-    bsz, t = h.shape[0], h.shape[1]
-    positions = torch.arange(t, dtype=torch.int32,
-                             device=h.device).expand(bsz, t)
-    blocks = params["encoder"]["blocks"]
-    for li in range(cfg.enc_layers):
-        p = _layer(blocks, li)
+    positions = _positions(h)
+
+    def body(p, hh):
         a, _ = L.attention_layer(p["attn"], cfg,
-                                 L.rmsnorm(h, p["ln1"], cfg.norm_eps),
+                                 L.rmsnorm(hh, p["ln1"], cfg.norm_eps),
                                  positions, causal=False)
-        h = h + a
-        h = h + L.mlp_layer(p["mlp"], cfg,
-                            L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+        hh = hh + a
+        return hh + L.mlp_layer(p["mlp"], cfg,
+                                L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
+
+    h = _run_layers(params["encoder"]["blocks"], cfg.enc_layers, cfg, body,
+                    h)
     return L.rmsnorm(h, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -109,6 +141,49 @@ def _cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor):
     k = k.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
     v = v.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
     return k, v
+
+
+def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder forward: (B, S) tokens over the encoder
+    ``memory`` (B, T, D) → hidden (B, S, D) after the final norm.  Per
+    layer: causal self-attention with RoPE, non-causal cross-attention
+    over the memory's keys and values (``_cross_kv``, no RoPE) through
+    ``attention_layer(kv_override=...)``, then the MLP.  The embedding's
+    gradient sums repeated tokens in f32 (``lm._EmbedRows``)."""
+    h = _EmbedRows.apply(params["embed"], tokens.long())
+    positions = _positions(h)
+
+    def body(p, hh):
+        a, _ = L.attention_layer(p["self_attn"], cfg,
+                                 L.rmsnorm(hh, p["ln1"], cfg.norm_eps),
+                                 positions, causal=True)
+        hh = hh + a
+        ck, cv = _cross_kv(p["cross_attn"], cfg, memory)
+        c, _ = L.attention_layer(p["cross_attn"], cfg,
+                                 L.rmsnorm(hh, p["ln_x"], cfg.norm_eps),
+                                 positions, causal=False,
+                                 kv_override=(ck, cv))
+        hh = hh + c
+        return hh + L.mlp_layer(p["mlp"], cfg,
+                                L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
+
+    h = _run_layers(params["decoder"]["blocks"], cfg.dec_layers, cfg, body,
+                    h)
+    return L.rmsnorm(h, params["decoder"]["final_norm"], cfg.norm_eps)
+
+
+def encdec_loss(params: dict, cfg: ModelConfig,
+                batch: dict) -> torch.Tensor:
+    """Mean next-token CE of ``batch`` ``{"frames" (B, T, D), "tokens",
+    "labels" (B, S)}`` (f32 scalar): encode, decode teacher-forced, and
+    the streaming chunked CE over ``lm_head`` in chunks of
+    ``cfg.loss_chunk``."""
+    memory = encode(params, cfg, batch["frames"])
+    h = decode_train(params, cfg, memory, batch["tokens"])
+    return chunked_ce_loss(h, params["lm_head"], batch["labels"],
+                           cfg.loss_chunk,
+                           streaming_bwd=cfg.loss_streaming_bwd)
 
 
 def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict):

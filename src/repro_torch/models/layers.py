@@ -344,29 +344,35 @@ def attention_layer(
     *,
     causal: bool = True,
     mrope_positions: torch.Tensor | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (output, (k, v)) — k/v in (B, Hkv, S, hd) layout for caching.
-    (The reference's ``kv_override``, cross-attention over a whole
-    teacher-forced sequence, serves only the encoder–decoder's training:
-    ROADMAP §A item 4e.)"""
+    With ``kv_override=(k, v)`` (each (B, Hkv, T, hd): the encoder
+    memory's keys and values, as the encoder–decoder's teacher-forced
+    cross-attention hands them in) the layer projects only the query,
+    applies no RoPE to it (the positions are unrelated to the memory's)
+    and returns the given (k, v)."""
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = _split_heads(q, cfg.num_heads, hd)
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
-    k = _split_heads(k, cfg.num_kv_heads, hd)
-    v = _split_heads(v, cfg.num_kv_heads, hd)
-    cos, sin = rope_cos_sin(
-        positions, hd, cfg.rope_theta,
-        mrope_sections=cfg.mrope_sections,
-        mrope_positions=mrope_positions,
-    )
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if kv_override is None:
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = _split_heads(k, cfg.num_kv_heads, hd)
+        v = _split_heads(v, cfg.num_kv_heads, hd)
+        cos, sin = rope_cos_sin(
+            positions, hd, cfg.rope_theta,
+            mrope_sections=cfg.mrope_sections,
+            mrope_positions=mrope_positions,
+        )
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        k, v = kv_override
 
     if cfg.attn_impl == "blockwise":
         out = blockwise_attention(
@@ -455,7 +461,9 @@ def _mlp_streamed(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   block_f: int = 2048) -> torch.Tensor:
     """The hidden streamed in ``d_ff`` tiles so that the ``(tokens,
     d_ff)`` activation never exists whole: one call of the fused-MLP
-    kernel (``ops.fused_mlp``; its plain version on a CPU tensor).
+    kernel (``ops.fused_mlp``; its plain version on a CPU tensor), and
+    under autograd one call of its backward kernel, which recomputes the
+    hidden.
 
     As in the reference, ``block_f`` is clamped to ``d_ff`` and must
     divide it (ValueError naming ``block_f`` otherwise); the kernel tiles

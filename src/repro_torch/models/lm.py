@@ -1,6 +1,5 @@
 """Decoder-only LM of the dense, MoE, SSM and hybrid families, in
-PyTorch: serving, and the training loss of the dense, MoE and SSM
-families.
+PyTorch: serving and the training loss.
 
 Parameters keep the reference's *stacked* layout — ``{"blocks": {"b0":
 {...}}, "final_norm", "embed", "lm_head"?}`` with a leading layer axis
@@ -25,11 +24,10 @@ block (ssm); the hybrid family (Jamba) mixes both in one superblock.
 Its cache is ``{"k", "v"}`` or ``{"conv", "ssm"}``, so a hybrid cache
 holds both kinds of leaf under one tree.  A layer's FFN is the MLP, the
 MoE layer (``models/moe.py``) or none.  The train step of
-``launch/steps.py`` takes ``lm_loss`` for the dense family (dense, vlm,
-audio), the MoE family (the gates' gradient through the f32 router) and
-the SSM family (the SSD's through its backward kernel); the hybrid waits
-for a later slice (``ROADMAP.md`` §A item 4d: its training state does
-not fit one card).
+``launch/steps.py`` takes ``lm_loss`` for every family but the
+encoder–decoder: dense (dense, vlm, audio), MoE (the gates' gradient
+through the f32 router), SSM (the SSD's through its backward kernel) and
+the hybrid, which mixes them.
 """
 from __future__ import annotations
 

@@ -222,8 +222,8 @@ def test_decode_matches_the_reference_teacher_forced_decoder():
     """The cache contract of ``tests/test_models.py::
     TestPrefillDecodeConsistency::test_encdec_decode_matches_teacher_forced``
     across the packages: the port's token-by-token decode against the
-    reference's teacher-forced ``decode_train`` (a training function the
-    port has yet to carry), in f32 at 1e-4."""
+    reference's teacher-forced ``decode_train`` (the port's own is held to
+    it in ``test_torch_encdec_train.py``), in f32 at 1e-4."""
     jcfg, tcfg, jp, _, tp = ref_and_port(ARCH)
     fr = _frames(6)
     toks = np.random.default_rng(7).integers(0, 256, (2, 8), dtype=np.int32)

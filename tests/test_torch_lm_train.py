@@ -346,24 +346,41 @@ def test_a_step_leaves_its_state_and_repeats_bit_for_bit():
         assert torch.equal(a, c), path
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
-def test_untrained_families_name_their_roadmap_item(arch):
-    """The MoE and SSM families train (``test_torch_moe_train.py``,
-    ``test_torch_ssm_train.py``); the hybrid still waits, and says why."""
+def _smoke_batch(cfg, rows: int = 2, seq: int = 16) -> dict:
+    """A batch of ``cfg``'s family on the CPU: the data pipeline's, or for
+    the encoder–decoder seeded frames and the pipeline's tokens."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data import pipeline as TP
+
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
+                                global_batch=rows)
+    if cfg.family != "encdec":
+        return TP.batch_for_model(cfg, shape, TP.DataConfig(seed=2), 0,
+                                  device="cpu")
+    toks = _tb(_batch(cfg.vocab_size, rows=rows, seq=seq))
+    frames = np.random.default_rng(2).standard_normal(
+        (rows, seq, cfg.d_model)).astype(np.float32)
+    return {"frames": torch.from_numpy(frames), **toks}
+
+
+@pytest.mark.parametrize("arch", treg.all_archs())
+def test_every_config_trains(arch):
+    """Every family trains: for each of the ten configs' smoke versions
+    ``make_train_step`` builds, and one step (two microbatches) gives a
+    finite loss and leaves every parameter and moment finite and of its
+    dtype."""
     cfg = treg.get_config(arch, smoke=True)
-    assert cfg.family == "hybrid"
-    with pytest.raises(NotImplementedError,
-                       match=r"§A item 4d \(its training state .* does not "
-                             r"fit one card"):
-        TS.make_train_step(cfg, _opt(TA))
-
-
-def test_the_encdec_loss_names_its_slice():
-    cfg = treg.get_config("seamless-m4t-medium", smoke=True)
-    with pytest.raises(NotImplementedError, match=r"§A item 4e"):
-        TS.model_loss({}, cfg, {})
-    with pytest.raises(NotImplementedError, match=r"§A item 4e"):
-        TS.make_train_step(cfg, _opt(TA))
+    params = TS.model_init(torch.Generator().manual_seed(0), cfg)
+    state = TA.init(params, _opt(TA))
+    step = TS.make_train_step(cfg, _opt(TA), grad_accum=2)
+    new_p, new_s, m = step(params, state, _smoke_batch(cfg))
+    assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+    for (path, p), (_, q) in zip(flat(new_p), flat(params)):
+        assert p.dtype == q.dtype and bool(torch.isfinite(p).all()), path
+    for path, t in flat({"mu": new_s.mu, "nu": new_s.nu}):
+        assert bool(torch.isfinite(t).all()), path
+    assert any(not torch.equal(p, q)
+               for (_, p), (_, q) in zip(flat(new_p), flat(params)))
 
 
 # ---------------------------------------------------------------------------
@@ -373,10 +390,11 @@ def test_the_encdec_loss_names_its_slice():
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_autograd_on_the_card():
-    """A kernel output leaves autograd: B1 (conv) and B3 (fused MLP) raise
-    on CUDA tensors that require grad, and run without grad.  B4 (SSD) has
-    its backward kernel: under autograd on the card it goes through
-    ``SsdScan`` and its gradients match the CPU's."""
+    """A kernel output leaves autograd: B1 (conv) raises on CUDA tensors
+    that require grad, and runs without grad.  B3 (fused MLP) and B4 (SSD)
+    have their backward kernels: under autograd on the card they go
+    through ``FusedMlp`` and ``SsdScan``, and their gradients match the
+    CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     dev = "cuda"
@@ -386,13 +404,21 @@ def test_kernels_without_a_backward_refuse_autograd_on_the_card():
         tops.conv2d_stream(x, w)
     with torch.no_grad():
         tops.conv2d_stream(x, w)
-    xm = torch.randn(16, 64, device=dev, requires_grad=True)
-    wg, wu = torch.randn(64, 128, device=dev), torch.randn(64, 128,
-                                                           device=dev)
-    wd = torch.randn(128, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="item 4f"):
-        tops.fused_mlp(xm, wg, wu, wd)
     g = torch.Generator().manual_seed(0)
+    mlp = [torch.randn(16, 64, generator=g),
+           torch.randn(64, 128, generator=g) * 0.1,
+           torch.randn(64, 128, generator=g) * 0.1,
+           torch.randn(128, 64, generator=g) * 0.1]
+    grads = {}
+    for d in ("cpu", dev):
+        leaves = [t.to(d).requires_grad_(True) for t in mlp]
+        out = tops.fused_mlp(*leaves)
+        assert type(out.grad_fn.next_functions[0][0]).__name__ == \
+            "FusedMlpBackward"
+        out.sum().backward()
+        grads[d] = [t.grad.cpu() for t in leaves]
+    for c, k in zip(grads["cpu"], grads[dev]):
+        torch.testing.assert_close(k, c, atol=5e-4, rtol=5e-4)
     ins = [torch.randn(1, 16, 2, 8, generator=g),
            torch.rand(1, 16, 2, generator=g), -torch.rand(2, generator=g),
            torch.randn(1, 16, 4, generator=g),
