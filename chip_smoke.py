@@ -98,12 +98,15 @@ Phases, each printing one JSON object on a line of its own:
 9b. ``mlp_bwd_check`` the hand-written fused-MLP backward (three kernels:
                   the hidden's h, du and dg, the weight gradients, dx)
                   against its plain version on the card, f32 (CUDA cores)
-                  and bf16 (tensor cores, h, du and dg as hi + lo), every
-                  activation gated and ungated, ragged M, odd D and F, and
-                  llama3.2-1b's train microbatch (M 16384, D 2048, F
-                  8192); per element |err| ≤ tol·|plain| + tol·(its row's
-                  scale), ``MLP_TOL``; two runs the same bits; at the
-                  train shape in bf16 two planted faults must fail the
+                  and bf16 (tensor cores, h, du and dg as hi + lo: wgmma
+                  fed by TMA, or mma.sync where TMA cannot read an
+                  operand — each row names the planner's route), every
+                  activation gated and ungated, ragged M, odd D and F, an
+                  x 2 bytes off 16, and llama3.2-1b's train microbatch (M
+                  16384, D 2048, F 8192); per element |err| ≤ tol·|plain|
+                  + tol·(its row's scale), ``MLP_TOL``; two runs the same
+                  bits; at the train shape in bf16 three planted faults
+                  (``MLP_BWD_FAULTS``) must fail the
                   rule and the kernels keep within the hi + lo bound (each
                   of h, du, dg in bf16 alone must exceed it), and a call
                   is timed beside the plain version, the bound, the
@@ -1883,11 +1886,16 @@ MLP_BWD_HILO_SHARE = 0.02
 #: the backward's three kernels (one launch each a call), both routes
 MLP_BWD_KERNELS = ("mlp_bwd_hidden", "mlp_bwd_wgrad", "mlp_bwd_dx")
 #: the faults the rule must catch: a wrong activation derivative (the
-#: logistic sigmoid in its place) and the last hidden tile of dWd read
-#: from the tile before it
-MLP_BWD_FAULTS = ("act_grad", "f_shift")
-#: the hidden tile a fault shifts by (the kernels' hidden kernel tile)
-MLP_BWD_SHIFT = 64
+#: logistic sigmoid in its place), the last hidden tile of dWd read from
+#: the tile before it (``f_shift``: by the hidden kernel's tile of F,
+#: ``dse.MLP_BWD_HIDDEN_TILE``) and the last K chunk of the
+#: weight-gradient walk read from the ring slot before it (``k_stale``:
+#: the chunk before, ``dse.MLP_BWD_CHUNK_K`` rows of M, in A and B alike —
+#: a stale mbarrier phase)
+MLP_BWD_FAULTS = ("act_grad", "f_shift", "k_stale")
+#: a bf16 case whose x lies one element off a 16-byte boundary: TMA cannot
+#: read it, so the planner sends it to the ``"mma"`` route
+MLP_BWD_UNALIGNED = ("unaligned.x.m100", 100, 256, 1000, True, "silu")
 
 
 def mlp_bwd_split(x, wg, wu, wd, dy, *, act: str, hilo: bool = False,
@@ -1901,6 +1909,7 @@ def mlp_bwd_split(x, wg, wu, wd, dy, *, act: str, hilo: bool = False,
     ``MLP_BWD_FAULTS``."""
     import torch
 
+    from repro_torch.core import dse
     from repro_torch.kernels import fused_mlp as fm
 
     def rnd(name, t):
@@ -1914,8 +1923,22 @@ def mlp_bwd_split(x, wg, wu, wd, dy, *, act: str, hilo: bool = False,
     h, du, dg = fm.mlp_bwd_hidden(x, wg, wu, wd, dy, act=act, deriv=deriv)
     h, du, dg = rnd("h", h), rnd("du", du), rnd("dg", dg)
     if fault == "f_shift":
-        k = MLP_BWD_SHIFT
+        k = dse.MLP_BWD_HIDDEN_TILE["bfloat16"][1]
         h[:, -k:] = h[:, -2 * k:-k].clone()
+    if fault == "k_stale":
+        k = dse.MLP_BWD_CHUNK_K["bfloat16"]
+
+        def stale(t):
+            if t is None:
+                return None
+            t = t.clone()
+            t[-k:] = t[-2 * k:-k]
+            return t
+
+        dx = fm.mlp_bwd_sums(x, wg, wu, dy, h, du, dg)[0]
+        _, dwg, dwu, dwd = fm.mlp_bwd_sums(stale(x), wg, wu, stale(dy),
+                                           stale(h), stale(du), stale(dg))
+        return dx, dwg, dwu, dwd
     return fm.mlp_bwd_sums(x, wg, wu, dy, h, du, dg)
 
 
@@ -2008,6 +2031,18 @@ def _mlp_bwd_hilo_check(inputs, act, got, want, needs: dict) -> dict:
             "lo_dropped": dropped}
 
 
+def mlp_bwd_mma_work(m: int, d: int, f: int, gated: bool) -> dict:
+    """Each backward kernel's tensor-core operations with the lo planes
+    counted: the hidden kernel's g, u and dh (ungated u and dh), 2·M·D·F
+    each; the weight gradients' two or three products and dx's one or two
+    terms, each with its hi + lo operand, 4·M·D·F each."""
+    p = 2 * m * d * f
+    terms = 2 if gated else 1
+    return {"mlp_bwd_hidden": (terms + 1) * p,
+            "mlp_bwd_wgrad": (terms + 1) * 2 * p,
+            "mlp_bwd_dx": terms * 2 * p}
+
+
 def _mlp_bwd_times(torch, run, plain, inputs, got, act) -> dict:
     """ms of a call (CUDA events, warm L2; device ms from the profiler, the
     three kernels summed, and each kernel's own), of the plain version and
@@ -2042,8 +2077,12 @@ def _mlp_bwd_times(torch, run, plain, inputs, got, act) -> dict:
     recompute = 2 * m * d * f * (2 if gated else 1)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
+    work = mlp_bwd_mma_work(m, d, f, gated)
     return {"ms": ms_, "device_ms": each["per_call"],
             "device_ms_each": {k: each[k] for k in MLP_BWD_KERNELS},
+            "mma_work": work,
+            "tflops_each": {k: work[k] / (each[k] * 1e-3) / 1e12
+                            if each[k] else None for k in MLP_BWD_KERNELS},
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": n_bytes, "flops": flops,
@@ -2059,8 +2098,9 @@ def mlp_bwd_check(torch) -> dict:
     """The fused MLP's backward kernel against ``fused_mlp_bwd_plain`` on
     the same inputs at every case in both dtypes — every activation gated
     and ungated, ragged M, odd D and F, llama3.2-1b's train microbatch —
-    two runs the same bits.  At the headline in bf16, faults planted in
-    the kernels' gradients must fail the rule, the kernels must keep
+    and in bf16 at ``MLP_BWD_UNALIGNED``, two runs the same bits, each row
+    naming the planner's route.  At the headline in bf16, faults planted
+    in the kernels' gradients must fail the rule, the kernels must keep
     within the hi + lo bound, and a call is timed beside the plain
     version, the bound, the design's floor and the library yardstick."""
     from repro_torch.kernels import fused_mlp as fm
@@ -2070,17 +2110,23 @@ def mlp_bwd_check(torch) -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     shapes = []
-    for name, m, d, f, gated, act in MLP_BWD_CASES:
+    for name, m, d, f, gated, act in MLP_BWD_CASES + (MLP_BWD_UNALIGNED,):
         x32 = torch.randn(m, d, generator=gen)
         w32 = [torch.randn(d, f, generator=gen) * d ** -0.5 if gated
                else None,
                torch.randn(d, f, generator=gen) * d ** -0.5,
                torch.randn(f, d, generator=gen) * f ** -0.5]
         dy32 = torch.randn(m, d, generator=gen)
-        for dt_name in ("float32", "bfloat16"):
+        unaligned = name == MLP_BWD_UNALIGNED[0]
+        for dt_name in ("bfloat16",) if unaligned else ("float32",
+                                                         "bfloat16"):
             dtype = getattr(torch, dt_name)
             inputs = tuple(None if t is None else t.to(dtype).cuda()
                            for t in (x32, *w32, dy32))
+            if unaligned:    # x one element into a buffer: 2 bytes off
+                buf = torch.empty(m * d + 1, dtype=dtype, device="cuda")
+                buf[1:].copy_(inputs[0].reshape(-1))
+                inputs = (buf[1:].view(m, d),) + inputs[1:]
             what = f"{name} {dt_name}"
             run = lambda: fm.fused_mlp_bwd(*inputs, act=act)
             plain = lambda: fm.fused_mlp_bwd_plain(*inputs, act=act)
@@ -2091,7 +2137,11 @@ def mlp_bwd_check(torch) -> dict:
                 raise AssertionError(f"{what}: two runs differ in bits")
             row = {"shape": name, "dtype": dt_name, "m": m, "d": d, "f": f,
                    "gated": gated, "act": act,
+                   "route": fm.bwd_plan(*inputs).route,
                    **_mlp_bwd_close(got, want, dt_name, what)}
+            if unaligned and row["route"] != "mma":
+                raise AssertionError(f"{what}: an unaligned x planned "
+                                     f"{row['route']}")
             worst[dt_name] = max(worst[dt_name], row["max_abs_err"])
             n += 1
             if (name, dt_name) == MLP_BWD_HEADLINE:
@@ -4492,6 +4542,8 @@ def main(argv=None) -> int:
                            mlp_bwd["max_abs_err_bf16"]),
         "ms": mbhead["ms"], "device_ms": mbhead["device_ms"],
         "device_ms_each": mbhead["device_ms_each"],
+        "tflops_each": mbhead["tflops_each"],
+        "planner_route": mbhead["route"],
         "plain_ms": mbhead["plain_ms"],
         "bound_ms": mbhead["bound_ms"], "bound_by": mbhead["bound_by"],
         "library_ms": mbhead["library_ms"],

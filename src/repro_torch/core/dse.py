@@ -909,32 +909,49 @@ def plan_mlp_blocks(*, m: int, d: int, f: int, dtype: str) -> MlpBlockPlan:
 # NVIDIA H100: tiles of the fused MLP's backward
 # ---------------------------------------------------------------------------
 
-#: ``kernels/csrc/fused_mlp_bwd.cu``, three kernels of ``MLP_THREADS``
-#: threads a call.  The hidden kernel gives each (rows of M, columns of F)
-#: tile of ``MLP_BWD_HIDDEN_TILE`` its g, u and dh over all of D and
-#: writes h, du and dg once; the weight-gradient kernel sums dWd, dWu and
-#: dWg over all of M and the dx kernel sums over all of F, one output
-#: tile of ``MLP_BWD_GEMM_TILE`` a block, each walking its reduction
-#: ``MLP_BWD_CHUNK_K`` deep at a time in order.  bf16 (tensor cores)
-#: keeps ``MLP_BWD_STAGES`` chunks in flight by ``cp.async``; f32 (CUDA
-#: cores) one.  The kernel's constants of the same names; a test holds
-#: them equal
+#: ``kernels/csrc/fused_mlp_bwd.cu``, three kernels a call on one of three
+#: routes.  The hidden kernel gives each (rows of M, columns of F) tile of
+#: ``MLP_BWD_HIDDEN_TILE`` its g, u and dh over all of D and writes h, du
+#: and dg once; the weight-gradient kernel sums dWd, dWu and dWg over all
+#: of M and the dx kernel sums over all of F, one output tile of
+#: ``MLP_BWD_GEMM_TILE`` a block, each walking its reduction
+#: ``MLP_BWD_CHUNK_K`` deep at a time in order.  The dtypes' keys are the
+#: routes each dtype takes where it can: bf16 ``"wgmma"`` (warpgroup
+#: products fed by TMA: ``MLP_BWD_WG_THREADS`` threads, a producer
+#: warpgroup and two consumers, a ring of ``MLP_BWD_STAGES`` chunks per
+#: kernel; the weight gradients' tile is (F, D), dWu and dWg stored
+#: transposed), f32 ``"cuda_core"`` (``MLP_THREADS`` threads, one chunk).
+#: bf16 shapes that TMA cannot describe take ``"mma"`` (``mma.sync``,
+#: ``MLP_THREADS`` threads, the ``MLP_BWD_MMA_*`` tiles, ``cp.async``
+#: ``MLP_BWD_MMA_STAGES`` deep).  The kernel's constants of the same
+#: meaning; a test holds them equal
 MLP_BWD_HIDDEN_TILE = {"bfloat16": (128, 64), "float32": (64, 64)}
-MLP_BWD_GEMM_TILE = {"bfloat16": (128, 128), "float32": (64, 64)}
-MLP_BWD_CHUNK_K = {"bfloat16": 32, "float32": 16}
-MLP_BWD_STAGES = 3
+MLP_BWD_GEMM_TILE = {"bfloat16": (128, 256), "float32": (64, 64)}
+MLP_BWD_CHUNK_K = {"bfloat16": 64, "float32": 16}
+#: the ``"wgmma"`` hidden kernel's chunk (its rows of ``2 ×`` this many
+#: bytes swizzled over their width: 128 as the product kernels', or 64)
+MLP_BWD_HIDDEN_CHUNK_K = 64
+MLP_BWD_STAGES = {"hidden": 4, "gemm": 3}
+MLP_BWD_WG_THREADS = 384
+MLP_BWD_MMA_HIDDEN_TILE = (128, 64)
+MLP_BWD_MMA_GEMM_TILE = (128, 128)
+MLP_BWD_MMA_CHUNK_K = 32
+MLP_BWD_MMA_STAGES = 3
+#: what the ``"wgmma"`` route needs: TMA's global strides and bases are
+#: 16-byte multiples, so D and F multiples of this many bf16
+MLP_BWD_TMA_ALIGN = 8
 
 
 @dataclass
 class MlpBwdPlan:
     """Tiling of one fused-MLP backward (three launches): ``route``
-    (``"mma"`` for bf16, ``"cuda_core"`` for f32); ``grids`` the blocks of
-    each kernel (``"hidden"``, ``"wgrad"`` — the weight gradients' tiles
-    of all two or three products in one launch — and ``"dx"``);
-    ``hidden_bytes`` the scratch the wrapper allocates for h, du and dg
-    (bf16: each as a bf16 high and low plane; f32: one f32 plane; 4 bytes
-    an element either way); ``smem_bytes`` each kernel's shared
-    memory."""
+    (``"wgmma"`` or ``"mma"`` for bf16, ``"cuda_core"`` for f32);
+    ``grids`` the blocks of each kernel (``"hidden"``, ``"wgrad"`` — the
+    weight gradients' tiles of all two or three products in one launch —
+    and ``"dx"``); ``hidden_bytes`` the scratch the wrapper allocates for
+    h, du and dg (bf16: each as a bf16 high and low plane; f32: one f32
+    plane; 4 bytes an element either way); ``smem_bytes`` each kernel's
+    shared memory."""
 
     route: str
     grids: dict
@@ -942,54 +959,89 @@ class MlpBwdPlan:
     smem_bytes: dict
 
 
-def mlp_bwd_smem_bytes(dtype: str) -> dict:
-    """Shared memory of each backward kernel — the formulas of
-    ``fused_mlp_bwd.cu``.  bf16, per stage: the hidden kernel's x and dy
-    chunks (``rows × (k + 8)``), Wu's and Wg's (``k × (cols + 8)``) and
-    Wd's (``cols × (k + 8)``); the two GEMM kernels' A and B chunks with a
-    low plane each, either layout (``4 × max(rows × (k + 8), k × (rows +
-    8))``), all bf16.  f32: two (hidden: five) chunks of ``k × (tile +
-    4)`` floats."""
-    (hm, hn), (gm, gn) = MLP_BWD_HIDDEN_TILE[dtype], MLP_BWD_GEMM_TILE[dtype]
-    k = MLP_BWD_CHUNK_K[dtype]
-    if dtype == "bfloat16":
-        pad = MMA_ROW_PAD
+def mlp_bwd_smem_bytes(route: str) -> dict:
+    """Shared memory of each backward kernel on ``route`` — the formulas of
+    ``fused_mlp_bwd.cu``.  ``"wgmma"``, per stage of rows of ``2 ×
+    MLP_BWD_CHUNK_K`` bytes (the product kernels) or ``2 ×
+    MLP_BWD_HIDDEN_CHUNK_K`` (the hidden kernel): the hidden kernel's x and
+    dy (``rows`` each), Wu, Wg and Wd (``cols`` each), its ring at least
+    the epilogue's six planes of (64 × ``cols``) a consumer in 8 KB boxes;
+    the two product kernels' A hi and A lo (``rows`` each) and B
+    (``cols``); each ring plus 1024 bytes to align it and its full and
+    empty barriers.
+    ``"mma"``, per stage: the hidden kernel's x and dy chunks (``rows × (k
+    + 8)``), Wu's and Wg's (``k × (cols + 8)``) and Wd's (``cols × (k +
+    8)``); the two GEMM kernels' A and B chunks with a low plane each,
+    either layout (``4 × max(rows × (k + 8), k × (rows + 8))``), all bf16.
+    ``"cuda_core"``: two (hidden: five) chunks of ``k × (tile + 4)``
+    floats."""
+    if route == "wgmma":
+        (hm, hn), (gm, gn) = (MLP_BWD_HIDDEN_TILE["bfloat16"],
+                              MLP_BWD_GEMM_TILE["bfloat16"])
+        row, hrow = 2 * MLP_BWD_CHUNK_K["bfloat16"], 2 * MLP_BWD_HIDDEN_CHUNK_K
+        hs, gs = MLP_BWD_STAGES["hidden"], MLP_BWD_STAGES["gemm"]
+        ring = max(hs * (2 * hm + 3 * hn) * hrow, 2 * 6 * (hn // 64) * 8192)
+        return {"hidden": ring + 1024 + 16 * hs,
+                "gemm": gs * (2 * gm + gn) * row + 1024 + 16 * gs}
+    if route == "mma":
+        (hm, hn), (gm, gn) = MLP_BWD_MMA_HIDDEN_TILE, MLP_BWD_MMA_GEMM_TILE
+        k, pad = MLP_BWD_MMA_CHUNK_K, MMA_ROW_PAD
         hidden = 2 * hm * (k + pad) + 2 * k * (hn + pad) + hn * (k + pad)
         gemm = 4 * max(gm * (k + pad), k * (gm + pad))
-        return {"hidden": 2 * MLP_BWD_STAGES * hidden,
-                "gemm": 2 * MLP_BWD_STAGES * gemm}
+        return {"hidden": 2 * MLP_BWD_MMA_STAGES * hidden,
+                "gemm": 2 * MLP_BWD_MMA_STAGES * gemm}
+    (hm, hn), (gm, gn) = (MLP_BWD_HIDDEN_TILE["float32"],
+                          MLP_BWD_GEMM_TILE["float32"])
+    k = MLP_BWD_CHUNK_K["float32"]
     return {"hidden": 4 * k * (2 * (hm + 4) + 3 * (hn + 4)),
             "gemm": 4 * k * ((gm + 4) + (gn + 4))}
 
 
-assert all(v <= H100.smem_per_block for dt in MLP_BWD_CHUNK_K
-           for v in mlp_bwd_smem_bytes(dt).values())
+assert all(v <= H100.smem_per_block for r in ("wgmma", "mma", "cuda_core")
+           for v in mlp_bwd_smem_bytes(r).values())
 
 
 @functools.lru_cache(maxsize=4096)
 def plan_mlp_bwd_blocks(*, m: int, d: int, f: int, gated: bool,
-                        dtype: str) -> MlpBwdPlan:
+                        dtype: str, aligned: bool = True) -> MlpBwdPlan:
     """Tile the fused MLP's backward on the H100: one block per hidden
     tile, per weight-gradient tile (dWd (F, D); dWu and, gated, dWg (D,
-    F)) and per dx tile (M, D).  Raises :class:`ValueError` where
+    F); on ``"wgmma"`` all three as (F, D) tiles) and per dx tile (M, D).
+    bf16 takes ``"wgmma"`` where TMA can describe every operand — D and F
+    multiples of ``MLP_BWD_TMA_ALIGN`` and ``aligned``, every base 16-byte
+    aligned — and ``"mma"`` otherwise.  Raises :class:`ValueError` where
     :func:`plan_mlp_blocks` does (the same ``MLP_MAX_D``: the forward's
     limit binds the pair) and for a dtype with no route."""
     plan_mlp_blocks(m=m, d=d, f=f, dtype=dtype)     # the forward's checks
-    routes = {"bfloat16": "mma", "float32": "cuda_core"}
-    if dtype not in routes:
+    if dtype not in ("bfloat16", "float32"):
         raise ValueError(f"fused MLP backward: no route for {dtype}")
-    (hm, hn), (gm, gn) = MLP_BWD_HIDDEN_TILE[dtype], MLP_BWD_GEMM_TILE[dtype]
 
     def tiles(rows, cols, tm, tn):
         return -(-rows // tm) * -(-cols // tn)
 
-    wgrad = tiles(f, d, gm, gn) + (2 if gated else 1) * tiles(d, f, gm, gn)
+    terms = 3 if gated else 2
+    if dtype == "float32":
+        route = "cuda_core"
+    elif (d % MLP_BWD_TMA_ALIGN == 0 and f % MLP_BWD_TMA_ALIGN == 0
+          and aligned):
+        route = "wgmma"
+    else:
+        route = "mma"
+    if route == "mma":
+        (hm, hn), (gm, gn) = MLP_BWD_MMA_HIDDEN_TILE, MLP_BWD_MMA_GEMM_TILE
+    else:
+        (hm, hn), (gm, gn) = (MLP_BWD_HIDDEN_TILE[dtype],
+                              MLP_BWD_GEMM_TILE[dtype])
+    if route == "wgmma":
+        wgrad = terms * tiles(f, d, gm, gn)
+    else:
+        wgrad = tiles(f, d, gm, gn) + (terms - 1) * tiles(d, f, gm, gn)
     return MlpBwdPlan(
-        routes[dtype],
+        route,
         {"hidden": tiles(m, f, hm, hn), "wgrad": wgrad,
          "dx": tiles(m, d, gm, gn)},
-        (3 if gated else 2) * 4 * m * f,
-        mlp_bwd_smem_bytes(dtype),
+        terms * 4 * m * f,
+        mlp_bwd_smem_bytes(route),
     )
 
 

@@ -1,0 +1,375 @@
+// Warpgroup tensor-core products fed by the Tensor Memory Accelerator, for
+// Hopper (sm_90a): the helpers of the wgmma kernels (first user:
+// fused_mlp_bwd.cu).  mma_bf16.cuh keeps the mma.sync helpers.
+//
+// A warpgroup is 4 warps (128 threads).  wgmma.mma_async multiplies a
+// 64-row A tile by a B tile (N columns, 16 deep for bf16) into an f32
+// accumulator held in registers: thread t of the warpgroup (warp w = t / 32,
+// g = (t % 32) / 4, q = t % 4) holds, for n8 block j, d[4j], d[4j + 1] at
+// row 16w + g, columns 8j + 2q, 8j + 2q + 1 and d[4j + 2], d[4j + 3] at
+// row 16w + g + 8, the same columns.
+//
+// Operands lie in shared memory as TMA writes them with 128-byte swizzle:
+// a box whose inner dimension is 64 bf16 (128 bytes) lands as rows of 128
+// bytes, the 16-byte piece c of row r at piece c ^ (r % 8), eight rows to
+// a 1024-byte atom.  Every tile starts on 1024 bytes.  A descriptor names
+// such a tile in either form:
+//   K-major   rows of the operand's M (or N) along the box's outer
+//             dimension, k inner: the next 8 rows 1024 bytes on (SBO); one
+//             k16 step is 32 bytes further into the row (start + 32 B)
+//   MN-major  k along the box's outer dimension, 64 of M (or N) inner: the
+//             next 8 k 1024 bytes on (SBO), the next 64 of M / N a box
+//             further (LBO, the box's bytes); one k16 step is 2048 bytes
+// Each is read where it lies in device memory: no transposed copy.  With
+// a 64-byte swizzle (boxes 32 bf16 wide, make_desc<64>) the same holds at
+// half the sizes: 512-byte atoms, an MN-major k16 step of 1024 bytes.
+//
+// Host side: tensor maps come from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (nothing new to link; <cuda.h> only for the
+// types), encoded by the launcher for each call and passed to the kernel
+// by value as __grid_constant__ parameters.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wgmma_bf16 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers: a ring of `full` (the producer's TMA bytes have landed) and
+// `empty` (every consumer is done with the slot) barriers, waited on by
+// phase parity
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the inits visible to the async proxy (TMA) before any use
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of TMA traffic on this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// bar.sync on a named barrier (1..15; 0 is __syncthreads) of `threads`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// a box of a 2-D map at (inner c0, outer c1) into shared memory; completes
+// on `bar` (its bytes counted against the barrier's expected transaction)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap& map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(&map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a box of shared memory into a 3-D map at (c0, c1, c2); out-of-bounds
+// elements are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap& map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// shared-memory writes of this thread visible to the async proxy (a TMA
+// store that follows)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the byte offset of bf16 element (r, c) (c < 64) in a 128-byte-swizzled
+// tile of rows of 64 bf16
+__device__ __forceinline__ uint32_t swizzle128(int r, int c) {
+  return (uint32_t)(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1));
+}
+
+// ---------------------------------------------------------------------------
+// warpgroup products
+// ---------------------------------------------------------------------------
+
+// a descriptor of a tile at `p` swizzled over rows of ROW bytes (128:
+// the layout of the head of this file; 64: the same with 64-byte rows, 32
+// bf16, eight of them a 512-byte atom): lbo and sbo in bytes
+template <int ROW = 128>
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  static_assert(ROW == 128 || ROW == 64, "a 128- or 64-byte swizzle");
+  constexpr uint64_t layout = ROW == 128 ? 1 : 2;
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+// the same descriptor `bytes` further on (a k16 step)
+__device__ __forceinline__ uint64_t desc_advance(uint64_t d, uint32_t bytes) {
+  return d + (uint64_t)(bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of r across a wgmma boundary
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// warp-specialised register budgets (a whole warpgroup executes each)
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// D (64 x 64, f32, 32 registers a thread) = A (64 x 16) . B (16 x 64)
+// + (scale_d ? D : 0);
+// TA / TB: 0 K-major, 1 MN-major (the operand's transposed form)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128, f32, 64 registers a thread) = A (64 x 16) . B (16 x 128)
+// + (scale_d ? D : 0);
+// TA / TB: 0 K-major, 1 MN-major (the operand's transposed form)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 256, f32, 128 registers a thread) = A (64 x 16) . B (16 x 256)
+// + (scale_d ? D : 0);
+// TA / TB: 0 K-major, 1 MN-major (the operand's transposed form)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// the product of width N (64, 128 or 256)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_m64(float (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "a wgmma width");
+  if constexpr (N == 64)
+    wgmma_m64n64<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 128)
+    wgmma_m64n128<TA, TB>(d, a, b, scale_d);
+  else
+    wgmma_m64n256<TA, TB>(d, a, b, scale_d);
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled (null where the driver has none)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 map of `rank` (2 or 3) dimensions, innermost first: dims[i]
+// elements, strides[i] bytes between steps of dimension i + 1, boxes of
+// box[i], swizzled over the box's inner bytes (box[0] 64 or 32 bf16: a
+// 128- or 64-byte swizzle), zeros read out of bounds.  Returns
+// cudaSuccess or cudaErrorInvalidValue
+inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (box[0] != 64 && box[0] != 32) return cudaErrorInvalidValue;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], e[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         (cuuint32_t)rank, const_cast<void*>(base), d, s, b,
+                         e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major (rows x cols) bf16 matrix read in boxes of (box_rows x
+// box_cols), box_cols 64 or 32
+inline cudaError_t bf16_map_2d(CUtensorMap* map, const void* base,
+                               uint64_t rows, uint64_t cols,
+                               uint32_t box_rows, uint32_t box_cols = 64) {
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 2};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return bf16_map(map, base, 2, dims, strides, box);
+}
+
+}  // namespace wgmma_bf16

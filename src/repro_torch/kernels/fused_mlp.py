@@ -45,8 +45,10 @@ launches a call, deterministic (fixed-order sums, no atomics): the hidden
 kernel writes h, du and dg for every (row tile, hidden tile) once; the
 weight-gradient kernel sums dWd = hᵀ·dy, dWu = xᵀ·du and dWg = xᵀ·dg
 over all rows in order; the dx kernel sums du·Wuᵀ + dg·Wgᵀ over the
-hidden axis.  bf16 on the tensor cores (``mma.sync``), the f32 h, du and
-dg entering their products as bf16 hi + lo; f32 on the CUDA cores.
+hidden axis.  bf16 on the tensor cores, the f32 h, du and dg entering
+their products as bf16 hi + lo: warpgroup ``wgmma`` fed by TMA where TMA
+can read every operand (:func:`bwd_plan`), ``mma.sync`` for the shapes
+it cannot; f32 on the CUDA cores.
 :class:`FusedMlp` ties the two kernels into autograd; :func:`mlp` takes
 it where a gradient is wanted and one forward launch otherwise.
 
@@ -72,6 +74,8 @@ from repro_torch.kernels.build import CudaLibrary
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: activations → the kernel's code
 ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2, "squared_relu": 3}
+#: the backward planner's routes → the launcher's code
+BWD_ROUTE_CODES = {"cuda_core": 0, "mma": 1, "wgmma": 2}
 
 #: kernel launches so far (one per call that reached the card), and
 #: calls of the plain version on a CUDA tensor (the wrapper never makes
@@ -96,7 +100,7 @@ def _declare(lib) -> None:
 
 def _declare_bwd(lib) -> None:
     fn = lib.fused_mlp_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.fused_mlp_bwd_error_string.argtypes = [ctypes.c_int]
@@ -316,6 +320,20 @@ def fused_mlp_bwd_plain(
             dwu.to(w_up.dtype), dwd.to(w_down.dtype))
 
 
+def bwd_plan(x, w_gate, w_up, w_down, dy):
+    """The plan :func:`fused_mlp_bwd` launches for these contiguous
+    inputs: :func:`repro_torch.core.dse.plan_mlp_bwd_blocks` with their
+    bases' alignment — the launcher's own test, which also covers the
+    outputs and the scratch (fresh from the allocator, 16-byte aligned)."""
+    m, d = x.shape
+    aligned = all(t is None or t.data_ptr() % 16 == 0
+                  for t in (x, w_gate, w_up, w_down, dy))
+    return plan_mlp_bwd_blocks(m=m, d=d, f=w_up.shape[1],
+                               gated=w_gate is not None,
+                               dtype=str(x.dtype).removeprefix("torch."),
+                               aligned=aligned)
+
+
 def fused_mlp_bwd(
     x: torch.Tensor,                  # (M, D)
     w_gate: torch.Tensor | None,      # (D, F) or None (ungated)
@@ -331,22 +349,24 @@ def fused_mlp_bwd(
     On a CUDA tensor this launches the hand-written backward (its three
     kernels on the calling thread's current stream; one added to
     ``bwd_launches``) or raises: what :func:`fused_mlp` refuses, or a
-    ``dy`` that does not fit x.  The kernels tile by
-    :func:`repro_torch.core.dse.plan_mlp_bwd_blocks`.  Only a CPU tensor
-    takes :func:`fused_mlp_bwd_plain`.  Deterministic: the same inputs
-    give the same bits."""
+    ``dy`` that does not fit x.  The kernels' route and tiles are
+    :func:`bwd_plan`'s (:func:`repro_torch.core.dse.plan_mlp_bwd_blocks`):
+    bf16 on ``"wgmma"`` where TMA can read every operand, else on
+    ``"mma"``; the launcher refuses a route the shape does not take.  Only
+    a CPU tensor takes :func:`fused_mlp_bwd_plain`.  Deterministic: the
+    same inputs give the same bits."""
     global bwd_launches
     _check_bwd(x, w_gate, w_up, w_down, dy, act)
     m, d = x.shape
     f = w_up.shape[1]
-    plan = plan_mlp_bwd_blocks(m=m, d=d, f=f, gated=w_gate is not None,
-                               dtype=str(x.dtype).removeprefix("torch."))
     if not x.is_cuda:
+        bwd_plan(x, w_gate, w_up, w_down, dy)       # the planner's checks
         return fused_mlp_bwd_plain(x, w_gate, w_up, w_down, dy, act=act)
     x, w_up, w_down = x.contiguous(), w_up.contiguous(), w_down.contiguous()
     dy = dy.to(x.dtype).contiguous()
     if w_gate is not None:
         w_gate = w_gate.contiguous()
+    plan = bwd_plan(x, w_gate, w_up, w_down, dy)
     dx = torch.empty_like(x)
     dwu, dwd = torch.empty_like(w_up), torch.empty_like(w_down)
     dwg = None if w_gate is None else torch.empty_like(w_gate)
@@ -361,8 +381,9 @@ def fused_mlp_bwd(
         return lib.fused_mlp_bwd_launch(
             x.data_ptr(), ptr(w_gate), w_up.data_ptr(), w_down.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), ptr(dwg), dwu.data_ptr(),
-            dwd.data_ptr(), hidden.data_ptr(), _DTYPE_CODES[x.dtype], m, d,
-            f, ACT_CODES[act], int(w_gate is not None),
+            dwd.data_ptr(), hidden.data_ptr(), _DTYPE_CODES[x.dtype],
+            BWD_ROUTE_CODES[plan.route], m, d, f, ACT_CODES[act],
+            int(w_gate is not None),
             torch.cuda.current_stream(x.device).cuda_stream)
 
     rc = _on_device(x, launch)

@@ -16,6 +16,7 @@ CUDA kernels themselves are held against the plain version on the card
 by ``chip_smoke.py``'s ``mlp_bwd_check`` and by the ``cuda``-marked
 tests below; here ``chip_smoke.mlp_bwd_split``, the kernels' formula with
 their bf16 roundings, sets the card's hi + lo bound."""
+import pathlib
 import re
 
 import numpy as np
@@ -246,45 +247,183 @@ def test_cpu_call_never_builds_or_loads_the_library(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+def _cu_source() -> str:
+    return (build.CSRC / "fused_mlp_bwd.cu").read_text()
+
+
 def _cu_constant(name: str) -> int:
-    src = (build.CSRC / "fused_mlp_bwd.cu").read_text()
-    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+    return int(re.search(rf"\b{name} = (\d+)", _cu_source()).group(1))
+
+
+def _expr(src, start):
+    """The expression from ``start`` to the next ``;``, whitespace cut."""
+    return " ".join(src[src.index(start):].split(";")[0].split())
 
 
 def test_the_kernels_tiles_are_the_planners():
-    assert (_cu_constant("HM"), _cu_constant("HN")) == \
+    """Every tile, chunk, stage and thread constant of the three routes is
+    the planner's, and each route's shared memory is the formula of
+    ``dse.mlp_bwd_smem_bytes``."""
+    # "wgmma": warp-specialised, TMA into a ring
+    assert (_cu_constant("HWM"), _cu_constant("HWN")) == \
         dse.MLP_BWD_HIDDEN_TILE["bfloat16"]
-    assert (_cu_constant("GM"), _cu_constant("GN")) == \
+    assert (_cu_constant("GWM"), _cu_constant("GWN")) == \
         dse.MLP_BWD_GEMM_TILE["bfloat16"]
-    assert _cu_constant("KC") == dse.MLP_BWD_CHUNK_K["bfloat16"]
-    assert _cu_constant("STAGES") == dse.MLP_BWD_STAGES
+    assert _cu_constant("BK") == dse.MLP_BWD_CHUNK_K["bfloat16"]
+    assert _cu_constant("HBK") == dse.MLP_BWD_HIDDEN_CHUNK_K
+    assert _cu_constant("H_STAGES") == dse.MLP_BWD_STAGES["hidden"]
+    assert _cu_constant("G_STAGES") == dse.MLP_BWD_STAGES["gemm"]
+    assert _cu_constant("WG_THREADS") == dse.MLP_BWD_WG_THREADS
+    # "mma": the mma.sync kernels, kept for what TMA cannot read
+    assert (_cu_constant("HM"), _cu_constant("HN")) == \
+        dse.MLP_BWD_MMA_HIDDEN_TILE
+    assert (_cu_constant("GM"), _cu_constant("GN")) == \
+        dse.MLP_BWD_MMA_GEMM_TILE
+    assert _cu_constant("KC") == dse.MLP_BWD_MMA_CHUNK_K
+    assert _cu_constant("STAGES") == dse.MLP_BWD_MMA_STAGES
+    # "cuda_core": f32
     assert (_cu_constant("FT"),) * 2 == dse.MLP_BWD_HIDDEN_TILE["float32"] \
         == dse.MLP_BWD_GEMM_TILE["float32"]
     assert _cu_constant("FK") == dse.MLP_BWD_CHUNK_K["float32"]
     assert _cu_constant("THREADS") == dse.MLP_THREADS
 
+    src = _cu_source()
+    assert _expr(src, "constexpr int H_STAGE_BYTES =") == (
+        "constexpr int H_STAGE_BYTES = 2 * H_X + 3 * H_W")
+    assert _expr(src, "constexpr int G_STAGE_BYTES =") == (
+        "constexpr int G_STAGE_BYTES = 2 * G_A + G_B")
+    assert _expr(src, "constexpr int H_OUT_BYTES =") == (
+        "constexpr int H_OUT_BYTES = 2 * 6 * (HWN / 64) * SLAB")
+    assert _expr(src, "constexpr int H_RING =") == (
+        "constexpr int H_RING = H_STAGES * H_STAGE_BYTES > H_OUT_BYTES ? "
+        "H_STAGES * H_STAGE_BYTES : H_OUT_BYTES")
+    assert _expr(src, "constexpr size_t H_WG_SMEM =") == (
+        "constexpr size_t H_WG_SMEM = (size_t)H_RING + 1024")
+    assert _expr(src, "constexpr size_t G_WG_SMEM =") == (
+        "constexpr size_t G_WG_SMEM = (size_t)G_STAGES * G_STAGE_BYTES + "
+        "1024")
+    assert "uint64_t full[H_STAGES], empty[H_STAGES];" in src
+    assert src.count("uint64_t full[G_STAGES], empty[G_STAGES];") == 2
+    assert "constexpr int ROW_BYTES = BK * 2;" in src
+    assert "constexpr int H_ROW = HBK * 2;" in src
+    assert "constexpr int SLAB = 64 * ROW_BYTES;" in src
+    assert _expr(src, "constexpr int H_X =") == (
+        "constexpr int H_X = HWM * H_ROW, H_W = HWN * H_ROW, "
+        "H_WBOX = HBK * H_ROW")
+    assert _expr(src, "constexpr int G_A =") == (
+        "constexpr int G_A = GWM * ROW_BYTES, G_B = GWN * ROW_BYTES")
+    (hm, hn), (gm, gn) = (dse.MLP_BWD_HIDDEN_TILE["bfloat16"],
+                          dse.MLP_BWD_GEMM_TILE["bfloat16"])
+    row = 2 * dse.MLP_BWD_CHUNK_K["bfloat16"]
+    hrow = 2 * dse.MLP_BWD_HIDDEN_CHUNK_K
+    hs, gs = dse.MLP_BWD_STAGES["hidden"], dse.MLP_BWD_STAGES["gemm"]
+    slab = 64 * row
+    assert dse.mlp_bwd_smem_bytes("wgmma") == {
+        "hidden": max(hs * (2 * hm + 3 * hn) * hrow,
+                      2 * 6 * (hn // 64) * slab) + 1024 + 2 * 8 * hs,
+        "gemm": gs * (2 * gm + gn) * row + 1024 + 2 * 8 * gs}
+    # the producer's 40 registers and the consumers' 232 within the SM's
+    assert "constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;" in src
+    assert 128 * 40 + 2 * 128 * 232 <= 65536
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("gated", [True, False])
 def test_the_train_shape_gets_a_plan(dtype, gated):
-    """llama3.2-1b's train microbatch: every output tile a block, the
-    scratch h, du (and dg) at 4 bytes an element, each kernel's shared
-    memory within one block's."""
+    """llama3.2-1b's train microbatch: bf16 on ``"wgmma"`` — the hidden
+    kernel's (128, 64) tiles, the weight gradients' 128 x 256 tiles of (F,
+    D) for each of the two or three products, dx's of (M, D) — f32 on the
+    CUDA cores; the scratch h, du (and dg) at 4 bytes an element, each
+    kernel's shared memory within one block's."""
     m, d, f = 16384, 2048, 8192
     plan = dse.plan_mlp_bwd_blocks(m=m, d=d, f=f, gated=gated, dtype=dtype)
     (hm, hn), (gm, gn) = (dse.MLP_BWD_HIDDEN_TILE[dtype],
                           dse.MLP_BWD_GEMM_TILE[dtype])
-    assert plan.route == ("mma" if dtype == "bfloat16" else "cuda_core")
-    assert plan.grids == {
-        "hidden": (m // hm) * (f // hn),
-        "wgrad": (3 if gated else 2) * (f // gm) * (d // gn),
-        "dx": (m // gm) * (d // gn)}
-    assert plan.hidden_bytes == (3 if gated else 2) * 4 * m * f
+    terms = 3 if gated else 2
+    if dtype == "bfloat16":
+        assert plan.route == "wgmma"
+        assert plan.grids == {"hidden": (m // 128) * (f // 64),
+                              "wgrad": terms * (f // 128) * (d // 256),
+                              "dx": (m // 128) * (d // 256)}
+        assert plan.grids["wgrad"] == (1536 if gated else 1024)
+        assert plan.grids["dx"] == 1024
+        assert plan.smem_bytes == dse.mlp_bwd_smem_bytes("wgmma")
+    else:
+        assert plan.route == "cuda_core"
+        assert plan.grids == {
+            "hidden": (m // hm) * (f // hn),
+            "wgrad": terms * (f // gm) * (d // gn),
+            "dx": (m // gm) * (d // gn)}
+    assert plan.hidden_bytes == terms * 4 * m * f
     assert all(v <= dse.H100.smem_per_block
                for v in plan.smem_bytes.values())
     with pytest.raises(ValueError, match="limit"):
         dse.plan_mlp_bwd_blocks(m=1, d=dse.MLP_MAX_D + 1, f=8, gated=gated,
                                 dtype=dtype)
+
+
+@pytest.mark.parametrize("m,d,f,aligned", [(37, 895, 999, True),
+                                           (100, 256, 1000, False),
+                                           (100, 896, 1004, True),
+                                           (16384, 2048, 8192, False)])
+def test_what_tma_cannot_read_plans_mma(m, d, f, aligned):
+    """D or F off a multiple of 8 bf16 (16 bytes), or a base off 16 bytes,
+    takes the ``"mma"`` route with its own tiles; bf16 alone has the
+    choice."""
+    plan = dse.plan_mlp_bwd_blocks(m=m, d=d, f=f, gated=True,
+                                   dtype="bfloat16", aligned=aligned)
+    (hm, hn), (gm, gn) = (dse.MLP_BWD_MMA_HIDDEN_TILE,
+                          dse.MLP_BWD_MMA_GEMM_TILE)
+
+    def tiles(r, c, tr, tc):
+        return -(-r // tr) * -(-c // tc)
+
+    assert plan.route == "mma"
+    assert plan.grids == {
+        "hidden": tiles(m, f, hm, hn),
+        "wgrad": tiles(f, d, gm, gn) + 2 * tiles(d, f, gm, gn),
+        "dx": tiles(m, d, gm, gn)}
+    assert plan.smem_bytes == dse.mlp_bwd_smem_bytes("mma")
+    assert dse.plan_mlp_bwd_blocks(m=m, d=d, f=f, gated=True,
+                                   dtype="float32",
+                                   aligned=aligned).route == "cuda_core"
+    assert dse.plan_mlp_bwd_blocks(m=m, d=1024, f=1024, gated=True,
+                                   dtype="bfloat16").route == "wgmma"
+
+
+def test_the_launchers_alignment_test_is_the_planners():
+    """The launcher takes the wgmma route only where its own test holds —
+    D and F multiples of ``MLP_BWD_TMA_ALIGN``, every base 16-byte aligned
+    — the planner's rule; refuses the route elsewhere rather than take
+    another; and the wrapper hands the planner the bases' alignment and
+    the launcher the planner's route."""
+    src = _cu_source()
+    a = dse.MLP_BWD_TMA_ALIGN
+    assert a * 2 == 16
+    assert (f"const bool tma_ok = D % {a} == 0 && F % {a} == 0 && "
+            "(bases & 15) == 0;") in src
+    assert _expr(src, "if (route == 2) {") == (
+        "if (route == 2) { if (!tma_ok) return (int)cudaErrorInvalidValue")
+    assert "(dtype == 0 ? route != 0 : route != 1 && route != 2))" in src
+    for name, addr in (("x", "x"), ("wg", "wg"), ("wu", "wu"), ("wd", "wd"),
+                       ("dy", "dy"), ("dx", "dx"), ("dwg", "dwg"),
+                       ("dwu", "dwu"), ("dwd", "dwd"), ("hidden", "hidden")):
+        assert f"reinterpret_cast<uintptr_t>({addr})" in src, name
+    assert tfm.BWD_ROUTE_CODES == {"cuda_core": 0, "mma": 1, "wgmma": 2}
+    py = pathlib.Path(tfm.__file__).read_text()
+    assert "t.data_ptr() % 16 == 0" in py
+    assert "BWD_ROUTE_CODES[plan.route]" in py
+    assert "plan = bwd_plan(x, w_gate, w_up, w_down, dy)" in py
+    # bwd_plan's alignment on tensors: one element off is two bytes off
+    x, wg, wu, wd, dy = (_t(a, "bfloat16") for a in _inputs(11, 100, 256,
+                                                              1000))
+    assert tfm.bwd_plan(x, wg, wu, wd, dy).route == "wgmma"
+    buf = torch.zeros(100 * 256 + 1, dtype=torch.bfloat16)
+    off = buf[1:].view(100, 256)
+    assert off.data_ptr() % 16 != 0
+    assert tfm.bwd_plan(off, wg, wu, wd, dy).route == "mma"
+    assert tfm.bwd_plan(*(t.float() for t in (x, wg, wu, wd, dy))).route \
+        == "cuda_core"
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +493,29 @@ def test_the_rule_catches_the_planted_faults():
     got = _emulated(inputs, "silu", hilo=True)
     report = chip_smoke._mlp_bwd_faults(inputs, "silu", got, want)
     assert set(report) == set(chip_smoke.MLP_BWD_FAULTS)
+    assert {"act_grad", "f_shift", "k_stale"} <= set(report)
     assert all(r["caught"] for r in report.values())
+
+
+def test_k_stale_is_a_stale_chunk_of_the_weight_gradient_walk():
+    """``k_stale`` plants one chunk of ``MLP_BWD_CHUNK_K`` rows of the
+    weight gradients' walk over M read again from the slot before it: dx
+    is untouched, each weight gradient moves by exactly that chunk's
+    terms."""
+    inputs = [t.float() for t in _bf16_inputs(12, 256, 64, 128, True)]
+    k = dse.MLP_BWD_CHUNK_K["bfloat16"]
+    clean = chip_smoke.mlp_bwd_split(*inputs, act="silu")
+    bad = chip_smoke.mlp_bwd_split(*inputs, act="silu", fault="k_stale")
+    assert torch.equal(bad[0], clean[0])
+    x, wg, wu, wd, dy = inputs
+    h, du, dg = tfm.mlp_bwd_hidden(x, wg, wu, wd, dy, act="silu")
+    last, prev = slice(-k, None), slice(-2 * k, -k)
+    want_dwd = clean[3] - h[last].T @ dy[last] + h[prev].T @ dy[prev]
+    torch.testing.assert_close(bad[3], want_dwd, atol=1e-4, rtol=1e-5)
+    want_dwu = clean[2] - x[last].T @ du[last] + x[prev].T @ du[prev]
+    torch.testing.assert_close(bad[2], want_dwu, atol=1e-4, rtol=1e-5)
+    want_dwg = clean[1] - x[last].T @ dg[last] + x[prev].T @ dg[prev]
+    torch.testing.assert_close(bad[1], want_dwg, atol=1e-4, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
