@@ -81,10 +81,15 @@ Phases, each printing one JSON object on a line of its own:
                   query offset, GQA groups 1/4/8, head dim 16-128, ragged
                   Sq / Sk, rows that see no key, llama3.2-1b's and
                   granite-moe's train shapes (B 4, 32/8 and 16/8 heads of
-                  64, S 4096); two runs the same bits; the forward's lse
-                  against the plain forward's; at llama3.2-1b's train
-                  shape timed beside the plain version, the bound and
-                  SDPA's backward as yardstick;
+                  64, S 4096), a q 2 bytes off 16; each row naming the
+                  planner's route (bf16: "wgmma" at heads of 64 and 128,
+                  "mma" at 16, 40 and for the unaligned q); two runs the
+                  same bits; the forward's lse against the plain
+                  forward's; at llama3.2-1b's train shape planted faults
+                  (a skipped key tile, a stale ring slot, ...) failing the
+                  rule, and a call timed beside the plain version, the
+                  bound, the design's floor and SDPA's backward as
+                  yardstick, with each kernel's device ms and TFLOP/s;
 9. ``mlp_check``  the hand-written fused-MLP kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
                   = rtol = 5e-4 and bf16 (tensor cores, a cluster per row
@@ -1355,8 +1360,13 @@ def attn_check(torch) -> dict:
 # the attention backward kernel vs its plain version on the card
 # ---------------------------------------------------------------------------
 
+#: a case whose q lies one element into its buffer (bf16: 2 bytes off 16):
+#: TMA cannot read it, so the planner sends it to the ``"mma"`` route
+ATTN_BWD_UNALIGNED = ("unaligned.q", 2, 8, 2, 300, 300, 64, True, 0)
 #: (name, B, Hq, Hkv, Sq, Sk, D, causal, q_offset) — checked in f32 and
-#: bf16; the first is llama3.2-1b's train shape (train_4k's sequence)
+#: bf16; the first is llama3.2-1b's train shape (train_4k's sequence).
+#: bf16 plans ``"wgmma"`` at heads of 64 and 128, ``"mma"`` at 16 and 40
+#: and for ``ATTN_BWD_UNALIGNED``
 ATTN_BWD_CASES = (
     ("llama3.2-1b.train", 4, 32, 8, 4096, 4096, 64, True, 0),
     ("granite-moe.train", 4, 16, 8, 4096, 4096, 64, True, 0),
@@ -1374,6 +1384,7 @@ ATTN_BWD_CASES = (
     ("seamless.encoder.train", 4, 16, 16, 4096, 4096, 64, False, 0),
     ("seamless.decoder.train", 4, 16, 16, 1024, 1024, 64, True, 0),
     ("jamba.train.cut", 4, 8, 1, 4096, 4096, 128, True, 0),
+    ATTN_BWD_UNALIGNED,
 )
 ATTN_BWD_HEADLINE = ("llama3.2-1b.train", "bfloat16")
 #: f32: the reference's own tolerance for its streaming backward
@@ -1394,6 +1405,8 @@ ATTN_BWD_HEADLINE = ("llama3.2-1b.train", "bfloat16")
 ATTN_BWD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 1e-2)}
 ATTN_BWD_ROW_FLOOR = 1e-3
 ATTN_BWD_KERNELS = ("attn_bwd_",)
+#: the backward's three kernels, one launch each a call, every route
+ATTN_BWD_EACH = ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 
 
 def _need(got, want, rtol: float, axes, floor: float) -> float:
@@ -1468,6 +1481,10 @@ def attn_bwd_check(torch) -> dict:
             what = f"{name} {dt_name}"
             q = (torch.randn(b * hq, sq, d, generator=gen)
                  * d ** -0.5).to(dtype).cuda()
+            if name == ATTN_BWD_UNALIGNED[0]:   # one element into a buffer
+                buf = torch.empty(q.numel() + 1, dtype=dtype, device="cuda")
+                buf[1:].copy_(q.reshape(-1))
+                q = buf[1:].view(q.shape)
             k = torch.randn(b * hkv, sk, d, generator=gen).to(dtype).cuda()
             v = torch.randn(b * hkv, sk, d, generator=gen).to(dtype).cuda()
             dout = torch.randn(b * hq, sq, d, generator=gen).to(dtype).cuda()
@@ -1501,10 +1518,17 @@ def attn_bwd_check(torch) -> dict:
                         f"{what}: a row that sees no key passed a gradient")
             worst[dt_name] = max(worst[dt_name], err)
             n += 1
-            row = {"shape": name, "dtype": dt_name, "q": [b, hq, sq, d],
-                   "kv": [b, hkv, sk, d], "causal": causal,
-                   "q_offset": q_offset, "max_abs_err": err,
-                   "lse_max_abs_err": lse_err, "out_max_abs_err": out_err}
+            route = fa.bwd_plan(q, k, v, dout, heads_q=hq,
+                                heads_kv=hkv).route
+            if dt_name == "bfloat16" and route != (
+                    "mma" if name == ATTN_BWD_UNALIGNED[0] or d % 64
+                    else "wgmma"):
+                raise AssertionError(f"{what}: planned {route}")
+            row = {"shape": name, "dtype": dt_name, "route": route,
+                   "q": [b, hq, sq, d], "kv": [b, hkv, sk, d],
+                   "causal": causal, "q_offset": q_offset,
+                   "max_abs_err": err, "lse_max_abs_err": lse_err,
+                   "out_max_abs_err": out_err}
             if dt_name == "bfloat16":
                 row["row_need"] = {nm: _row_need(g_, w_) for g_, w_, nm in
                                    zip(got, want, ("dq", "dk", "dv"))}
@@ -1534,8 +1558,70 @@ def _out_close(out, want, dtype_name: str, what: str) -> float:
     return float(diff.max())
 
 
-#: the last key tile, as the kernel tiles keys (64)
-ATTN_BWD_KEY_TILE = 64
+#: the dK/dV kernel's tiles on the headline's route ("wgmma"): keys a
+#: block, query rows a ring slot — ``dse.ATTN_BWD_WG_TILES["dkdv"]``, which
+#: a test holds equal
+ATTN_BWD_KEY_TILE = 128
+ATTN_BWD_Q_STEP = 64
+
+
+def attn_bwd_q_stale(q, k, v, out, lse, dout, *, heads_q: int,
+                     heads_kv: int, causal: bool, q_offset: int,
+                     key_tile: int = ATTN_BWD_KEY_TILE,
+                     q_step: int = ATTN_BWD_Q_STEP, **_) -> tuple:
+    """The effect on (dk, dv), f32, of a stale ring slot in the dK/dV
+    kernel: the last query tile of each key block's walk (the group's
+    heads in turn, each over the query tiles of ``q_step`` rows that see
+    the block) read from the slot before it — the previous tile's Q, dO,
+    lse and delta taken for the last one, under the last one's positions.
+    Layout as ``flash_attention_bwd``; ``q`` pre-scaled."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    bhq, sq, d = q.shape
+    sk = k.shape[1]
+    b, g = bhq // heads_q, heads_q // heads_kv
+    qf = q.float().reshape(b, heads_kv, g, sq, d)
+    dof = dout.float().reshape(b, heads_kv, g, sq, d)
+    lsef = lse.float().reshape(b, heads_kv, g, sq)
+    delta = (dof * out.float().reshape(b, heads_kv, g, sq, d)).sum(-1)
+    kf = k.float().reshape(b, heads_kv, sk, d)
+    vf = v.float().reshape(b, heads_kv, sk, d)
+    n_qt = -(-sq // q_step)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+
+    def contrib(data, at, k0, k1):
+        """dk, dv of keys k0..k1 from the query tile ``data`` = (head,
+        tile) at the positions of tile ``at`` (rows past either's end add
+        nothing)."""
+        (gd, td), (_, ta) = data, at
+        r0 = ta * q_step
+        n = min(sq - td * q_step, sq - r0, q_step)
+        rows = slice(td * q_step, td * q_step + n)
+        qc, doc = qf[:, :, gd, rows], dof[:, :, gd, rows]
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf[:, :, k0:k1])
+        p = torch.exp(s - lsef[:, :, gd, rows, None])
+        if causal:
+            vis = fa.causal_mask(n, k1 - k0, r0 + q_offset - k0, q.device)
+            p = torch.where(vis, p, 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doc, vf[:, :, k0:k1])
+        ds = p * (dp - delta[:, :, gd, rows, None])
+        return (torch.einsum("bhqk,bhqd->bhkd", ds, qc),
+                torch.einsum("bhqk,bhqd->bhkd", p, doc))
+
+    for k0 in range(0, sk, key_tile):
+        k1 = min(sk, k0 + key_tile)
+        qt0 = (max(0, k0 - q_offset) if causal else 0) // q_step
+        walk = [(gi, t) for gi in range(g) for t in range(qt0, n_qt)]
+        if len(walk) < 2:
+            continue
+        bad = contrib(walk[-2], walk[-1], k0, k1)
+        good = contrib(walk[-1], walk[-1], k0, k1)
+        dk[:, :, k0:k1] = bad[0] - good[0]
+        dv[:, :, k0:k1] = bad[1] - good[1]
+    return dk.reshape(k.shape), dv.reshape(v.shape)
 
 
 def _planted_faults(fa, q, k, v, out, lse, dout, got, want, bkw) -> dict:
@@ -1544,9 +1630,10 @@ def _planted_faults(fa, q, k, v, out, lse, dout, got, want, bkw) -> dict:
     last key tile's share out of dq (its diagonal tile's, from the plain
     backward of that tile alone) and zeroes that tile's dk and dv rows;
     "dv 0, last quarter" zeroes dv of the last quarter of the keys; "dq
-    ×1.3 past the first quarter" scales those query rows.  Beside each:
-    the share of the scale it needs per row and per tensor, both against
-    the rule's 1e-2."""
+    ×1.3 past the first quarter" scales those query rows; "q_stale" adds
+    to dk and dv the effect of a stale ring slot (:func:`attn_bwd_q_stale`).
+    Beside each: the share of the scale it needs per row and per tensor,
+    both against the rule's 1e-2."""
     t = ATTN_BWD_KEY_TILE
     sq, sk = q.shape[1], k.shape[1]
     dq, dk, dv = got
@@ -1567,6 +1654,10 @@ def _planted_faults(fa, q, k, v, out, lse, dout, got, want, bkw) -> dict:
     faults["dv 0, last quarter of the keys"][0][:, sk - sk // 4:] = 0
     late = faults["dq x1.3 past the first quarter"][0][:, sq // 4:]
     late.copy_((late.float() * 1.3).to(late.dtype))
+    stale = attn_bwd_q_stale(q, k, v, out, lse, dout, **bkw)
+    for i, nm in ((1, "dk"), (2, "dv")):
+        faults[f"q_stale: {nm}"] = (
+            (got[i].float() + stale[i - 1]).to(got[i].dtype), want[i])
     rule = ATTN_BWD_TOL["bfloat16"][1]
     report = {}
     for name, (bad, good) in faults.items():
@@ -1582,17 +1673,25 @@ def _planted_faults(fa, q, k, v, out, lse, dout, got, want, bkw) -> dict:
 
 def _attn_bwd_times(torch, F, run, plain, q, k, v, out, lse, dout, got, b,
                     hq, hkv, sq, sk, d, causal, q_offset) -> dict:
-    """ms of the kernel (CUDA events; device ms from the profiler), of the
-    plain version and of SDPA's backward (flash backend, k and v expanded
-    to the query heads, so it is the backward alone) at one shape, and the
-    bound: five products of 2·D flops per visible (query, key) pair at the
-    bf16 tensor-core peak, or the bytes in and out at 3.35 TB/s."""
+    """ms of the kernel (CUDA events; device ms from the profiler, the
+    three kernels summed, and each kernel's own with the TFLOP/s of its
+    work: delta 2·D flops a query row, dK/dV four products of 2·D flops a
+    visible (query, key) pair, dQ three), of the plain version and of
+    SDPA's backward (flash backend, k and v expanded to the query heads,
+    so it is the backward alone) at one shape; the bound: five products of
+    2·D flops per visible pair at the bf16 tensor-core peak, or the bytes
+    in and out at 3.35 TB/s; beside it the design's floor, its seven
+    products at the peak (the dQ pass recomputes S and dP)."""
     ms = time_ms(run, warmup=1, reps=5)
-    dev_ms = device_ms(run, reps=3, kernel=ATTN_BWD_KERNELS)
+    each = device_ms_each(run, reps=3, kernels=ATTN_BWD_EACH)
     plain_ms = time_ms(plain, warmup=1, reps=2)
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (q, k, v, out, lse, dout, *got))
-    flops = 5 * 2 * d * b * hq * _visible_pairs(sq, sk, causal, q_offset)
+    pairs = b * hq * _visible_pairs(sq, sk, causal, q_offset)
+    flops = 5 * 2 * d * pairs
+    work = {"attn_bwd_delta": 2 * d * b * hq * sq,
+            "attn_bwd_dkdv": 4 * 2 * d * pairs,
+            "attn_bwd_dq": 3 * 2 * d * pairs}
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
     g = hq // hkv
@@ -1610,10 +1709,17 @@ def _attn_bwd_times(torch, F, run, plain, q, k, v, out, lse, dout, got, b,
                          - got[0].float()).abs().max()),
                   float((lib_dk - got[1].float()).abs().max()))
     library_ms = time_ms(lib, warmup=1, reps=5)
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+    return {"ms": ms, "device_ms": each["per_call"],
+            "device_ms_each": {k_: each[k_] for k_ in ATTN_BWD_EACH},
+            "tflops_each": {k_: work[k_] / (each[k_] * 1e-3) / 1e12
+                            if each[k_] else None for k_ in ATTN_BWD_EACH},
+            "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": flops, "library_ms": library_ms,
+            "bytes": n_bytes, "flops": flops,
+            "design_floor_ms": 7 * 2 * d * pairs
+            / TENSOR_CORE_BF16_OPS_PER_S * 1e3,
+            "library_ms": library_ms,
             "library_vs_kernel_max_abs": lib_err}
 
 
@@ -4477,10 +4583,15 @@ def main(argv=None) -> int:
         "launches": fb_launches,
         "max_abs_err": max(attn_bwd["max_abs_err_f32"],
                            attn_bwd["max_abs_err_bf16"]),
-        "ms": bhead["ms"], "plain_ms": bhead["plain_ms"],
+        "ms": bhead["ms"], "device_ms": bhead["device_ms"],
+        "device_ms_each": bhead["device_ms_each"],
+        "tflops_each": bhead["tflops_each"],
+        "planner_route": bhead["route"],
+        "plain_ms": bhead["plain_ms"],
         "bound_ms": bhead["bound_ms"], "bound_by": bhead["bound_by"],
         "library_ms": bhead["library_ms"],
-        "timed_at": f"{ATTN_BWD_HEADLINE[0]} {ATTN_BWD_HEADLINE[1]} (no TPU "
+        "timed_at": f"{ATTN_BWD_HEADLINE[0]} {ATTN_BWD_HEADLINE[1]}, per call "
+                    "of the delta, dK/dV and dQ kernels (no TPU "
                     "kernel: the counterpart of the reference's XLA custom "
                     "VJP; library: F.scaled_dot_product_attention's "
                     "backward, flash backend, k/v expanded to the query "

@@ -23,7 +23,9 @@ across every producer/consumer pair — Eq. (1)'s stream constraint.
 ``plan_ssd_blocks`` are the runtime's counterparts on the NVIDIA H100:
 the same question (what fits the on-chip buffer?) asked of a thread
 block's shared memory and registers; their outputs tile the streaming
-conv, flash-attention, fused-MLP and SSD kernels.
+conv, flash-attention, fused-MLP and SSD kernels.  The backwards'
+planners (``plan_attn_bwd_blocks``, ``plan_mlp_bwd_blocks``,
+``plan_ssd_bwd_blocks``) also pick each one's route.
 """
 from __future__ import annotations
 
@@ -750,6 +752,134 @@ def plan_attention_blocks(
         {"block_q": bq, "block_k": ATTN_BLOCK_K, "head_pad": head_dim},
         attention_smem_bytes(head_dim=head_dim, block_q=bq),
         batch_heads * -(-seq_q // bq),
+    )
+
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100: routes and tiles of the attention backward
+# ---------------------------------------------------------------------------
+
+#: ``kernels/csrc/flash_attention_bwd.cu``, three kernels a call: delta
+#: (one warp a query row, ``ATTN_BWD_THREADS`` a block), then dK/dV (one
+#: block per (batch·KV head, key tile) walking the query tiles of its GQA
+#: group in order) and dQ (one block per (batch·query head, query tile)
+#: walking the key tiles in order) — deterministic, no float atomics.
+#: Routes: bf16 ``"wgmma"`` (warpgroup products fed by TMA:
+#: ``ATTN_BWD_WG_THREADS`` threads, a producer warpgroup and two
+#: consumers; dK/dV blocks of ``ATTN_BWD_WG_TILES["dkdv"]`` = (keys a
+#: block, query rows a ring slot), dQ blocks of
+#: ``ATTN_BWD_WG_TILES["dq"]`` = (query rows a block, keys a ring slot),
+#: rings of ``ATTN_BWD_WG_STAGES`` slots; blocks run tile major, the
+#: heaviest causal tile of every head first) where TMA can read every
+#: operand — a head of ``ATTN_BWD_WG_HEADS`` and 16-byte aligned bases;
+#: other bf16 shapes ``"mma"`` (``mma.sync``, ``ATTN_BWD_MMA_THREADS``
+#: threads, tiles of ``ATTN_BWD_TILE`` both ways, the head padded to
+#: ``ATTN_MMA_HEAD_PADS``, blocks head major); f32 ``"cuda_core"``
+#: (``ATTN_BWD_THREADS`` threads, the same tiles).  The kernel's constants
+#: of the same meaning; a test holds them equal
+ATTN_BWD_THREADS = 256
+ATTN_BWD_MMA_THREADS = 128
+ATTN_BWD_TILE = 64
+ATTN_BWD_WG_THREADS = 384
+ATTN_BWD_WG_TILES = {"dkdv": (128, 64), "dq": (128, 64)}
+ATTN_BWD_WG_STAGES = 4
+ATTN_BWD_WG_HEADS = (64, 128)
+
+
+@dataclass
+class AttnBwdPlan:
+    """Routes and tiles of one attention backward (three launches):
+    ``route`` (``"wgmma"`` or ``"mma"`` for bf16, ``"cuda_core"`` for
+    f32); ``tiles`` the dK/dV kernel's (keys a block, query rows a step)
+    and the dQ kernel's (query rows a block, keys a step); ``grids`` the
+    blocks of ``"delta"``, ``"dkdv"`` and ``"dq"``; ``smem_bytes`` the
+    dK/dV and dQ kernels' shared memory.  Causal, every kernel starts its
+    heaviest tiles first: key tile 0 (dK/dV) and the last query tile (dQ)
+    — on ``"wgmma"`` of every head at once (blocks tile major), on the
+    other routes head by head."""
+
+    route: str
+    tiles: dict
+    grids: dict
+    smem_bytes: dict
+
+
+def attn_bwd_smem_bytes(*, route: str, head_dim: int) -> dict:
+    """Dynamic shared memory of the dK/dV and dQ kernels — the formulas of
+    ``flash_attention_bwd.cu``.  ``"wgmma"``, all bf16 with the head as
+    one or two 64-wide boxes: dK/dV the K and V tiles of its keys, then
+    ``ATTN_BWD_WG_STAGES`` slots of a Q and a dO tile of its query rows
+    plus their lse and delta (f32); dQ the Q and dO tiles of its rows, then
+    the slots of a K and a V tile; each plus 1024 bytes to align it.
+    ``"mma"``: six bf16 tiles of 64 rows of the padded head plus
+    ``MMA_ROW_PAD``, and two stages of lse and delta.  ``"cuda_core"``: f32
+    tiles of rows of the padded head plus 4 (dK/dV: K, V, Q, dO and the
+    (64 × 68) p and ds tiles; dQ: Q, dO, K, V and ds transposed), and lse
+    and delta of the query tile."""
+    t = ATTN_BWD_TILE
+    if route == "wgmma":
+        (kb, qs), (qb, ks) = ATTN_BWD_WG_TILES["dkdv"], ATTN_BWD_WG_TILES["dq"]
+        st, d = ATTN_BWD_WG_STAGES, head_dim
+        return {"dkdv": 2 * kb * d * 2 + st * (2 * qs * d * 2 + 2 * qs * 4)
+                + 1024,
+                "dq": 2 * qb * d * 2 + st * 2 * ks * d * 2 + 1024}
+    dp = attention_head_pad(head_dim)
+    if route == "mma":
+        b = 2 * 6 * t * (dp + MMA_ROW_PAD) + 4 * t * 4
+        return {"dkdv": b, "dq": b}
+    return {"dkdv": 4 * (4 * t * (dp + 4) + 2 * t * (t + 4) + 2 * t),
+            "dq": 4 * (4 * t * (dp + 4) + t * (t + 4) + 2 * t)}
+
+
+# every route's kernels fit one block's shared memory at the widest head
+assert all(v <= H100.smem_per_block
+           for r in ("wgmma", "mma", "cuda_core")
+           for v in attn_bwd_smem_bytes(route=r,
+                                        head_dim=ATTN_MAX_HEAD_DIM).values())
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_attn_bwd_blocks(*, batch_heads_q: int, heads_q: int, heads_kv: int,
+                         seq_q: int, seq_k: int, head_dim: int, dtype: str,
+                         aligned: bool = True) -> AttnBwdPlan:
+    """Route and tile the attention backward on the H100.  bf16 takes
+    ``"wgmma"`` where TMA can read every operand — a head of
+    ``ATTN_BWD_WG_HEADS`` (one or two 128-byte rows) and ``aligned``,
+    every base 16-byte aligned — and ``"mma"`` otherwise; f32
+    ``"cuda_core"``.  Raises :class:`ValueError` for a head outside
+    1..``ATTN_MAX_HEAD_DIM``, an empty problem, heads that do not form
+    whole GQA groups, or a dtype with no route."""
+    if not 1 <= head_dim <= ATTN_MAX_HEAD_DIM:
+        raise ValueError(
+            f"attention backward: head_dim {head_dim} outside the kernel's "
+            f"1..{ATTN_MAX_HEAD_DIM}")
+    if min(batch_heads_q, heads_q, heads_kv, seq_q, seq_k) < 1:
+        raise ValueError(
+            f"attention backward: empty problem (B·Hq {batch_heads_q}, Hq "
+            f"{heads_q}, Hkv {heads_kv}, Sq {seq_q}, Sk {seq_k})")
+    if heads_q % heads_kv or batch_heads_q % heads_q:
+        raise ValueError(
+            f"attention backward: {batch_heads_q} query heads of {heads_q} "
+            f"over {heads_kv} KV heads is not whole groups")
+    if dtype == "float32":
+        route = "cuda_core"
+    elif dtype == "bfloat16":
+        route = ("wgmma" if head_dim in ATTN_BWD_WG_HEADS and aligned
+                 else "mma")
+    else:
+        raise ValueError(f"attention backward: no route for {dtype}")
+    bhkv = batch_heads_q // heads_q * heads_kv
+    if route == "wgmma":
+        tiles = dict(ATTN_BWD_WG_TILES)
+    else:
+        tiles = {"dkdv": (ATTN_BWD_TILE,) * 2, "dq": (ATTN_BWD_TILE,) * 2}
+    rows = ATTN_BWD_THREADS // 32
+    return AttnBwdPlan(
+        route, tiles,
+        {"delta": -(-batch_heads_q * seq_q // rows),
+         "dkdv": bhkv * -(-seq_k // tiles["dkdv"][0]),
+         "dq": batch_heads_q * -(-seq_q // tiles["dq"][0])},
+        attn_bwd_smem_bytes(route=route, head_dim=head_dim),
     )
 
 

@@ -21,12 +21,12 @@
 // Deterministic by construction — no float atomics, every sum in a fixed
 // order.  Three kernels a call:
 //  * delta per query row, one warp a row;
-//  * dK/dV: one block per (batch*KV head, 64-key tile) holds its K and V
+//  * dK/dV: one block per (batch*KV head, key tile) holds its K and V
 //    tiles and the dK, dV accumulators in registers and walks the g query
 //    heads of its GQA group and, for each, the query tiles that see the
 //    key tile: the sum over the group and over query tiles happens inside
 //    the block, in order;
-//  * dQ: one block per (batch*query head, 64-row tile) walks the visible
+//  * dQ: one block per (batch*query head, query tile) walks the visible
 //    key tiles (a second pass that recomputes s and dp) and accumulates dq
 //    in registers.
 // Key tiles wholly above the causal diagonal are skipped in both passes,
@@ -38,18 +38,29 @@
 // D); lse, delta (B*Hq, Sq) f32; query head bh reads KV head (bh / Hq) *
 // Hkv + (bh % Hq) / group.  Causal: query row r (absolute position r +
 // q_offset) sees key c iff r + q_offset >= c.  Grads out in the input
-// type.  Two routes, chosen by the dtype code:
+// type.  Three routes, the planner's (dse.plan_attn_bwd_blocks):
 //
-// bf16: the tensor cores (attn_bwd_*_mma_kernel), mma.sync m16n8k16 with
-// f32 accumulation, 4 warps a block, each warp 16 keys (dK/dV) or 16
-// query rows (dQ); tiles of 64 stream through shared memory as bf16 in a
-// cp.async double buffer.  Every product reads its operands as tiles
-// already laid out for it (ldmatrix, ldmatrix.trans): no transposed copy.
-// P (for dV) and dS (for dK, dQ) are rounded to bf16 as they are repacked
-// from accumulator into operand fragments, as FA2 does; s, p, dp and ds
+// bf16 "wgmma" (attn_bwd_*_wgmma_kernel; a head of 64 or 128, 16-byte
+// aligned bases): warpgroup products fed by TMA, a producer warpgroup and
+// two consumers a block; dK/dV blocks of 128 keys walking query tiles of
+// 64 rows, dQ blocks of 128 query rows walking key tiles of 64; each
+// consumer issues a tile's products as one batch, so one's exp and dS
+// math runs beside the other's products (the section below).  At
+// llama3.2-1b's train shape on an H100 the two kernels reach ≈ 430 and
+// 470 TFLOP/s of their four and three products (PERF.md).
+//
+// bf16 "mma" (attn_bwd_*_mma_kernel; other heads, unaligned bases):
+// mma.sync m16n8k16 with f32 accumulation, 4 warps a block, each warp 16
+// keys (dK/dV) or 16 query rows (dQ); tiles of 64 stream through shared
+// memory as bf16 in a cp.async double buffer.  Every product reads its
+// operands as tiles already laid out for it (ldmatrix, ldmatrix.trans): no
+// transposed copy.
+//
+// On both bf16 routes P (for dV) and dS (for dK, dQ) are rounded to bf16
+// as they become tensor-core operands, as FA2 does; s, p, dp and ds
 // themselves stay f32.
 //
-// f32: the CUDA cores (attn_bwd_dkdv_kernel, attn_bwd_dq_kernel), every
+// f32 "cuda_core": (attn_bwd_dkdv_kernel, attn_bwd_dq_kernel), every
 // product in f32 from f32 tiles in shared memory, rows of DP + 4 floats
 // (DP: the head padded to 16, 32, 64 or 128 with zeros; (DP + 4) / 4 is
 // odd, so the 16-byte loads of 8 neighbouring rows hit 8 different bank
@@ -67,8 +78,11 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
+
+namespace wg = wgmma_bf16;
 
 constexpr int THREADS = 256;
 constexpr int BQ = 64;            // query rows a tile
@@ -156,7 +170,9 @@ __device__ __forceinline__ void load_cols(float (&dst)[DPT], const float* row,
   }
 }
 
-__device__ __forceinline__ bool visible(const Params& p, int qrow, int key) {
+// query row qrow sees key `key` (either route's parameters)
+template <typename P>
+__device__ __forceinline__ bool visible(const P& p, int qrow, int key) {
   return qrow < p.Sq && key < p.Sk && (!p.causal || qrow + p.q_offset >= key);
 }
 
@@ -749,6 +765,613 @@ attn_bwd_dq_mma_kernel(const uint16_t* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route "wgmma": warpgroup products fed by TMA (heads of 64 or 128)
+// ---------------------------------------------------------------------------
+//
+// A block is three warpgroups.  Warpgroup 0 is the producer: its thread 0
+// issues every TMA load (3-D maps (D, S, B*H): a box past the ragged S
+// edge reads zeros and never the next head's rows); in the dK/dV kernel
+// its warp 1 copies the lse (times log2 e) and delta of each staged query
+// tile beside it, loading them before it waits for the slot; the rest
+// idle on PRODUCER_REGS registers.  Warpgroups 1 and 2 are the consumers,
+// 64 keys (dK/dV) or 64 query rows (dQ) each: the M of every product.
+// Tiles sit in shared memory as TMA writes them, 128-byte swizzled boxes
+// of 64 bf16 across (a 128-wide head is two boxes side by side), and every
+// product reads them where they lie through K- or MN-major descriptors:
+// no transposed copy.  At a head of 64 the operand a consumer reads at
+// every tile (K and V, or Q and dO) is held in registers instead
+// (ldmatrix once a block), which halves the shared-memory bytes of the S
+// and dP products.  P and dS become the A operands of the dV, dK and dQ
+// products straight from the accumulators that computed them (the
+// register-A form), rounded to bf16 there as the mma.sync route rounds
+// them.
+//
+// What bounds it, beside products of N 64 that run well under the
+// tensor cores' peak, is the math between them: one exp2 (the
+// special-function unit) and the bf16 packing of P and dS per (query,
+// key) pair in each pass, against 8 (dK/dV) or 6 (dQ) flops a pair per
+// head element on the tensor cores — at a head of 64 comparable times
+// (each of the two costs ≈ 12 % of a call, PERF.md).  So each consumer
+// keeps its products in one batch a tile (the last tile's dV and dK, or
+// dQ, and the next tile's S and dP), which the tensor cores run while
+// the other consumer does its math; making the consumers take turns on
+// named barriers measured 2-3 % slower.  A ring slot is released when
+// both consumers' products of it are done; every sum runs in a fixed
+// order.
+
+constexpr int WG_THREADS = 384;          // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int WG_KEYS = 128;             // dK/dV: keys a block
+constexpr int WG_QSTEP = 64;             // dK/dV: query rows a ring slot
+constexpr int WG_ROWS = 128;             // dQ: query rows a block
+constexpr int WG_KSTEP = 64;             // dQ: keys a ring slot
+constexpr int WG_STAGES = 4;             // ring slots (6 ran 44 % slower)
+constexpr int BOX_ROW = 128;             // bytes of a box row: 64 bf16
+constexpr uint32_t SBO = 8 * BOX_ROW;    // 8 rows: one swizzle atom
+constexpr uint32_t MN_STEP = 16 * BOX_ROW;   // a k16 step down an MN box
+
+// shared memory of the two kernels at a head of DH (dse.attn_bwd_smem_bytes
+// holds the same formula): dK/dV the K and V tiles of WG_KEYS rows, then
+// WG_STAGES slots of a Q and a dO tile of WG_QSTEP rows and their lse and
+// delta (2 x WG_QSTEP floats); dQ the Q and dO tiles of WG_ROWS rows, then
+// WG_STAGES slots of a K and a V tile of WG_KSTEP rows; each plus 1024
+// bytes to align it
+constexpr size_t wg_dkdv_smem(int dh) {
+  return (size_t)2 * WG_KEYS * dh * 2 +
+         (size_t)WG_STAGES * (2 * WG_QSTEP * dh * 2 + 2 * WG_QSTEP * 4) +
+         1024;
+}
+constexpr size_t wg_dq_smem(int dh) {
+  return (size_t)2 * WG_ROWS * dh * 2 +
+         (size_t)WG_STAGES * 2 * WG_KSTEP * dh * 2 + 1024;
+}
+static_assert(wg_dkdv_smem(128) <= MAX_SMEM && wg_dq_smem(128) <= MAX_SMEM,
+              "the D = 128 wgmma tiles must fit one block's shared memory");
+
+struct WgMaps {
+  CUtensorMap q, dout;      // (D, Sq, B*Hq)
+  CUtensorMap k, v;         // (D, Sk, B*Hkv)
+};
+
+struct WgParams {
+  int Sq, Sk, Hq, Hkv, group, causal, q_offset, bhq, bhkv;
+  float scale;
+  const float* lse;         // (B*Hq, Sq)
+  const float* delta;       // (B*Hq, Sq)
+  uint16_t* dq;             // (B*Hq, Sq, D)
+  uint16_t* dk;             // (B*Hkv, Sk, D)
+  uint16_t* dv;
+};
+
+// 2^x by the special-function unit, subnormal results flushed to 0 (a p
+// that small is 0 in every sum it enters)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a consumer warp's release of a ring slot (its products of it waited for)
+__device__ __forceinline__ void wg_release(uint64_t* empty) {
+  if ((threadIdx.x & 31) == 0) wg::mbar_arrive(empty);
+}
+
+// `row` .. of head `bh` of a 3-D map, all DH columns, as boxes of 64
+// columns side by side (box_bytes apart) at dst, completing on bar
+template <int DH>
+__device__ __forceinline__ void wg_load_tile(unsigned char* dst,
+                                             const CUtensorMap& map,
+                                             uint64_t* bar, int row, int bh,
+                                             int box_bytes) {
+#pragma unroll
+  for (int c = 0; c < DH / 64; ++c)
+    wg::tma_load_3d(dst + c * box_bytes, map, bar, 64 * c, row, bh);
+}
+
+// a consumer's (64 x DH) accumulator times `mul` as bf16 into a row-major
+// (rows x DH) output, its rows from row0, those below `limit` only
+template <int DH>
+__device__ __forceinline__ void wg_store(uint16_t* out,
+                                         const float (&d)[DH / 2], int row0,
+                                         int limit, float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int r = row0 + ((threadIdx.x & 127) >> 5) * 16 + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= limit) continue;
+    uint16_t* o = out + (size_t)(r + 8 * h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o + 8 * j + 2 * q) =
+          wg::bf16x2(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// dK and dV of one (batch*KV head, WG_KEYS-key tile).  Blocks run key-tile
+// major: key tile 0 of every head (causal: the most query tiles) first.
+// The block walks the query tiles of WG_QSTEP rows that see its keys, for
+// each head of the group in turn; consumer w owns keys 64 w .. 64 w + 63
+// and, per tile:
+//   S^T = K.Q^T, dP^T = V.dO^T      (A = K, V K-major; B = Q, dO K-major)
+//   P^T = exp2(S^T log2 e - lse log2 e), dS^T = P^T (dP^T - delta)
+//   dV += P^T.dO, dK += dS^T.Q      (A from registers; B = dO, Q MN-major)
+// A tile that none of a consumer's keys is seen by is skipped; only the
+// diagonal and ragged tiles test each element.
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ WgMaps T,
+                           const WgParams p) {
+  constexpr int NB = DH / 64;                  // boxes across the head
+  constexpr int KBOX = WG_KEYS * BOX_ROW;      // a K / V box: 16 KB
+  constexpr int QBOX = WG_QSTEP * BOX_ROW;     // a Q / dO box: 8 KB
+  constexpr int SLOT = 2 * NB * QBOX;
+  extern __shared__ unsigned char smem_wg[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES], kvbar;
+  unsigned char* ks = wg::align1024(smem_wg);
+  unsigned char* vs = ks + NB * KBOX;
+  unsigned char* ring = vs + NB * KBOX;
+  float* lsd = reinterpret_cast<float*>(ring + WG_STAGES * SLOT);
+
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int kt = (int)blockIdx.x / p.bhkv;
+  const int bkv = (int)blockIdx.x - kt * p.bhkv;
+  const int k0 = kt * WG_KEYS;
+  const int b = bkv / p.Hkv, h = bkv - b * p.Hkv;
+  const int n_qt = (p.Sq + WG_QSTEP - 1) / WG_QSTEP;
+  const int qt_begin = (p.causal ? max(0, k0 - p.q_offset) : 0) / WG_QSTEP;
+  const int n_vis = max(0, n_qt - qt_begin);
+  const int n_it = p.group * n_vis;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      wg::mbar_init(&full[s], 1 + 32);     // the TMA thread, warp 1's lanes
+      wg::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    wg::mbar_init(&kvbar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    wg::regs_dec<PRODUCER_REGS>();
+    const int warp = tid >> 5, lane = tid & 31;
+    if (tid == 0) {
+      wg::mbar_expect_tx(&kvbar, 2 * NB * KBOX);
+      wg_load_tile<DH>(ks, T.k, &kvbar, k0, bkv, KBOX);
+      wg_load_tile<DH>(vs, T.v, &kvbar, k0, bkv, KBOX);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES)
+          wg::mbar_wait(&empty[s], ((it / WG_STAGES) - 1) & 1);
+        const int gi = it / n_vis;
+        const int q0 = (qt_begin + it - gi * n_vis) * WG_QSTEP;
+        const int bh = b * p.Hq + h * p.group + gi;
+        unsigned char* st = ring + s * SLOT;
+        wg::mbar_expect_tx(&full[s], SLOT);
+        wg_load_tile<DH>(st, T.q, &full[s], q0, bh, QBOX);
+        wg_load_tile<DH>(st + NB * QBOX, T.dout, &full[s], q0, bh, QBOX);
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % WG_STAGES;
+        const int gi = it / n_vis;
+        const int q0 = (qt_begin + it - gi * n_vis) * WG_QSTEP;
+        const size_t row0 =
+            (size_t)(b * p.Hq + h * p.group + gi) * p.Sq + q0;
+        // loaded before the slot is free: their latency passes in the wait
+        float lv[WG_QSTEP / 32], dl[WG_QSTEP / 32];
+#pragma unroll
+        for (int i = 0; i < WG_QSTEP / 32; ++i) {
+          const int r = lane + 32 * i;
+          const bool in = q0 + r < p.Sq;
+          lv[i] = in ? p.lse[row0 + r] * LOG2E : 0.f;   // base 2, for exp2
+          dl[i] = in ? p.delta[row0 + r] : 0.f;
+        }
+        if (it >= WG_STAGES)
+          wg::mbar_wait(&empty[s], ((it / WG_STAGES) - 1) & 1);
+        float* l = lsd + s * 2 * WG_QSTEP;
+#pragma unroll
+        for (int i = 0; i < WG_QSTEP / 32; ++i) {
+          l[lane + 32 * i] = lv[i];
+          l[WG_QSTEP + lane + 32 * i] = dl[i];
+        }
+        wg::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  wg::regs_inc<CONSUMER_REGS>();
+  const int w = wgi - 1;
+  const int kw = k0 + 64 * w;                  // this consumer's first key
+  const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int key0 = kw + ((tid & 127) >> 5) * 16 + g;   // + 0 and + 8
+  // A = this consumer's 64 rows of K and V: at a head of 64 held in
+  // registers (the block's whole walk reads them), at 128 read K-major
+  // from shared memory (a k16 step 32 bytes into the row, the next 64 of
+  // the head a box on)
+  const uint64_t da_k = wg::make_desc(ks + w * 64 * BOX_ROW, 16, SBO);
+  const uint64_t da_v = wg::make_desc(vs + w * 64 * BOX_ROW, 16, SBO);
+  constexpr bool REG_A = DH == 64;
+  uint32_t ka[REG_A ? 4 : 1][4], va[REG_A ? 4 : 1][4];
+  // the accumulators start at each one's first product (scale_d 0)
+  float dk[DH / 2], dv[DH / 2], sc[32], dp[32];
+  int started = 0;
+  wg::mbar_wait(&kvbar, 0);
+  if constexpr (REG_A) {
+    const int r0 = 64 * w + ((tid & 127) >> 5) * 16;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::ldmatrix_a_sw128(ka[kk], ks, r0, kk);
+      wg::ldmatrix_a_sw128(va[kk], vs, r0, kk);
+    }
+  }
+
+  // A pipeline of one tile: at step t a consumer finishes `cur` (its S^T
+  // and dP^T products done: P^T, dS^T), then issues cur's dV and dK
+  // products and tile t's S^T and dP^T as one batch, which the tensor
+  // cores run while the other consumer does its math.  `held` is the tile
+  // whose dV and dK products may be in flight: its slot is released once
+  // they are waited for.  A tile that none of this consumer's keys is seen
+  // by is released at once.
+  int cur = -1, held = -1;
+  uint32_t pa[4][4], da[4][4];
+  for (int t = 0; t <= n_it; ++t) {
+    if (cur >= 0) {
+      const int s = cur % WG_STAGES;
+      const int gi = cur / n_vis;
+      const int q0 = (qt_begin + cur - gi * n_vis) * WG_QSTEP;
+      const float* lt = lsd + s * 2 * WG_QSTEP;
+      wg::wgmma_wait<0>();
+      wg::fence_regs(sc);
+      wg::fence_regs(dp);
+      wg::fence_regs(dv);
+      wg::fence_regs(dk);
+      if (held >= 0) wg_release(&empty[held % WG_STAGES]);
+      held = -1;
+      // P^T; accumulator column 8 j + 2 q + (e & 1) is the tile's query
+      // row.  Only the diagonal and ragged tiles test each element
+      const bool whole = q0 + WG_QSTEP <= p.Sq && kw + 64 <= p.Sk &&
+                         (!p.causal || q0 + p.q_offset >= kw + 63);
+      if (whole) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lt + 8 * j + 2 * q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = exp2_ftz(
+                fmaf(sc[4 * j + e], LOG2E, (e & 1) ? -l2.y : -l2.x));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lt + 8 * j + 2 * q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x =
+                fmaf(sc[4 * j + e], LOG2E, (e & 1) ? -l2.y : -l2.x);
+            sc[4 * j + e] = visible(p, q0 + 8 * j + 2 * q + (e & 1),
+                                    key0 + 8 * (e >> 1))
+                                ? exp2_ftz(x) : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wg::a_from_acc(pa[i], sc, i);
+      // dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(lt + WG_QSTEP + 8 * j + 2 * q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wg::a_from_acc(da[i], dp, i);
+    }
+
+    int vis = 0;
+    if (t < n_it) {
+      const int gi = t / n_vis;
+      const int q0 = (qt_begin + t - gi * n_vis) * WG_QSTEP;
+      vis = kw < p.Sk && !(p.causal && q0 + WG_QSTEP - 1 + p.q_offset < kw);
+      wg::mbar_wait(&full[t % WG_STAGES], (t / WG_STAGES) & 1);
+    }
+    if (cur >= 0) {
+      // dV += P^T.dO, dK += dS^T.Q (B = dO, Q MN-major: 64 of the head a
+      // box, LBO apart)
+      const unsigned char* qs = ring + (cur % WG_STAGES) * SLOT;
+      const uint64_t dbm_do = wg::make_desc(qs + NB * QBOX, QBOX, SBO);
+      const uint64_t dbm_q = wg::make_desc(qs, QBOX, SBO);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wg::wgmma_m64_rs<DH, 1>(dv, pa[i],
+                                wg::desc_advance(dbm_do, MN_STEP * i),
+                                started || i > 0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wg::wgmma_m64_rs<DH, 1>(dk, da[i],
+                                wg::desc_advance(dbm_q, MN_STEP * i),
+                                started || i > 0);
+      started = 1;
+      held = cur;
+    }
+    if constexpr (DH == 128) {
+      // at a head of 128 the dK and dV accumulators (128 registers) leave
+      // no room for the A operands of these products beside the next S^T
+      // and dP^T: wait for these, then issue those into cleared
+      // accumulators
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(dv);
+      wg::fence_regs(dk);
+      if (held >= 0) wg_release(&empty[held % WG_STAGES]);
+      held = -1;
+    }
+    if (vis) {
+      // S^T = K.Q^T and dP^T = V.dO^T (B = Q, dO K-major)
+      const unsigned char* qs = ring + (t % WG_STAGES) * SLOT;
+      const uint64_t db_q = wg::make_desc(qs, 16, SBO);
+      const uint64_t db_do = wg::make_desc(qs + NB * QBOX, 16, SBO);
+      if constexpr (DH == 128) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      }
+      wg::fence_regs(sc);
+      wg::fence_regs(dp);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t b =
+            wg::desc_advance(db_q, (kk / 4) * QBOX + (kk % 4) * 32);
+        if constexpr (REG_A)
+          wg::wgmma_m64_rs<64, 0>(sc, ka[kk], b, kk > 0);
+        else
+          wg::wgmma_m64n64<0, 0>(
+              sc, wg::desc_advance(da_k, (kk / 4) * KBOX + (kk % 4) * 32), b,
+              kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t b =
+            wg::desc_advance(db_do, (kk / 4) * QBOX + (kk % 4) * 32);
+        if constexpr (REG_A)
+          wg::wgmma_m64_rs<64, 0>(dp, va[kk], b, kk > 0);
+        else
+          wg::wgmma_m64n64<0, 0>(
+              dp, wg::desc_advance(da_v, (kk / 4) * KBOX + (kk % 4) * 32), b,
+              kk > 0);
+      }
+    }
+    wg::wgmma_commit();
+    if (t < n_it && !vis) wg_release(&empty[t % WG_STAGES]);
+    cur = vis ? t : -1;
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(dv);
+  wg::fence_regs(dk);
+  if (held >= 0) wg_release(&empty[held % WG_STAGES]);
+
+  if (!started) {       // no query row sees these keys: gradients 0
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  }
+  const size_t base = (size_t)bkv * p.Sk * DH;
+  wg_store<DH>(p.dk + base, dk, kw, p.Sk, 1.f);
+  wg_store<DH>(p.dv + base, dv, kw, p.Sk, 1.f);
+}
+
+// dQ of one (batch*query head, WG_ROWS-row tile).  Blocks run tile major,
+// the last query tiles (causal: the most keys) of every head first.  Q
+// and dO are loaded once; the key tiles of WG_KSTEP keys that the block's
+// rows see stream through the ring in order (tiles above the diagonal
+// never loaded).  Consumer w owns rows 64 w .. 64 w + 63 and, per tile:
+//   S = Q.K^T, dP = dO.V^T           (A = Q, dO K-major; B = K, V K-major)
+//   P = exp2(S log2 e - lse log2 e), dS = P (dP - delta)
+//   dQ += dS.K                       (A from registers; B = K MN-major)
+// then stores dQ times scale.
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ WgMaps T,
+                         const WgParams p) {
+  constexpr int NB = DH / 64;
+  constexpr int QBOX = WG_ROWS * BOX_ROW;      // a Q / dO box: 16 KB
+  constexpr int KBOX = WG_KSTEP * BOX_ROW;     // a K / V box: 8 KB
+  constexpr int SLOT = 2 * NB * KBOX;
+  extern __shared__ unsigned char smem_wg[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES], qbar;
+  unsigned char* qs = wg::align1024(smem_wg);
+  unsigned char* dos = qs + NB * QBOX;
+  unsigned char* ring = dos + NB * QBOX;
+
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int n_qb = (p.Sq + WG_ROWS - 1) / WG_ROWS;
+  const int t = (int)blockIdx.x / p.bhq;
+  const int bh = (int)blockIdx.x - t * p.bhq;
+  const int q0 = (n_qb - 1 - t) * WG_ROWS;
+  const int qn = min(WG_ROWS, p.Sq - q0);
+  const int kvh = (bh / p.Hq) * p.Hkv + (bh % p.Hq) / p.group;
+  const int k_end = p.causal ? min(p.Sk, q0 + qn + p.q_offset) : p.Sk;
+  const int n_kt = k_end > 0 ? (k_end + WG_KSTEP - 1) / WG_KSTEP : 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    wg::mbar_init(&qbar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    wg::regs_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      wg::mbar_expect_tx(&qbar, 2 * NB * QBOX);
+      wg_load_tile<DH>(qs, T.q, &qbar, q0, bh, QBOX);
+      wg_load_tile<DH>(dos, T.dout, &qbar, q0, bh, QBOX);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES)
+          wg::mbar_wait(&empty[s], ((it / WG_STAGES) - 1) & 1);
+        unsigned char* st = ring + s * SLOT;
+        wg::mbar_expect_tx(&full[s], SLOT);
+        wg_load_tile<DH>(st, T.k, &full[s], it * WG_KSTEP, kvh, KBOX);
+        wg_load_tile<DH>(st + NB * KBOX, T.v, &full[s], it * WG_KSTEP, kvh,
+                         KBOX);
+      }
+    }
+    return;
+  }
+
+  wg::regs_inc<CONSUMER_REGS>();
+  const int w = wgi - 1;
+  const int qw = q0 + 64 * w;                  // this consumer's first row
+  const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int ra = qw + ((tid & 127) >> 5) * 16 + g, rb = ra + 8;
+  const size_t hrow = (size_t)bh * p.Sq;
+  // lse in base 2, for exp2
+  const float lse_a = ra < p.Sq ? p.lse[hrow + ra] * LOG2E : 0.f;
+  const float lse_b = rb < p.Sq ? p.lse[hrow + rb] * LOG2E : 0.f;
+  const float dl_a = ra < p.Sq ? p.delta[hrow + ra] : 0.f;
+  const float dl_b = rb < p.Sq ? p.delta[hrow + rb] : 0.f;
+  // A = this consumer's 64 rows of Q and dO: as K and V in the dK/dV
+  // kernel, in registers at a head of 64
+  const uint64_t da_q = wg::make_desc(qs + w * 64 * BOX_ROW, 16, SBO);
+  const uint64_t da_do = wg::make_desc(dos + w * 64 * BOX_ROW, 16, SBO);
+  constexpr bool REG_A = DH == 64;
+  constexpr int KN = WG_KSTEP;                 // N of the S and dP products
+  uint32_t qa[REG_A ? 4 : 1][4], oa[REG_A ? 4 : 1][4];
+  float dq[DH / 2], sc[KN / 2], dp[KN / 2];
+  int started = 0;
+  wg::mbar_wait(&qbar, 0);
+  if constexpr (REG_A) {
+    const int r0 = 64 * w + ((tid & 127) >> 5) * 16;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::ldmatrix_a_sw128(qa[kk], qs, r0, kk);
+      wg::ldmatrix_a_sw128(oa[kk], dos, r0, kk);
+    }
+  }
+
+  // the dK/dV kernel's pipeline: at step t finish `cur` (dS), then issue
+  // cur's dQ product and tile t's S and dP products as one batch
+  int cur = -1, held = -1;
+  uint32_t da[KN / 16][4];
+  for (int t = 0; t <= n_kt; ++t) {
+    if (cur >= 0) {
+      const int k0 = cur * WG_KSTEP;
+      wg::wgmma_wait<0>();
+      wg::fence_regs(sc);
+      wg::fence_regs(dp);
+      wg::fence_regs(dq);
+      if (held >= 0) wg_release(&empty[held % WG_STAGES]);
+      held = -1;
+      // P, then dS = P (dP - delta); accumulator column 8 j + 2 q + (e & 1)
+      // is the tile's key.  Only the diagonal and ragged tiles test each
+      // element
+      const bool whole = k0 + WG_KSTEP <= p.Sk && qw + 64 <= p.Sq &&
+                         (!p.causal || qw + p.q_offset >= k0 + WG_KSTEP - 1);
+      if (whole) {
+#pragma unroll
+        for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool second = e >= 2;
+            const float pr = exp2_ftz(
+                fmaf(sc[4 * j + e], LOG2E, second ? -lse_b : -lse_a));
+            dp[4 * j + e] = pr * (dp[4 * j + e] - (second ? dl_b : dl_a));
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool second = e >= 2;
+            const float x =
+                fmaf(sc[4 * j + e], LOG2E, second ? -lse_b : -lse_a);
+            const float pr = visible(p, second ? rb : ra,
+                                     k0 + 8 * j + 2 * q + (e & 1))
+                                 ? exp2_ftz(x) : 0.f;
+            dp[4 * j + e] = pr * (dp[4 * j + e] - (second ? dl_b : dl_a));
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < KN / 16; ++i) wg::a_from_acc(da[i], dp, i);
+    }
+
+    int vis = 0;
+    if (t < n_kt) {
+      vis = qw < p.Sq &&
+            !(p.causal && qw + 63 + p.q_offset < t * WG_KSTEP);
+      wg::mbar_wait(&full[t % WG_STAGES], (t / WG_STAGES) & 1);
+    }
+    if (cur >= 0) {
+      // dQ += dS.K (B = K MN-major)
+      const uint64_t dbm_k =
+          wg::make_desc(ring + (cur % WG_STAGES) * SLOT, KBOX, SBO);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < KN / 16; ++i)
+        wg::wgmma_m64_rs<DH, 1>(dq, da[i],
+                                wg::desc_advance(dbm_k, MN_STEP * i),
+                                started || i > 0);
+      started = 1;
+      held = cur;
+    }
+    if (vis) {
+      // S = Q.K^T and dP = dO.V^T (B = K, V K-major)
+      const unsigned char* kt = ring + (t % WG_STAGES) * SLOT;
+      const uint64_t db_k = wg::make_desc(kt, 16, SBO);
+      const uint64_t db_v = wg::make_desc(kt + NB * KBOX, 16, SBO);
+      wg::fence_regs(sc);
+      wg::fence_regs(dp);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t b =
+            wg::desc_advance(db_k, (kk / 4) * KBOX + (kk % 4) * 32);
+        if constexpr (REG_A)
+          wg::wgmma_m64_rs<KN, 0>(sc, qa[kk], b, kk > 0);
+        else
+          wg::wgmma_m64<KN, 0, 0>(
+              sc, wg::desc_advance(da_q, (kk / 4) * QBOX + (kk % 4) * 32), b,
+              kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t b =
+            wg::desc_advance(db_v, (kk / 4) * KBOX + (kk % 4) * 32);
+        if constexpr (REG_A)
+          wg::wgmma_m64_rs<KN, 0>(dp, oa[kk], b, kk > 0);
+        else
+          wg::wgmma_m64<KN, 0, 0>(
+              dp, wg::desc_advance(da_do, (kk / 4) * QBOX + (kk % 4) * 32), b,
+              kk > 0);
+      }
+    }
+    wg::wgmma_commit();
+    if (t < n_kt && !vis) wg_release(&empty[t % WG_STAGES]);
+    cur = vis ? t : -1;
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(dq);
+  if (held >= 0) wg_release(&empty[held % WG_STAGES]);
+
+  if (!started) {       // rows that see no key pass no gradient
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+  }
+  wg_store<DH>(p.dq + hrow * DH, dq, qw, p.Sq, p.scale);
+}
+
 constexpr size_t dkdv_smem(int dp) {
   return 4 * ((size_t)(BK + BK + BQ + BQ) * (dp + 4) + 2 * BQ * PT + 2 * BQ);
 }
@@ -851,18 +1474,85 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* out, const void* dout, const float* lse,
+                 float* delta, void* dq, void* dk, void* dv, const Params& p,
+                 int bhq, int bhkv, cudaStream_t s) {
+  auto kdkdv = attn_bwd_dkdv_wgmma_kernel<DH>;
+  auto kdq = attn_bwd_dq_wgmma_kernel<DH>;
+  // once per instantiation (thread-safe static initialisation)
+  static const cudaError_t attr = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)wg_dkdv_smem(DH));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)wg_dq_smem(DH));
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  // 3-D maps (D, S, B*H) for this call's pointers: the dK/dV kernel's
+  // boxes are WG_QSTEP rows of Q and dO and WG_KEYS of K and V, the dQ
+  // kernel's WG_ROWS and WG_KSTEP
+  int rc = 0;
+  auto map = [&](CUtensorMap* m, const void* base, int rows, int heads,
+                 int box_rows) {
+    const uint64_t dims[3] = {(uint64_t)DH, (uint64_t)rows, (uint64_t)heads};
+    const uint64_t strides[2] = {(uint64_t)DH * 2, (uint64_t)rows * DH * 2};
+    const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
+    if (rc == 0) rc = (int)wg::bf16_map(m, base, 3, dims, strides, box);
+  };
+  WgMaps A, B;
+  map(&A.q, q, p.Sq, bhq, WG_QSTEP);
+  map(&A.dout, dout, p.Sq, bhq, WG_QSTEP);
+  map(&A.k, k, p.Sk, bhkv, WG_KEYS);
+  map(&A.v, v, p.Sk, bhkv, WG_KEYS);
+  map(&B.q, q, p.Sq, bhq, WG_ROWS);
+  map(&B.dout, dout, p.Sq, bhq, WG_ROWS);
+  map(&B.k, k, p.Sk, bhkv, WG_KSTEP);
+  map(&B.v, v, p.Sk, bhkv, WG_KSTEP);
+  if (rc) return rc;
+  WgParams w;
+  w.Sq = p.Sq; w.Sk = p.Sk; w.Hq = p.Hq; w.Hkv = p.Hkv; w.group = p.group;
+  w.causal = p.causal; w.q_offset = p.q_offset; w.bhq = bhq; w.bhkv = bhkv;
+  w.scale = p.scale; w.lse = lse; w.delta = delta;
+  w.dq = static_cast<uint16_t*>(dq);
+  w.dk = static_cast<uint16_t*>(dk);
+  w.dv = static_cast<uint16_t*>(dv);
+  const long long rows = (long long)bhq * p.Sq;
+  const long long n_delta = (rows + THREADS / 32 - 1) / (THREADS / 32);
+  attn_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)n_delta, THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), delta, rows, p.D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long n_kb = (p.Sk + WG_KEYS - 1) / WG_KEYS;
+  const long long n_qb = (p.Sq + WG_ROWS - 1) / WG_ROWS;
+  kdkdv<<<(unsigned)(n_kb * bhkv), WG_THREADS, wg_dkdv_smem(DH), s>>>(A, w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  kdq<<<(unsigned)(n_qb * bhq), WG_THREADS, wg_dq_smem(DH), s>>>(B, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16.  q is the forward's (pre-scaled)
-// query; dq comes back multiplied by `scale`, the gradient of the
-// unscaled query.  delta: f32 scratch of B*Hq*Sq.
+// dtype codes: 0 float32, 1 bfloat16.  route (the planner's,
+// dse.plan_attn_bwd_blocks): 0 cuda_core (f32, CUDA cores), 1 mma (bf16,
+// mma.sync), 2 wgmma (bf16, wgmma fed by TMA: a head of 64 or 128, every
+// base 16-byte aligned).  A route the dtype or the shape does not take is
+// refused (cudaErrorInvalidValue), never replaced by another.  q is the
+// forward's (pre-scaled) query; dq comes back multiplied by `scale`, the
+// gradient of the unscaled query.  delta: f32 scratch of B*Hq*Sq.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int dtype, int BHq, int Sq, int Sk, int D, int Hq, int Hkv,
-    int causal, int q_offset, float scale, void* stream) {
+    void* dv, int dtype, int route, int BHq, int Sq, int Sk, int D, int Hq,
+    int Hkv, int causal, int q_offset, float scale, void* stream) {
   if (BHq < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || Hq < 1 ||
-      Hkv < 1 || Hq % Hkv || BHq % Hq || (dtype != 0 && dtype != 1))
+      Hkv < 1 || Hq % Hkv || BHq % Hq || (dtype != 0 && dtype != 1) ||
+      (dtype == 0 ? route != 0 : route != 1 && route != 2))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.Sq = Sq; p.Sk = Sk; p.D = D; p.Hq = Hq; p.Hkv = Hkv;
@@ -885,6 +1575,16 @@ extern "C" int flash_attention_bwd_launch(
       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
       reinterpret_cast<uintptr_t>(dv);
   const int vec = D % 8 == 0 && (bases & 15) == 0;
+  // TMA's rule, the planner's: a head of one or two 64-wide boxes and
+  // 16-byte aligned bases
+  const bool tma_ok = (D == 64 || D == 128) && (bases & 15) == 0;
+  if (route == 2) {
+    if (!tma_ok) return (int)cudaErrorInvalidValue;
+    return D == 64 ? launch_wgmma<64>(q, k, v, out, dout, lse, delta, dq, dk,
+                                      dv, p, BHq, bhkv, s)
+                   : launch_wgmma<128>(q, k, v, out, dout, lse, delta, dq,
+                                       dk, dv, p, BHq, bhkv, s);
+  }
   const int dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
   switch (dp) {
     case 16:

@@ -518,11 +518,6 @@ __device__ __forceinline__ void band_order(int b, int rows_t, int cols_t,
   tc = in / rows;
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
 template <int STAGES>
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
   if (threadIdx.x == 0) {
@@ -563,7 +558,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 mlp_bwd_hidden_wgmma(const __grid_constant__ HiddenMaps T, const Dims p) {
   extern __shared__ unsigned char smem_hw[];
   __shared__ __align__(8) uint64_t full[H_STAGES], empty[H_STAGES];
-  unsigned char* ring = align1024(smem_hw);
+  unsigned char* ring = wg::align1024(smem_hw);
   const int tid = threadIdx.x, wgi = tid / 128;
   int tm, tf;
   band_order((int)blockIdx.x, (p.M + HWM - 1) / HWM, (p.F + HWN - 1) / HWN,
@@ -709,7 +704,7 @@ __device__ __forceinline__ void gemm_wgmma(const GemmMaps& T,
                                            const GemmArgs& P,
                                            unsigned char* smem,
                                            uint64_t* full, uint64_t* empty) {
-  unsigned char* ring = align1024(smem);
+  unsigned char* ring = wg::align1024(smem);
   const int tid = threadIdx.x, wgi = tid / 128;
   const int tiles_r = (P.rows + GWM - 1) / GWM;
   const int tiles_c = (P.cols + GWN - 1) / GWN;

@@ -1,13 +1,17 @@
 // Warpgroup tensor-core products fed by the Tensor Memory Accelerator, for
-// Hopper (sm_90a): the helpers of the wgmma kernels (first user:
-// fused_mlp_bwd.cu).  mma_bf16.cuh keeps the mma.sync helpers.
+// Hopper (sm_90a): the helpers of the wgmma kernels (fused_mlp_bwd.cu,
+// flash_attention_bwd.cu).  mma_bf16.cuh keeps the mma.sync helpers.
 //
 // A warpgroup is 4 warps (128 threads).  wgmma.mma_async multiplies a
 // 64-row A tile by a B tile (N columns, 16 deep for bf16) into an f32
 // accumulator held in registers: thread t of the warpgroup (warp w = t / 32,
 // g = (t % 32) / 4, q = t % 4) holds, for n8 block j, d[4j], d[4j + 1] at
 // row 16w + g, columns 8j + 2q, 8j + 2q + 1 and d[4j + 2], d[4j + 3] at
-// row 16w + g + 8, the same columns.
+// row 16w + g + 8, the same columns.  The register-A form (wgmma_m64_rs)
+// takes A as each warp's 16 rows in mma.sync's m16n8k16 A fragment: a[0]
+// (row g, k 2q, 2q + 1), a[1] (row g + 8, the same k), a[2] and a[3] the
+// same rows at k 2q + 8, 2q + 9 — so the accumulator's n8 blocks 2i and
+// 2i + 1, packed to bf16 pairs, are A's k16 step i (a_from_acc).
 //
 // Operands lie in shared memory as TMA writes them with 128-byte swizzle:
 // a box whose inner dimension is 64 bf16 (128 bytes) lands as rows of 128
@@ -39,6 +43,13 @@ namespace wgmma_bf16 {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// p rounded up to 1024 bytes: where a tile of 128-byte-swizzled rows
+// starts (its swizzle is anchored on the address)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // ---------------------------------------------------------------------------
@@ -100,6 +111,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap& map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(&map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a box of a 3-D map at (c0, c1, c2) into shared memory; elements out of
+// bounds read as zeros; completes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap& map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(&map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -302,6 +326,112 @@ __device__ __forceinline__ void wgmma_m64(float (&d)[N / 2], uint64_t a,
     wgmma_m64n128<TA, TB>(d, a, b, scale_d);
   else
     wgmma_m64n256<TA, TB>(d, a, b, scale_d);
+}
+
+// D (64 x 64, f32, 32 registers a thread) = A (64 x 16, bf16 in
+// registers, the fragment of the head of this file) . B (16 x 64) +
+// (scale_d ? D : 0); TB: 0 K-major, 1 MN-major.  A's registers stay
+// unchanged until a wgmma_wait covers the product
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+// D (64 x 128, f32, 64 registers a thread) = A (64 x 16, bf16 in
+// registers) . B (16 x 128) + (scale_d ? D : 0); as wgmma_m64n64_rs
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+// the register-A product of width N (64 or 128)
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_m64_rs(float (&d)[N / 2],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "a register-A wgmma width");
+  if constexpr (N == 64)
+    wgmma_m64n64_rs<TB>(d, a, b, scale_d);
+  else
+    wgmma_m64n128_rs<TB>(d, a, b, scale_d);
+}
+
+// two f32 as a bf16 pair, the first in the low half (round to nearest)
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// A's k16 step i of a register-A product from an accumulator of
+// (64 x N) whose columns are that product's k: n8 blocks 2i and 2i + 1,
+// rounded to bf16
+template <int R>
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4],
+                                           const float (&d)[R], int i) {
+  a[0] = bf16x2(d[8 * i], d[8 * i + 1]);
+  a[1] = bf16x2(d[8 * i + 2], d[8 * i + 3]);
+  a[2] = bf16x2(d[8 * i + 4], d[8 * i + 5]);
+  a[3] = bf16x2(d[8 * i + 6], d[8 * i + 7]);
+}
+
+// the register-A fragment of k16 step kk of 16 rows from r0 of a tile of
+// 128-byte rows (64 bf16) swizzled as TMA writes them (swizzle128), by
+// ldmatrix: lanes 0-15 address rows r0 .. r0 + 15 at k 16 kk, lanes 16-31
+// the same rows at k 16 kk + 8
+__device__ __forceinline__ void ldmatrix_a_sw128(uint32_t (&a)[4],
+                                                 const void* tile, int r0,
+                                                 int kk) {
+  const int lane = threadIdx.x & 31, r = r0 + (lane & 15);
+  const uint32_t at = smem_addr(tile) + r * 128 +
+                      ((((2 * kk + (lane >> 4)) ^ r) & 7) << 4);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(at) : "memory");
 }
 
 // ---------------------------------------------------------------------------

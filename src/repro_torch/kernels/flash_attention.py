@@ -25,9 +25,12 @@ recomputes each score tile from ``lse`` and never stores the O(S²)
 probabilities.  It is deterministic — dK and dV are summed over the
 query tiles and the GQA group inside one block per (batch·KV head, key
 tile), dQ in a second pass per (batch·query head, query tile); no float
-atomics.  bf16 runs on the tensor cores (``mma.sync``, f32 accumulation;
-P and dS are rounded to bf16 as they become operands, as in FA2), f32 on
-the CUDA cores.  A row that sees no key is 0 in
+atomics.  bf16 runs on the tensor cores, f32 accumulation, P and dS
+rounded to bf16 as they become operands (as in FA2): on warpgroup
+``wgmma`` fed by TMA where TMA can read every operand (a head of 64 or
+128, 16-byte aligned bases), else on ``mma.sync`` — the route of
+:func:`repro_torch.core.dse.plan_attn_bwd_blocks`; f32 on the CUDA
+cores.  A row that sees no key is 0 in
 the forward, so its probabilities are 0 in the backward and it passes no
 gradient on (``blockwise`` attention, the reference's convention, gives
 such a row the mean of v instead).
@@ -67,13 +70,15 @@ import threading
 
 import torch
 
-from repro_torch.core.dse import plan_attention_blocks
+from repro_torch.core.dse import plan_attention_blocks, plan_attn_bwd_blocks
 from repro_torch.kernels.build import CudaLibrary
 
 NEG_INF = -1e30
 
 #: input dtypes the kernel takes → the dtype code of the C interface
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the backward planner's routes → the launcher's code
+BWD_ROUTE_CODES = {"cuda_core": 0, "mma": 1, "wgmma": 2}
 
 #: kernel launches so far (one per call that reached the card), and
 #: calls of the plain version on a CUDA tensor (the wrapper never makes
@@ -98,7 +103,7 @@ def _declare(lib) -> None:
 
 def _declare_bwd(lib) -> None:
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -356,6 +361,19 @@ def streaming_attention_bwd(
             dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype))
 
 
+def bwd_plan(q, k, v, dout, *, heads_q: int, heads_kv: int):
+    """The plan :func:`flash_attention_bwd` launches for these contiguous
+    inputs: :func:`repro_torch.core.dse.plan_attn_bwd_blocks` with their
+    bases' alignment — the launcher's own test, which also covers the
+    gradients (fresh from the allocator, 16-byte aligned)."""
+    bhq, sq, d = q.shape
+    return plan_attn_bwd_blocks(
+        batch_heads_q=bhq, heads_q=heads_q, heads_kv=heads_kv, seq_q=sq,
+        seq_k=k.shape[1], head_dim=d,
+        dtype=str(q.dtype).removeprefix("torch."),
+        aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout)))
+
+
 def flash_attention_bwd(
     q: torch.Tensor,        # (B·Hq, Sq, D), pre-scaled (the forward's)
     k: torch.Tensor,        # (B·Hkv, Sk, D)
@@ -373,10 +391,13 @@ def flash_attention_bwd(
     """(dq, dk, dv) of :func:`flash_attention`'s output, in the input
     dtype; dq times ``scale`` (the gradient of the unscaled query).
 
-    On a CUDA tensor this launches the hand-written backward kernel on
+    On a CUDA tensor this launches the hand-written backward kernels on
     the current stream (and adds one to ``bwd_launches``) or raises; only
-    a CPU tensor takes :func:`flash_attention_bwd_plain`.  Deterministic:
-    the same inputs give the same bits."""
+    a CPU tensor takes :func:`flash_attention_bwd_plain`.  The route is
+    :func:`bwd_plan`'s (:func:`repro_torch.core.dse.plan_attn_bwd_blocks`):
+    bf16 on ``"wgmma"`` where TMA can read every operand, else on
+    ``"mma"``; the launcher refuses a route the shape does not take.
+    Deterministic: the same inputs give the same bits."""
     global bwd_launches
     _check(q, k, v, heads_q, heads_kv)
     bhq, sq, d = q.shape
@@ -392,26 +413,30 @@ def flash_attention_bwd(
     kw = dict(heads_q=heads_q, heads_kv=heads_kv, causal=causal,
               q_offset=q_offset, scale=scale)
     if not q.is_cuda:
+        bwd_plan(q, k, v, dout, heads_q=heads_q, heads_kv=heads_kv)
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = out.to(q.dtype).contiguous()
     dout = dout.to(q.dtype).contiguous()
     lse = lse.float().contiguous()
+    plan = bwd_plan(q, k, v, dout, heads_q=heads_q, heads_kv=heads_kv)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
     lib = BWD_LIBRARY.load()
     rc = _on_device(q, lambda: lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], bhq, sq, sk, d,
-        heads_q, heads_kv, int(causal), int(q_offset), float(scale),
+        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype],
+        BWD_ROUTE_CODES[plan.route], bhq, sq, sk, d, heads_q, heads_kv,
+        int(causal), int(q_offset), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
     if rc != 0:
         msg = lib.flash_attention_bwd_error_string(rc).decode()
         raise RuntimeError(
             f"flash_attention_bwd launch failed: {msg} (code {rc}); "
-            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+            f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} route "
+            f"{plan.route}")
     with _LOCK:
         bwd_launches += 1
     return dq, dk, dv

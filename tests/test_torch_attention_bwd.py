@@ -309,16 +309,133 @@ def test_the_card_rule_catches_planted_faults():
     quarter of the keys, dq 30 % off past the first quarter.  Each fails
     the bf16 row rule by a wide margin (≥ 0.29 of the row's scale against
     the rule's 1e-2); 1e-2 of the tensor's largest gradient alone lets
-    the skipped tile's dv through."""
+    the skipped tile's dv through.  The last key tile is the planner's
+    (``ATTN_BWD_KEY_TILE``, 128 on the ``"wgmma"`` route); ``q_stale``,
+    a stale ring slot of the dK/dV walk, adds its effect to dk and dv."""
     import chip_smoke
 
     q, k, v, out, lse, dout, kw, got, want = _emulated_case(4, 1, 4096, 64)
     report = chip_smoke._planted_faults(tfa, q, k, v, out, lse, dout, got,
                                         want, kw)
-    assert len(report) == 5
+    assert len(report) == 7
     for name, r in report.items():
         assert r["caught"] and r["need_per_row"] >= 0.25, name
     assert report["last key tile skipped: dv"]["need_per_tensor"] <= 1e-2
+
+
+def _tiled_like_the_wgmma_kernels(q, k, v, out, lse, dout, hq, hkv, scale,
+                                  *, causal=True, q_offset=0, stale=False):
+    """The ``"wgmma"`` route's tiling: dK and dV per block of
+    ``chip_smoke.ATTN_BWD_KEY_TILE`` keys, walking the query tiles of
+    ``ATTN_BWD_Q_STEP`` rows that see it for each head of the group in
+    turn; dQ per block of 128 query rows, walking the key tiles of 64 in
+    order; every sum in f32 a tile at a time in that order, P rounded to
+    bf16 for dV and dS for dK and dQ.  With ``stale`` the last tile of
+    each key block's walk is read from the slot before it (the previous
+    tile's q, dout, lse and delta under the last one's positions)."""
+    import chip_smoke
+
+    kt, qs = chip_smoke.ATTN_BWD_KEY_TILE, chip_smoke.ATTN_BWD_Q_STEP
+    bhq, sq, d = q.shape
+    sk = k.shape[1]
+    b, g = bhq // hq, hq // hkv
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    kf = k.float().reshape(b, hkv, sk, d)
+    vf = v.float().reshape(b, hkv, sk, d)
+    dof = dout.float().reshape(b, hkv, g, sq, d)
+    delta = (dof * out.float().reshape(b, hkv, g, sq, d)).sum(-1)
+    lsef = lse.float().reshape(b, hkv, g, sq)
+    r = lambda t: t.bfloat16().float()
+
+    def tile(gd, rd, ra, k0, k1):
+        """P and dS of the rows ``rd`` of head ``gd`` against keys k0..k1,
+        masked at the positions of rows ``ra``."""
+        qc, doc = qf[:, :, gd, rd], dof[:, :, gd, rd]
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf[:, :, k0:k1])
+        p = torch.exp(s - lsef[:, :, gd, rd, None])
+        if causal:
+            vis = tfa.causal_mask(ra.stop - ra.start, k1 - k0,
+                                  ra.start + q_offset - k0, q.device)
+            p = torch.where(vis, p, 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doc, vf[:, :, k0:k1])
+        return qc, doc, p, p * (dp - delta[:, :, gd, rd, None])
+
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    n_qt = -(-sq // qs)
+    for k0 in range(0, sk, kt):
+        k1 = min(sk, k0 + kt)
+        qt0 = (max(0, k0 - q_offset) if causal else 0) // qs
+        walk = [(gi, t) for gi in range(g) for t in range(qt0, n_qt)]
+        for i, (gi, t) in enumerate(walk):
+            ra = slice(t * qs, min(sq, t * qs + qs))
+            gd, rd = gi, ra
+            if stale and i == len(walk) - 1 and i > 0:
+                gd, td = walk[i - 1]
+                n = min(ra.stop - ra.start, sq - td * qs)
+                rd = slice(td * qs, td * qs + n)
+                ra = slice(ra.start, ra.start + n)
+            qc, doc, p, ds = tile(gd, rd, ra, k0, k1)
+            dv[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", r(p), doc)
+            dk[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", r(ds), qc)
+    dq = torch.zeros_like(qf)
+    for q0 in range(0, sq, 128):
+        q1 = min(sq, q0 + 128)
+        k_end = min(sk, q1 + q_offset) if causal else sk
+        for k0 in range(0, max(k_end, 0), 64):
+            k1 = min(sk, k0 + 64)
+            for gi in range(g):
+                _, _, _, ds = tile(gi, slice(q0, q1), slice(q0, q1), k0, k1)
+                dq[:, :, gi, q0:q1] += torch.einsum(
+                    "bhqk,bhkd->bhqd", r(ds), kf[:, :, k0:k1])
+    return ((dq * scale).reshape(q.shape).bfloat16(),
+            dk.reshape(k.shape).bfloat16(), dv.reshape(v.shape).bfloat16())
+
+
+@pytest.mark.parametrize("hq,hkv,s,d", ROUNDING_CASES)
+def test_the_wgmma_tiling_needs_no_more_of_the_rule(hq, hkv, s, d):
+    """The ``"wgmma"`` kernels' tiling (128 keys a dK/dV block walked 64
+    query rows at a time; 128 query rows a dQ block walked 64 keys at a
+    time), P and dS rounded to bf16 as they become operands, needs no more
+    of the card's bf16 rule than ``_rounded_like_the_tensor_cores``: the
+    order of the tile sums moves only f32 roundings, below the bf16
+    rounding of the gradients (a share of the rule within 2e-4 of the
+    untiled emulation's, both under its 0.34)."""
+    import chip_smoke
+
+    q, k, v, out, lse, dout, kw, untiled, want = _emulated_case(hq, hkv, s,
+                                                                d)
+    tiled = _tiled_like_the_wgmma_kernels(q, k, v, out, lse, dout, hq, hkv,
+                                          d ** -0.5)
+    rule = chip_smoke.ATTN_BWD_TOL["bfloat16"][1]
+    for a, u, w in zip(tiled, untiled, want):
+        need = chip_smoke._row_need(a, w) / rule
+        assert need <= chip_smoke._row_need(u, w) / rule + 2e-4
+        assert need <= 0.34
+
+
+def test_q_stale_is_a_stale_slot_of_the_dkdv_walk():
+    """``chip_smoke.attn_bwd_q_stale``, the planted fault's effect, is the
+    difference the tiled emulation shows when the last query tile of each
+    key block's walk is read from the slot before it — at a ragged length
+    with a query offset, GQA 4."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(3)
+    hq, hkv, sq, sk, d, off = 8, 2, 200, 230, 16, 30
+    q = (torch.randn(hq, sq, d, generator=g) * d ** -0.5).bfloat16()
+    k = torch.randn(hkv, sk, d, generator=g).bfloat16()
+    v = torch.randn(hkv, sk, d, generator=g).bfloat16()
+    dout = torch.randn(hq, sq, d, generator=g).bfloat16()
+    fwd = dict(heads_q=hq, heads_kv=hkv, causal=True, q_offset=off)
+    out, lse = tfa.flash_attention_plain(q, k, v, return_lse=True, **fwd)
+    args = (q, k, v, out, lse, dout, hq, hkv, d ** -0.5)
+    clean = _tiled_like_the_wgmma_kernels(*args, q_offset=off)
+    bad = _tiled_like_the_wgmma_kernels(*args, q_offset=off, stale=True)
+    dk, dv = chip_smoke.attn_bwd_q_stale(q, k, v, out, lse, dout, **fwd)
+    assert dk.abs().max() > 0.1 and dv.abs().max() > 0.1
+    for eff, b_, c in ((dk, bad[1], clean[1]), (dv, bad[2], clean[2])):
+        torch.testing.assert_close(c.float() + eff, b_.float(), atol=0.05,
+                                   rtol=0.02)
 
 
 @pytest.mark.cuda
