@@ -81,7 +81,8 @@ Phases, each printing one JSON object on a line of its own:
                   query offset, GQA groups 1/4/8, head dim 16-128, ragged
                   Sq / Sk, rows that see no key, llama3.2-1b's and
                   granite-moe's train shapes (B 4, 32/8 and 16/8 heads of
-                  64, S 4096), a q 2 bytes off 16; each row naming the
+                  64, S 4096) and qwen2-0.5b's (14/2 heads, S 1024), a q
+                  2 bytes off 16; each row naming the
                   planner's route (bf16: "wgmma" at heads of 64 and 128,
                   "mma" at 16, 40 and for the unaligned q); two runs the
                   same bits; the forward's lse against the plain
@@ -198,6 +199,20 @@ Phases, each printing one JSON object on a line of its own:
                   ``max_len`` by ``_expand_cache``, twice, the same tokens;
                   at depth 2 + 2 and batch 2 the card's prefill and four
                   decode steps against the port's own CPU run;
+16b. ``int8_serve`` llama3.2-1b at full width and depth served with
+                  ``ServeEngine(int8_weights=True)`` (quantized once on the
+                  card, dequantized to bf16 in each call), 4 × 1024-token
+                  prompts + 32 greedy tokens: ``quantize_params`` on the
+                  card gives the CPU's bits (q and scale) on one
+                  superblock's leaves and the embedding; its prefill
+                  logits and tokens equal those of a bf16 engine handed
+                  ``dequantize_params`` of its weights, bit for bit; one
+                  flash launch per layer of a prefill; weight bytes, its
+                  prefill and decode beside a bf16 engine on the original
+                  weights, the dequantize ms a call, peak memory, and the
+                  greedy agreement with the bf16 weights (no limit); its
+                  flash launches are read after the int8 engine's own
+                  calls, before the bf16 engines run;
 17. ``lm_train``  llama3.2-1b's train step at full width and depth
                   (random bf16 weights from a seed, ``attn_impl="cuda"``,
                   remat on): five AdamW steps on one repeated batch of the
@@ -233,17 +248,31 @@ Phases, each printing one JSON object on a line of its own:
                   state does not fit one card), as ``lm_train``'s: 4 + 2
                   attention and 28 + 14 SSD launches a step, the drops per
                   layer, the card against the CPU at d_model 256 with
-                  the card's routing replayed.
+                  the card's routing replayed;
+22. ``train_resilient`` qwen2-0.5b at full width and depth (24 layers,
+                  d_model 896, tied 151936-token embedding) through
+                  ``launch.train.train`` (batch 4 × 1024, 8 steps, a
+                  checkpoint every 4, lr 1e-3, seed 3) twice under
+                  ``build/train_resilient/``: clean, then crashed at step
+                  6 and restarted from step 4 — the same losses bit for
+                  bit; a third call for 10 steps on the crashed run's
+                  directory runs only steps 8 and 9; the flash launches
+                  are read after these three calls; the step-8
+                  checkpoint (≈ 4.9 GB: bf16 params, f32 moments, int32
+                  step) restored onto the card and the CPU equals an
+                  uninterrupted hand-driven run's state bit for bit;
+                  save (snapshot, write) and restore timed; free disk
+                  checked first, the directory removed at the end.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
 ``kernels`` line adds both counts); the attention and fused-MLP kernels'
 just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
-the SSD kernel's around phase 15, and around each train phase (17-21)
-the counts of every forward and backward kernel the path runs, each
-read just after the path's five steps (the ``kernels`` line adds the
-counts of every path); the run
+the SSD kernel's around phase 15, the attention kernel's around phase
+16b, and around each train phase (17-22) the counts of every forward and
+backward kernel the path runs, each read just after the path's steps
+(the ``kernels`` line adds the counts of every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -275,9 +304,9 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "frontends", "cli", "attn_check", "attn_bwd_check", "mlp_check",
           "mlp_bwd_check", "mlp_probe",
           "ssd_check", "ssd_bwd_check", "lm_serve", "ssm_serve",
-          "moe_serve", "hybrid_serve", "encdec_serve", "lm_train",
-          "lm_train_streamed", "moe_train", "ssm_train", "encdec_train",
-          "hybrid_train")
+          "moe_serve", "hybrid_serve", "encdec_serve", "int8_serve",
+          "lm_train", "lm_train_streamed", "moe_train", "ssm_train",
+          "encdec_train", "hybrid_train", "train_resilient")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -1384,6 +1413,7 @@ ATTN_BWD_CASES = (
     ("seamless.encoder.train", 4, 16, 16, 4096, 4096, 64, False, 0),
     ("seamless.decoder.train", 4, 16, 16, 1024, 1024, 64, True, 0),
     ("jamba.train.cut", 4, 8, 1, 4096, 4096, 128, True, 0),
+    ("qwen2-0.5b.train", 4, 14, 2, 1024, 1024, 64, True, 0),
     ATTN_BWD_UNALIGNED,
 )
 ATTN_BWD_HEADLINE = ("llama3.2-1b.train", "bfloat16")
@@ -4330,6 +4360,350 @@ def _tree_to(tree, device):
 
 
 # ---------------------------------------------------------------------------
+# int8-weight serving and crash-restart training
+# ---------------------------------------------------------------------------
+
+#: the int8 server: ``lm_serve``'s first model, batch, prompts and new
+#: tokens, ``ServeEngine(int8_weights=True)`` beside a bf16 engine on the
+#: same seeded weights
+INT8_ARCH = LM_MODELS[0]
+#: per-call dequantize timing: warm calls, each synchronised
+INT8_DEQ_REPS = 5
+
+
+def _tree_nbytes(tree) -> int:
+    """Bytes of every tensor in a tree (a ``QTensor``: its q and scale)."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    return sum(t.numel() * t.element_size()
+               for _, t in tree_flatten_with_path(tree))
+
+
+def qtensor_mismatches(a, b) -> list:
+    """Paths where two quantized trees differ in any bit of ``q`` or
+    ``scale`` (or of a leaf left unquantized), ``b`` moved to ``a``'s
+    device."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return ["structure"]
+    import torch
+
+    return [p for (p, x), (_, y) in zip(fa, fb)
+            if x.dtype != y.dtype or not torch.equal(x, y.to(x.device))]
+
+
+def int8_serve(torch, read) -> dict:
+    """llama3.2-1b at full width and depth served with int8 weights: the
+    card's quantization against the CPU's on the same tensors, the int8
+    engine against a bf16 engine handed the dequantized weights (bit for
+    bit), and its bytes, times and greedy agreement beside a bf16 engine
+    on the original weights, in this run.  ``read()`` returns the path's
+    launch count: it is called after the int8 engine's own calls, before
+    the bf16 engines it is compared with run."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.tree import tree_flatten_with_path, tree_map
+    from repro_torch.quant import dequantize_params, quantize_params
+
+    torch.cuda.empty_cache()
+    cfg = get_config(INT8_ARCH)
+    max_len = LM_PROMPT + LM_NEW
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+
+    # the int8 engine alone on the card: construction, memory, generate
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q8 = ServeEngine(cfg, max_len=max_len, seed=0, int8_weights=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.launches
+    logits8, _ = q8.prefill(prompts)
+    per_prefill = fa.launches - before
+    if per_prefill != cfg.num_layers:
+        raise AssertionError(f"int8 prefill: {per_prefill} flash launches, "
+                             f"want {cfg.num_layers} (one per layer)")
+    out8, cold8 = q8.generate(prompts, max_new=LM_NEW)
+    out8b, warm8 = q8.generate(prompts, max_new=LM_NEW)
+    if not np.array_equal(out8, out8b):
+        raise AssertionError("int8 greedy generate not repeatable")
+    peak8_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    prefill8_ms = _prefill_ms(torch, q8, prompts)
+    launches = read()                  # the int8 path's own: read after
+
+    # the transient bf16 copy each call writes
+    deq_ms = []
+    for _ in range(INT8_DEQ_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = dequantize_params(q8.params, cfg.param_dtype)
+        torch.cuda.synchronize()
+        deq_ms.append((time.perf_counter() - t0) * 1e3)
+        del d
+    deq_ms = deq_ms[1:]
+
+    # the weights it quantized: the same generator, drawn again
+    params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    engine_vs_direct = qtensor_mismatches(q8.params, quantize_params(params))
+    # 1. the card's quantization against the CPU's on the same tensors
+    # one superblock: each stacked leaf's first layer, its layer axis kept
+    sample = {"blocks": tree_map(lambda t: t[0:1], params["blocks"]),
+              "embed": params["embed"]}
+    card_q = quantize_params(sample)
+    card_vs_cpu = qtensor_mismatches(
+        quantize_params(_tree_to(sample, "cpu")), card_q)
+    if engine_vs_direct or card_vs_cpu:
+        raise AssertionError(
+            f"quantization bits: engine vs direct {engine_vs_direct[:5]}, "
+            f"card vs CPU {card_vs_cpu[:5]}")
+
+    # 2. a bf16 engine handed the dequantized weights: the same bits
+    deq = ServeEngine(cfg, max_len=max_len,
+                      params=dequantize_params(q8.params, cfg.param_dtype))
+    logits_d, _ = deq.prefill(prompts)
+    out_d, _ = deq.generate(prompts, max_new=LM_NEW)
+    same_logits = bool(torch.equal(logits8, logits_d))
+    if not same_logits or not np.array_equal(out8, out_d):
+        raise AssertionError(
+            "int8 engine vs bf16 engine on the dequantized weights: "
+            f"logits equal {same_logits}, tokens equal "
+            f"{np.array_equal(out8, out_d)}")
+    if tuple(logits8.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
+            torch.isfinite(logits8).all()):
+        raise AssertionError("int8 logits not finite of the expected shape")
+    del deq, logits_d
+
+    # 4. beside the bf16 engine on the original weights, in this run
+    fp = ServeEngine(cfg, max_len=max_len, params=params)
+    logits_fp, _ = fp.prefill(prompts)
+    out_fp, cold_fp = fp.generate(prompts, max_new=LM_NEW)
+    _, warm_fp = fp.generate(prompts, max_new=LM_NEW)
+    prefill_fp_ms = _prefill_ms(torch, fp, prompts)
+    gap = float((logits8 - logits_fp).abs().max())
+    result = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+        "init_s": init_s,
+        "weight_gb": {"int8_with_scales": _tree_nbytes(q8.params) / 1e9,
+                      "bf16": _tree_nbytes(params) / 1e9},
+        "int8_held_gb": held_gb, "int8_peak_gb": peak8_gb,
+        "int8": {"cold": dataclasses.asdict(cold8),
+                 "warm": dataclasses.asdict(warm8),
+                 "prefill_ms": prefill8_ms},
+        "bf16": {"cold": dataclasses.asdict(cold_fp),
+                 "warm": dataclasses.asdict(warm_fp),
+                 "prefill_ms": prefill_fp_ms},
+        "dequantize_ms_per_call": sum(deq_ms) / len(deq_ms),
+        "dequantize_ms_each": deq_ms,
+        "flash_launches_per_prefill": per_prefill,
+        "launches": {"flash_attention": launches},
+        "card_vs_cpu_quantization": {
+            "tensors": len(tree_flatten_with_path(card_q)),
+            "mismatches": card_vs_cpu},
+        "int8_equals_dequantized_bf16_engine": True,
+        "greedy_agreement_vs_bf16_weights": float((out8 == out_fp).mean()),
+        "first_token_agreement_vs_bf16_weights": float(
+            (out8[:, 0] == out_fp[:, 0]).mean()),
+        "logits_max_abs_vs_bf16_weights": gap,
+        "logits_max_abs": float(logits_fp.abs().max()),
+    }
+    del q8, fp, params, logits8, logits_fp
+    torch.cuda.empty_cache()
+    return result
+
+
+#: crash-restart training: qwen2-0.5b at full width and depth (24 layers,
+#: d_model 896, tied 151936-token embedding) — the model of the
+#: reference's restart tests — through ``launch.train.train``
+RESILIENT_ARCH = "qwen2-0.5b"
+RESILIENT_RUN = {"batch": 4, "seq": 1024, "steps": 8, "ckpt_every": 4,
+                 "lr": 1e-3, "seed": 3}
+RESILIENT_FAIL_AT = (6,)
+#: the third run, on the crash run's directory: only the new steps run
+RESILIENT_MORE_STEPS = 10
+RESILIENT_DIR = os.path.join(ROOT, "build", "train_resilient")
+#: checkpoints on disk at once (the crash run keeps steps 4, 8 and, after
+#: the third run, 10; the timed save writes one more) and the room kept
+#: beside them
+RESILIENT_CKPTS_ON_DISK = 4
+RESILIENT_DISK_MARGIN = 2e9
+
+
+def need_free_disk(path: str, need_bytes: float) -> int:
+    """Free bytes on the file system of ``path`` (made if missing);
+    raises, naming both numbers, if fewer than ``need_bytes``."""
+    import shutil
+
+    os.makedirs(path, exist_ok=True)
+    free = shutil.disk_usage(path).free
+    if free < need_bytes:
+        raise RuntimeError(
+            f"{path}: {free / 1e9:.2f} GB free, the checkpoints need "
+            f"{need_bytes / 1e9:.2f} GB")
+    return free
+
+
+def restart_replays(clean: list, crashed: list, *, fail_at: int,
+                    restored_from: int) -> bool:
+    """Whether a run that crashed before step ``fail_at`` and restarted
+    from step ``restored_from`` logged the clean run's losses, bit for bit:
+    the steps before the crash, then the replayed steps again, then the
+    rest."""
+    replayed = fail_at - restored_from
+    return (crashed[:fail_at] == clean[:fail_at]
+            and crashed[fail_at:fail_at + replayed]
+            == clean[restored_from:fail_at]
+            and crashed[fail_at + replayed:] == clean[fail_at:]
+            and len(crashed) == len(clean) + replayed)
+
+
+def train_resilient(torch, read) -> dict:
+    """qwen2-0.5b trained through ``launch.train.train`` at full width and
+    depth: a clean run and a run crashed at step 6 (restarted from its
+    step-4 checkpoint) log the same losses bit for bit; a third call on
+    the crashed run's directory runs only the new steps; the step-8
+    checkpoint restores onto the card and the CPU equal to an
+    uninterrupted hand-driven run's state.  Timed: checkpoint save
+    (snapshot, write) and restore.  ``read()`` returns the path's launch
+    counts: it is called after the three ``train`` calls, before the
+    hand-driven run."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_flatten_with_path as flatten
+
+    torch.cuda.empty_cache()
+    cfg = get_config(RESILIENT_ARCH)
+    run = dict(RESILIENT_RUN)
+    steps, every = run["steps"], run["ckpt_every"]
+    fail_at = RESILIENT_FAIL_AT[0]
+    hand = T.build_run(cfg=cfg, steps=steps, batch=run["batch"],
+                       seq=run["seq"], ckpt_dir=None, lr=run["lr"],
+                       seed=run["seed"])
+    tmpl = hand.state_template()
+    ckpt_bytes = _tree_nbytes(tmpl)
+    shutil.rmtree(RESILIENT_DIR, ignore_errors=True)
+    free = need_free_disk(RESILIENT_DIR, RESILIENT_CKPTS_ON_DISK * ckpt_bytes
+                          + RESILIENT_DISK_MARGIN)
+    clean_dir = os.path.join(RESILIENT_DIR, "clean")
+    crash_dir = os.path.join(RESILIENT_DIR, "crash")
+    common = dict(arch=RESILIENT_ARCH, smoke=False, log_every=0, **run)
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    t0 = time.perf_counter()
+    clean = T.train(ckpt_dir=clean_dir, **common)
+    walls["clean"] = time.perf_counter() - t0
+    shutil.rmtree(clean_dir)
+    t0 = time.perf_counter()
+    crash = T.train(ckpt_dir=crash_dir, fail_at=RESILIENT_FAIL_AT, **common)
+    walls["crash"] = time.perf_counter() - t0
+    lc, lk = clean["losses"], crash["losses"]
+    restored_from = fail_at - fail_at % every
+    if clean["final_step"] != steps or crash["final_step"] != steps or \
+            not restart_replays(lc, lk, fail_at=fail_at,
+                                restored_from=restored_from):
+        raise AssertionError(f"clean {clean['final_step']} {lc} against "
+                             f"crashed {crash['final_step']} {lk}")
+    if not all(math.isfinite(x) for x in lc):
+        raise AssertionError(f"losses {lc} not finite")
+
+    # the third call on the crash run's directory: only steps 8 and 9
+    t0 = time.perf_counter()
+    more = T.train(ckpt_dir=crash_dir,
+                   **dict(common, steps=RESILIENT_MORE_STEPS))
+    walls["more"] = time.perf_counter() - t0
+    if more["final_step"] != RESILIENT_MORE_STEPS or \
+            len(more["losses"]) != RESILIENT_MORE_STEPS - steps:
+        raise AssertionError(f"resumed run: final step {more['final_step']}"
+                             f", {len(more['losses'])} steps run")
+    launches = read()                  # the three train calls': read after
+
+    # the live state: the same run driven by hand, uninterrupted
+    _, state = hand.fresh_state()
+    hand_losses = []
+    for i in range(steps):
+        state, m = hand.run_step(i, state)
+        hand_losses.append(float(m["loss"]))
+    if hand_losses != lc:
+        raise AssertionError(f"hand-driven losses {hand_losses} != {lc}")
+    live = {"params": state[0], "opt": state[1]}
+    live_flat = flatten(live)
+    mgr = CheckpointManager(crash_dir)
+    restores = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, extra = mgr.restore(steps, tmpl, device=dev)
+        torch.cuda.synchronize()
+        restores[dev] = time.perf_counter() - t0
+        differ = qtensor_mismatches(tree, live)
+        if differ or extra != {"step": steps}:
+            raise AssertionError(f"step-{steps} checkpoint restored on {dev} "
+                                 f"differs from the live state: {differ[:5]}")
+        del tree
+    moments = ("['opt'].mu", "['opt'].nu")
+    kinds = {"params": sorted({str(t.dtype) for p, t in live_flat
+                               if p.startswith("['params']")}),
+             "moments": sorted({str(t.dtype) for p, t in live_flat
+                                if p.startswith(moments)}),
+             "step": [str(state[1].step.dtype), state[1].step.ndim]}
+    if kinds != {"params": ["torch.bfloat16"], "moments": ["torch.float32"],
+                 "step": ["torch.int32", 0]}:
+        raise AssertionError(f"the state's dtypes {kinds}")
+
+    # a save of the live state, timed as train's checkpoints are made
+    timed_dir = os.path.join(RESILIENT_DIR, "timed")
+    saver = CheckpointManager(timed_dir, keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver.save_async(steps, live, extra={"step": steps})
+    snapshot_s = time.perf_counter() - t0
+    saver.wait()
+    write_s = time.perf_counter() - t0 - snapshot_s
+    shutil.rmtree(timed_dir)
+    del live, live_flat, state, m
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shutil.rmtree(RESILIENT_DIR)
+    gb = ckpt_bytes / 1e9
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, **run, "fail_at": list(RESILIENT_FAIL_AT),
+        "losses_clean": lc, "losses_crash": lk, "losses_more": more["losses"],
+        "crash_equals_clean_bit_for_bit": True,
+        "restored_equals_live": ["cuda", "cpu"], "leaf_dtypes": kinds,
+        "checkpoint_gb": gb, "checkpoint_leaves": len(flatten(tmpl)),
+        "free_disk_gb": free / 1e9,
+        "save_snapshot_s": snapshot_s, "save_write_s": write_s,
+        "save_write_gb_per_s": gb / write_s,
+        "snapshot_gb_per_s": gb / snapshot_s,
+        "restore_s": restores,
+        "restore_gb_per_s": {k: gb / v for k, v in restores.items()},
+        "median_step_ms": {"clean": clean["median_step_s"] * 1e3,
+                           "crash": crash["median_step_s"] * 1e3,
+                           "more": more["median_step_s"] * 1e3},
+        "tokens_per_s": run["batch"] * run["seq"] / clean["median_step_s"],
+        "stragglers_flagged": {"clean": clean["straggler_flags"],
+                               "crash": crash["straggler_flags"],
+                               "more": more["straggler_flags"]},
+        "run_wall_s": walls, "peak_mem_gb": peak_gb,
+        "launches": launches,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4487,6 +4861,12 @@ def main(argv=None) -> int:
         emit_phase("encdec_serve", encdec_serve(torch))
         fa_launches += read_after(fa, "flash_attention",        # after
                                   "encoder-decoder")
+    fa.reset_counts()                  # counts: zero before the int8 path
+    if "int8_serve" in phases:
+        int8 = int8_serve(torch, read=lambda: read_after(   # read after
+            fa, "flash_attention", "int8"))
+        fa_launches += int8["launches"]["flash_attention"]
+        emit_phase("int8_serve", int8)
     def read_bwd(mod, name: str, path: str) -> int:
         """``read_after`` for a module's backward kernel."""
         if mod.bwd_launches < 1 or mod.bwd_plain_cuda_calls:
@@ -4527,6 +4907,16 @@ def main(argv=None) -> int:
                 fm_launches += n_fwd
         train.update(rest())     # the repeat, profile and CPU check: after
         emit_phase(name, train)
+    fa.reset_counts()                  # counts: zero before the restart path
+    if "train_resilient" in phases:
+        resilient = train_resilient(torch, read=lambda: {       # read after
+            "flash_attention": read_after(fa, "flash_attention",
+                                          "crash-restart train"),
+            "flash_attention_bwd": read_bwd(fa, "flash_attention_bwd",
+                                            "crash-restart train")})
+        fa_launches += resilient["launches"]["flash_attention"]
+        bwd_totals["attn"] += resilient["launches"]["flash_attention_bwd"]
+        emit_phase("train_resilient", resilient)
     fb_launches, mb_launches = bwd_totals["attn"], bwd_totals["ssd"]
 
     if set(phases) != set(PHASES):

@@ -17,6 +17,12 @@ A small but real engine on one card:
   in the reference: it is driven through ``steps.model_prefill`` /
   ``model_decode``.
 * Greedy or temperature sampling; deterministic under a seed.
+* ``int8_weights=True``: weight-only int8 (``repro_torch.quant``), the
+  reference's regime.  The engine quantizes once, at construction, on the
+  device, and holds int8 weights with f32 per-channel scales; each
+  prefill and decode call dequantizes them to ``cfg.param_dtype``.  The
+  reference's ``jit`` fuses that convert into the consumers; here it runs
+  eagerly and writes a transient copy of the weights a call.
 
 Usage::
 
@@ -43,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch import steps as ST
+from repro_torch.quant import dequantize_params, quantize_params
 
 
 @dataclasses.dataclass
@@ -57,7 +64,9 @@ class ServeEngine:
     """Serve ``cfg`` on ``device`` (``None``: the CUDA card; raises
     without one).  Parameters are drawn from a ``torch.Generator`` seeded
     with ``seed`` on the device — or taken as given (``params``, e.g. from
-    :func:`repro_torch.models.lm.lm_params_from_numpy`)."""
+    :func:`repro_torch.models.lm.lm_params_from_numpy`).  With
+    ``int8_weights`` they are quantized once, here, and ``self.params``
+    holds the int8 tree."""
 
     def __init__(
         self,
@@ -69,19 +78,27 @@ class ServeEngine:
         int8_weights: bool = False,
         params: dict | None = None,
     ) -> None:
-        if int8_weights:
-            raise NotImplementedError(
-                "int8 weights wait for the port of quant/ptq.py (ROADMAP §A "
-                "item 5)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = max_len
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = ST.model_init(gen, cfg)
+        self.int8_weights = int8_weights
+        if int8_weights:
+            # weight-only PTQ: int8 weights + per-channel scales, on the
+            # device; dequantized in each prefill and decode call
+            params = quantize_params(params)
         self.params = params
         self._prefill_step = ST.make_prefill_step(cfg)
         self._decode_step = ST.make_decode_step(cfg)
+
+    def model_params(self) -> dict:
+        """The parameters a step takes: ``self.params``, or with int8
+        weights a fresh copy dequantized to ``cfg.param_dtype``."""
+        if self.int8_weights:
+            return dequantize_params(self.params, self.cfg.param_dtype)
+        return self.params
 
     # -- wave serving -----------------------------------------------------------
 
@@ -91,7 +108,7 @@ class ServeEngine:
         (B, V) f32 on the device, tight stacked KV caches)."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                  device=self.device)
-        return self._prefill_step(self.params, {"tokens": tokens})
+        return self._prefill_step(self.model_params(), {"tokens": tokens})
 
     @torch.inference_mode()
     def generate(
@@ -133,8 +150,8 @@ class ServeEngine:
         token = self._sample(logits, temperature, gen)
         out[:, 0] = token.cpu().numpy()
         for i in range(1, max_new):
-            logits, cache = self._decode_step(self.params, cache, token,
-                                              plen + i - 1)
+            logits, cache = self._decode_step(self.model_params(), cache,
+                                              token, plen + i - 1)
             token = self._sample(logits, temperature, gen)
             out[:, i] = token.cpu().numpy()
         synchronize(dev)

@@ -88,7 +88,9 @@ def route(p: dict, cfg: ModelConfig, xf: torch.Tensor):
     m = cfg.moe
     n = xf.shape[0]
     e, k = m.num_experts, m.top_k
-    logits = xf.float() @ p["router"]                          # (N, E)
+    # f32 logits whatever the router's dtype (the reference's ``@``
+    # promotes a bf16 router, as int8 weights dequantize it, to f32)
+    logits = xf.float() @ p["router"].float()                  # (N, E)
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     gate_w = torch.softmax(vals[:, :k], dim=-1)
     gate_i = idx[:, :k]

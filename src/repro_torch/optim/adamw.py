@@ -18,9 +18,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -44,22 +46,6 @@ class AdamWConfig:
     quantize_moments: bool = False
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts (``rest``: trees of the same
-    structure, their leaves passed alongside)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of nested dicts in sorted key order (the reference's)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
-
-
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup → cosine decay to ``min_lr_frac`` · lr (f32)."""
     s = torch.as_tensor(step).to(torch.float32)
@@ -78,7 +64,8 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    # a tensor divisor: on CUDA a Python one is multiplied by its reciprocal
+    scale = torch.clamp(x.abs().max(), min=1e-12) / x.new_full((), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -28,7 +28,8 @@ def init_error_feedback(grads_template: dict) -> ErrorFeedbackState:
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    # a tensor divisor: on CUDA a Python one is multiplied by its reciprocal
+    scale = torch.clamp(x.abs().max(), min=1e-12) / x.new_full((), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -1,5 +1,5 @@
-"""The port stands alone: no import of ``jax``, of the reference
-package or of the reference's ``benchmarks`` anywhere in
+"""The port stands alone: no import of ``jax``, of ``ml_dtypes``, of the
+reference package or of the reference's ``benchmarks`` anywhere in
 ``src/repro_torch`` or ``chip_smoke.py``; no silent
 CPU path when the card is missing; the conv wrapper on a CPU tensor
 never touches the CUDA toolchain; no TPU constant in the port."""
@@ -41,7 +41,8 @@ COPIED = [
     "configs/granite_moe_1b_a400m.py", "configs/mamba2_1_3b.py",
     "frontends/base.py", "frontends/modelcard.py",
     "frontends/onnx_reader.py", "frontends/zoo.py", "frontends/__init__.py",
-    "instrument/__init__.py",
+    "instrument/__init__.py", "runtime/__init__.py",
+    "runtime/resilience.py", "quant/__init__.py", "checkpoint/__init__.py",
 ]
 
 
@@ -60,7 +61,7 @@ def test_no_jax_no_reference_import(rel):
     for mod in _imports(tree):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro", "flax", "optax",
-                           "benchmarks"), f"{rel} imports {mod}"
+                           "benchmarks", "ml_dtypes"), f"{rel} imports {mod}"
 
 
 def _code_dump(path, rename: bool) -> str:

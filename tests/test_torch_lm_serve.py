@@ -407,20 +407,37 @@ def test_engine_draws_its_own_params_from_a_seed():
 
 
 def test_what_is_not_ported_raises():
+    """Int8 weights are ported (``test_torch_quant.py``): every family's
+    engine takes them and holds int8 leaves.  What still raises: the
+    shardings of the quantized tree (a device mesh, ROADMAP §A item 6)
+    and frames in ``generate``, which refuses them as the reference's
+    does, with int8 weights too."""
+    from repro_torch.quant import ptq
+
     cpu = dict(device="cpu", max_len=24)
-    with pytest.raises(NotImplementedError, match="quant"):
-        tserve.ServeEngine(treg.get_config("llama3.2-1b", smoke=True),
-                           int8_weights=True, **cpu)
-    for arch in ("olmoe-1b-7b", "jamba-1.5-large-398b",
+    for arch in ("llama3.2-1b", "olmoe-1b-7b", "jamba-1.5-large-398b",
                  "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.ServeEngine(treg.get_config(arch, smoke=True),
-                               int8_weights=True, **cpu)
+        eng = tserve.ServeEngine(treg.get_config(arch, smoke=True),
+                                 int8_weights=True, **cpu)
+        assert any(isinstance(x, ptq.QTensor) for _, x in
+                   _flat_leaves(eng.params)), arch
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ptq.quantized_param_shardings(None, None)
     # frames in: generate refuses, as the reference's does
-    seamless = tserve.ServeEngine(
-        treg.get_config("seamless-m4t-medium", smoke=True), **cpu)
-    with pytest.raises(NotImplementedError, match="stub-frontend"):
-        seamless.generate(_tokens(11, 2, 8), max_new=4)
+    for int8 in (False, True):
+        seamless = tserve.ServeEngine(
+            treg.get_config("seamless-m4t-medium", smoke=True),
+            int8_weights=int8, **cpu)
+        with pytest.raises(NotImplementedError, match="stub-frontend"):
+            seamless.generate(_tokens(11, 2, 8), max_new=4)
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def test_device_none_means_the_card():

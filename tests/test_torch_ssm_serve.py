@@ -365,9 +365,20 @@ def test_serve_main_on_the_cpu(capsys):
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-1.5-large-398b"])
 def test_moe_and_hybrid_still_raise(arch):
     """The MoE and hybrid families are ported (``test_torch_moe_serve.py``,
-    ``test_torch_hybrid_serve.py``); what they still refuse is what the
-    port still lacks, int8 weights."""
+    ``test_torch_hybrid_serve.py``), and since int8 weights are ported too
+    (``test_torch_quant.py``) they no longer refuse them: the int8 engine
+    generates the tokens of a bf16 engine on its dequantized weights (the
+    router, dequantized to bf16, promoted to f32 as the reference's ``@``
+    does)."""
+    from repro_torch.quant import dequantize_params
+
     cfg = treg.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.ServeEngine(cfg, device="cpu", max_len=24, int8_weights=True)
+    q8 = tserve.ServeEngine(cfg, device="cpu", max_len=24, int8_weights=True)
+    deq = tserve.ServeEngine(cfg, device="cpu", max_len=24,
+                             params=dequantize_params(q8.params,
+                                                      cfg.param_dtype))
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 8),
+                                                dtype=np.int32)
+    out, _ = q8.generate(prompts, max_new=4)
+    np.testing.assert_array_equal(out, deq.generate(prompts, max_new=4)[0])
     assert tserve.ServeEngine(cfg, device="cpu", max_len=24).params
