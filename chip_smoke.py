@@ -263,6 +263,25 @@ Phases, each printing one JSON object on a line of its own:
                   uninterrupted hand-driven run's state bit for bit;
                   save (snapshot, write) and restore timed; free disk
                   checked first, the directory removed at the end.
+23. ``mesh_train`` the same qwen2-0.5b run through
+                  ``launch.train.train`` on ``single_device_mesh()`` (a
+                  1 × 1 ``data`` × ``model`` mesh: an NCCL world of one
+                  on an in-memory store; params and AdamW state as
+                  DTensors placed by the sharding rules), crashed at step 6
+                  and restarted from step 4, then the same steps with
+                  ``mesh=None`` in the same process: the losses bit for
+                  bit; the ``mesh=None`` step-8 checkpoint restored onto
+                  the mesh equals the mesh's step-8 checkpoint restored
+                  onto the ``mesh=None`` path, bit for bit; step ms of both
+                  paths, the sharded step's gather and optimizer ms beside
+                  the plain optimizer's, warm steps of both paths in
+                  turns from the restored states, save (snapshot, write)
+                  and restore s, peak GB; the flash launches are read
+                  after the mesh run.  With two or more cards, a (2, 1) NCCL
+                  mesh of two spawned ranks (torchrun) runs two steps held
+                  to the 1 × 1 mesh's on the same global batch at the
+                  bf16 train rule (loss rtol 1e-2); with one card the line
+                  says so.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -270,7 +289,7 @@ just after phase 5, and again just before phase 6 and after phase 7 (the
 just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
 the SSD kernel's around phase 15, the attention kernel's around phase
-16b, and around each train phase (17-22) the counts of every forward and
+16b, and around each train phase (17-23) the counts of every forward and
 backward kernel the path runs, each read just after the path's steps
 (the ``kernels`` line adds the counts of every path); the run
 fails if a kernel was never launched on its path, or if a plain version
@@ -306,7 +325,7 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "ssd_check", "ssd_bwd_check", "lm_serve", "ssm_serve",
           "moe_serve", "hybrid_serve", "encdec_serve", "int8_serve",
           "lm_train", "lm_train_streamed", "moe_train", "ssm_train",
-          "encdec_train", "hybrid_train", "train_resilient")
+          "encdec_train", "hybrid_train", "train_resilient", "mesh_train")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -4703,6 +4722,265 @@ def train_resilient(torch, read) -> dict:
     }
 
 
+#: training on a device mesh: ``train_resilient``'s model and run on the
+#: 1 × 1 mesh, then with ``mesh=None`` (two crashed runs; each keeps its
+#: step-4 and step-8 checkpoints; the timed save writes one more)
+MESH_TRAIN_DIR = os.path.join(ROOT, "build", "mesh_train")
+MESH_TRAIN_CKPTS_ON_DISK = 5
+#: the (2, 1) two-card run: steps, and the bf16 train rule's loss rtol
+MESH_TRAIN_TWO_CARD_STEPS = 2
+MESH_TRAIN_TWO_CARD_RTOL = TRAIN_CPU_RULE["bfloat16"][0]
+
+#: what a rank of the two-card run executes (under torchrun): NCCL on the
+#: cards, gloo on the CPU
+_TWO_CARD_RANK = """
+import json, os, sys
+import torch, torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch.launch import train as T
+from repro_torch.launch.mesh import make_host_mesh
+if {device!r} == "cuda":
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+else:
+    torch.set_num_threads(1)
+dist.init_process_group("nccl" if {device!r} == "cuda" else "gloo")
+out = T.train(mesh=make_host_mesh((2, 1), ("data", "model")), ckpt_dir=None,
+              device={device!r}, **{kw!r})
+if dist.get_rank() == 0:
+    with open({path!r}, "w") as f:
+        json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+class _RankView:
+    """Rank ``rank``'s view of a ``data`` × ``model`` mesh of ``shape``,
+    with no process behind it: the shape and coordinate that
+    ``steps.batch_rows`` reads."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, shape: tuple, rank: int) -> None:
+        self.shape = dict(zip(self.axis_names, shape))
+        self._rank = rank
+
+    def coordinate(self) -> dict:
+        return dict(zip(self.axis_names, divmod(self._rank,
+                                                self.shape["model"])))
+
+
+def two_card_rows(batch: int) -> list:
+    """The global batch of a (2, 1) run as the spans its ranks draw
+    (``steps.batch_rows`` of each rank), rank 0's first."""
+    from repro_torch.launch import steps as ST
+
+    return [span for rank in range(2)
+            for span in ST.batch_rows(_RankView((2, 1), rank), batch)]
+
+
+def two_card_run(torch, run: dict, *, arch: str = RESILIENT_ARCH,
+                 smoke: bool = False, device: str = "cuda",
+                 out_dir: str = MESH_TRAIN_DIR) -> dict:
+    """Two steps of ``arch`` on a (2, 1) mesh of two ranks spawned by
+    torchrun (NCCL on two cards, gloo with ``device="cpu"``) against the
+    same steps on the 1 × 1 mesh of ``device``, on the global batch the
+    two ranks draw (the bf16 train rule on the losses)."""
+    import json
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import single_device_mesh
+
+    steps = MESH_TRAIN_TWO_CARD_STEPS
+    kw = dict(arch=arch, smoke=smoke, log_every=0,
+              **dict(run, steps=steps, ckpt_every=steps))
+    path = os.path.join(out_dir, "two_card.json")
+    script = os.path.join(out_dir, "two_card_rank.py")
+    with open(script, "w") as f:
+        f.write(_TWO_CARD_RANK.format(src=os.path.join(ROOT, "src"), kw=kw,
+                                      device=device, path=path))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "2", script],
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"two-card run failed ({r.returncode}): "
+                           f"{r.stderr[-3000:]}")
+    with open(path) as f:
+        two = json.load(f)
+    one = T.build_run(cfg=get_config(arch, smoke=smoke), steps=steps,
+                      batch=run["batch"], seq=run["seq"], ckpt_dir=None,
+                      lr=run["lr"], seed=run["seed"], device=device,
+                      mesh=single_device_mesh(device))
+    _, (params, opt_state) = one.fresh_state()
+    losses = []
+    for i in range(steps):
+        batch = one.rows_at(i, two_card_rows(run["batch"]))
+        params, opt_state, m = one.step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    worst = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], losses))
+    if worst > MESH_TRAIN_TWO_CARD_RTOL:
+        raise AssertionError(f"(2, 1) losses {two['losses']} against the "
+                             f"1 x 1 mesh's {losses}")
+    return {"losses_2x1": two["losses"], "losses_1x1": losses,
+            "loss_rel_gap": worst, "rule_rtol": MESH_TRAIN_TWO_CARD_RTOL,
+            "median_step_ms_2x1": two["median_step_s"] * 1e3,
+            "wall_s": wall}
+
+
+def mesh_train(torch, read) -> dict:
+    """qwen2-0.5b trained through ``launch.train.train`` on the 1 × 1 mesh
+    and with ``mesh=None`` (each crashed at step 6, restarted from step
+    4): bit-equal losses, checkpoints restoring across bit for bit, the
+    costs of the mesh layer.  ``read()`` returns the path's launch counts:
+    it is called after the mesh run, before anything else runs."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten_with_path as flatten
+    from repro_torch.tree import tree_map
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(RESILIENT_ARCH)
+    run = dict(RESILIENT_RUN)
+    steps, fail_at = run["steps"], RESILIENT_FAIL_AT[0]
+    mesh = single_device_mesh()
+    try:
+        hand = T.build_run(cfg=cfg, steps=steps, batch=run["batch"],
+                           seq=run["seq"], ckpt_dir=None, lr=run["lr"],
+                           seed=run["seed"], mesh=mesh)
+        tmpl = hand.state_template()
+        ckpt_bytes = _tree_nbytes(tmpl)
+        shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+        free = need_free_disk(MESH_TRAIN_DIR, MESH_TRAIN_CKPTS_ON_DISK
+                              * ckpt_bytes + RESILIENT_DISK_MARGIN)
+        dirs = {k: os.path.join(MESH_TRAIN_DIR, k) for k in ("mesh", "none")}
+        common = dict(arch=RESILIENT_ARCH, smoke=False, log_every=0,
+                      fail_at=RESILIENT_FAIL_AT, **run)
+        walls, out = {}, {}
+        t0 = time.perf_counter()
+        out["mesh"] = T.train(ckpt_dir=dirs["mesh"], mesh=mesh, **common)
+        walls["mesh"] = time.perf_counter() - t0
+        launches = read()              # the mesh run's: read after it
+        t0 = time.perf_counter()
+        out["none"] = T.train(ckpt_dir=dirs["none"], **common)
+        walls["none"] = time.perf_counter() - t0
+        lm, ln = out["mesh"]["losses"], out["none"]["losses"]
+        restored_from = fail_at - fail_at % run["ckpt_every"]
+        if lm != ln or out["mesh"]["final_step"] != steps or \
+                lm[fail_at:2 * fail_at - restored_from] != \
+                lm[restored_from:fail_at]:
+            raise AssertionError(f"mesh losses {lm} against mesh=None {ln}")
+        if not all(math.isfinite(x) for x in lm):
+            raise AssertionError(f"losses {lm} not finite")
+
+        # the step-8 checkpoints across: mesh=None's onto the mesh, the
+        # mesh's onto the mesh=None path
+        shardings = {"params": hand.p_shard, "opt": hand.o_shard}
+        restore_s = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        onto_mesh, _ = CheckpointManager(dirs["none"]).restore(
+            steps, tmpl, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s["none_onto_mesh"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        onto_none, _ = CheckpointManager(dirs["mesh"]).restore(steps, tmpl)
+        torch.cuda.synchronize()
+        restore_s["mesh_onto_none"] = time.perf_counter() - t0
+        flat_mesh, flat_none = flatten(onto_mesh), flatten(onto_none)
+        differ = [p for (p, a), (_, b) in zip(flat_mesh, flat_none)
+                  if type(a).__name__ != "DTensor" or a.dtype != b.dtype
+                  or not torch.equal(a.full_tensor(), b)]
+        if differ or [p for p, _ in flat_mesh] != [p for p, _ in flat_none]:
+            raise AssertionError(f"checkpoints restored across differ: "
+                                 f"{differ[:5]}")
+
+        # the mesh layer's costs, on the restored state: gathering the
+        # params, and AdamW on DTensors beside AdamW on plain tensors
+        def timed(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / reps * 1e3
+
+        p_mesh, o_mesh = onto_mesh["params"], onto_mesh["opt"]
+        p_none, o_none = onto_none["params"], onto_none["opt"]
+        gather_ms = timed(lambda: tree_map(lambda t: t.full_tensor(), p_mesh))
+        opt_ms = {
+            "dtensor": timed(lambda: adamw.apply(p_mesh, o_mesh.mu, o_mesh,
+                                                 hand.opt_cfg)),
+            "plain": timed(lambda: adamw.apply(p_none, o_none.mu, o_none,
+                                               hand.opt_cfg))}
+        # whole steps from the restored states, in turns (none, mesh,
+        # mesh, none), on the step-8 batch
+        plain_step = ST.make_train_step(cfg, hand.opt_cfg)
+        batch = hand.batch_at(steps)
+        turns = {"none": [], "mesh": []}
+        for name in ("none", "mesh", "mesh", "none"):
+            fn, state = (plain_step, (p_none, o_none)) if name == "none" \
+                else (hand.step_fn, (p_mesh, o_mesh))
+            turns[name].append(timed(lambda: fn(*state, batch)))
+        del p_none, o_none, flat_none, onto_none, batch
+        torch.cuda.empty_cache()
+
+        # a save of the mesh state, timed as train's checkpoints are made
+        saver = CheckpointManager(os.path.join(MESH_TRAIN_DIR, "timed"),
+                                  keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save_async(steps, onto_mesh, extra={"step": steps})
+        snapshot_s = time.perf_counter() - t0
+        saver.wait()
+        write_s = time.perf_counter() - t0 - snapshot_s
+        del onto_mesh, flat_mesh, p_mesh, o_mesh
+        torch.cuda.empty_cache()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        count = torch.cuda.device_count()
+        two_card = two_card_run(torch, run) if count >= 2 else \
+            f"not run: this machine has {count} card"
+    finally:
+        shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gb = ckpt_bytes / 1e9
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        **run, "fail_at": list(RESILIENT_FAIL_AT),
+        "mesh": {"shape": dict(mesh.shape), "backend": "nccl",
+                 "world_size": 1},
+        "device_count": count,
+        "losses_mesh": lm, "losses_none": ln,
+        "mesh_equals_none_bit_for_bit": True,
+        "checkpoints_restore_across_bit_for_bit": True,
+        "median_step_ms": {"mesh": out["mesh"]["median_step_s"] * 1e3,
+                           "none": out["none"]["median_step_s"] * 1e3},
+        "tokens_per_s": {k: run["batch"] * run["seq"] / v["median_step_s"]
+                         for k, v in out.items()},
+        "step_ms_in_turns": turns,
+        "gather_params_ms": gather_ms, "adamw_ms": opt_ms,
+        "checkpoint_gb": gb, "free_disk_gb": free / 1e9,
+        "save_snapshot_s": snapshot_s, "save_write_s": write_s,
+        "restore_s": restore_s,
+        "stragglers_flagged": {k: v["straggler_flags"]
+                               for k, v in out.items()},
+        "run_wall_s": walls, "peak_mem_gb": peak_gb,
+        "launches": launches, "two_card": two_card,
+    }
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -4917,6 +5195,16 @@ def main(argv=None) -> int:
         fa_launches += resilient["launches"]["flash_attention"]
         bwd_totals["attn"] += resilient["launches"]["flash_attention_bwd"]
         emit_phase("train_resilient", resilient)
+    fa.reset_counts()                  # counts: zero before the mesh path
+    if "mesh_train" in phases:
+        meshed = mesh_train(torch, read=lambda: {               # read after
+            "flash_attention": read_after(fa, "flash_attention",
+                                          "mesh train"),
+            "flash_attention_bwd": read_bwd(fa, "flash_attention_bwd",
+                                            "mesh train")})
+        fa_launches += meshed["launches"]["flash_attention"]
+        bwd_totals["attn"] += meshed["launches"]["flash_attention_bwd"]
+        emit_phase("mesh_train", meshed)
     fb_launches, mb_launches = bwd_totals["attn"], bwd_totals["ssd"]
 
     if set(phases) != set(PHASES):

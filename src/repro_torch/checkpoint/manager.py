@@ -24,10 +24,19 @@ Layout (one directory per step)::
   returns (a CUDA tensor by a blocking copy, a host tensor or array by a
   clone) and writes the files on a thread; ``wait`` joins before the
   next save, so at most one checkpoint is in flight.
-* **Restore onto a device** — leaves are full logical arrays; ``restore``
-  casts each to the template's dtype and puts it on ``device`` (``None``:
-  the CUDA card).  Restoring onto a device mesh comes with distributed
-  training (ROADMAP.md §A item 6).
+* **Restore onto a device or a mesh (elastic re-mesh)** — leaves are
+  full logical arrays; ``restore`` casts each to the template's dtype,
+  puts it on ``device`` (``None``: the CUDA card) and, given
+  ``shardings`` (``distributed.sharding``), places it as a DTensor on
+  their mesh.  So a checkpoint written on a (4, 2) mesh restores onto
+  (2, 2, 2) or one device.
+* **Under a process group** — a DTensor leaf is gathered to its full
+  value on the calling thread, a collective every rank takes part in;
+  only rank 0 copies the leaves to host memory, writes files, renames
+  and collects old steps (the other ranks drop what they gathered), and
+  ``save`` and ``wait`` end at a barrier, so that every rank then sees
+  the committed directory.  With more than one rank, ``save``,
+  ``save_async``, ``wait`` and ``restore`` are called by every rank.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_flatten_with_path
@@ -60,6 +70,8 @@ def _to_host(x) -> tuple[np.ndarray, str]:
     tensor blocking) or cloned, an array copied."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()        # a collective: every rank gathers
         t = t.to("cpu") if t.device.type != "cpu" else t.clone()
         t = t.contiguous()
         name = str(t.dtype).removeprefix("torch.")
@@ -69,6 +81,26 @@ def _to_host(x) -> tuple[np.ndarray, str]:
         return t.numpy(), name
     arr = np.array(x, copy=True)
     return arr, arr.dtype.name
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writes() -> bool:
+    """Whether this process writes the files: rank 0, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if _ranks() > 1:
+        dist.barrier()
 
 
 def _from_saved(arr: np.ndarray, logical: str) -> torch.Tensor:
@@ -124,8 +156,12 @@ class CheckpointManager:
     # -- save ------------------------------------------------------------------
 
     def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
-        """Synchronous atomic save."""
-        return self._write(step, self._snapshot(tree), extra or {})
+        """Synchronous atomic save; returns the step's directory."""
+        host = self._snapshot(tree)
+        if _writes():
+            self._write(step, host, extra or {})
+        _barrier()
+        return self._step_dir(step)
 
     def save_async(self, step: int, tree: Any, extra: dict | None = None) -> None:
         """Snapshot now, write on a background thread.  The snapshot
@@ -134,6 +170,8 @@ class CheckpointManager:
         ``wait`` (or ``save_async``, which waits first)."""
         self.wait()
         host = self._snapshot(tree)
+        if not _writes():
+            return
 
         def write():
             try:
@@ -145,10 +183,12 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
-        """Join the writer; a write that failed raises here."""
+        """Join the writer; a write that failed raises here (on the
+        writing rank, after the barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         err, self._error = self._error, None
         if err is not None:
             raise err
@@ -156,9 +196,16 @@ class CheckpointManager:
     @staticmethod
     def _snapshot(tree: Any) -> list:
         """(path, storage array, logical dtype) of a host copy of every
-        leaf, in the reference's order."""
-        return [(path, *_to_host(x))
-                for path, x in tree_flatten_with_path(tree)]
+        leaf, in the reference's order.  A rank that writes no files only
+        takes part in the gathers of the DTensor leaves, copies nothing to
+        the host and returns an empty list."""
+        flat = tree_flatten_with_path(tree)
+        if not _writes():
+            for _, x in flat:
+                if _is_dtensor(x):
+                    x.detach().full_tensor()    # a collective
+            return []
+        return [(path, *_to_host(x)) for path, x in flat]
 
     def _write(self, step: int, host: list, extra: dict) -> str:
         final = self._step_dir(step)
@@ -197,18 +244,27 @@ class CheckpointManager:
 
     # -- restore -----------------------------------------------------------------
 
-    def restore(self, step: int, template: Any, *,
-                device=None) -> tuple[Any, dict]:
+    def restore(self, step: int, template: Any, *, device=None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``template`` → (tree, extra).
 
         ``template``: a tree whose leaves have ``shape`` and ``dtype``
         (tensors — ``meta`` ones will do — arrays, the reference's
         ``ShapeDtypeStruct``); each leaf is cast to its template's dtype
         and put on ``device`` (``None``: the CUDA card, which raises
-        without one).  A template of another structure or shape raises
+        without one).  ``shardings``: a tree congruent with ``template``
+        of ``distributed.sharding.NamedSharding`` — each leaf then becomes
+        a DTensor on its sharding's mesh (of ``device``'s type), this rank
+        keeping its own shard: the checkpoint may come from any mesh.  A
+        template of another structure or shape raises
         :class:`ValueError`.
         """
         dev = resolve_device(device)
+        place = [None] * len(tree_flatten_with_path(template))
+        if shardings is not None:
+            from repro_torch.distributed.sharding import distribute
+
+            place = [sh for _, sh in tree_flatten_with_path(shardings)]
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -217,13 +273,18 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, template "
                 f"{len(flat)} — structure changed?")
+        if len(place) != len(flat):
+            raise ValueError(f"{len(place)} shardings for a template of "
+                             f"{len(flat)} leaves")
         out = []
-        for i, (meta, (_, tmpl)) in enumerate(zip(manifest["leaves"], flat)):
+        for i, (meta, (_, tmpl), sh) in enumerate(
+                zip(manifest["leaves"], flat, place)):
             arr = _from_saved(np.load(os.path.join(d, meta["file"])),
                               meta["dtype"])
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(
                     f"{manifest['leaf_paths'][i]}: checkpoint shape "
                     f"{tuple(arr.shape)}, template {tuple(tmpl.shape)}")
-            out.append(arr.to(_torch_dtype(tmpl.dtype)).to(dev))
+            t = arr.to(_torch_dtype(tmpl.dtype)).to(dev)
+            out.append(t if sh is None else distribute(t, sh))
         return _unflatten(template, iter(out)), manifest["extra"]

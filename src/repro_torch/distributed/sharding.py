@@ -1,0 +1,316 @@
+"""Parameter / batch / cache sharding rules, in PyTorch: the port of the
+reference's ``distributed/sharding.py``.
+
+Axis roles:
+  ``model``          — tensor parallelism (heads, d_ff, vocab, experts)
+  ``data`` (+``pod``) — batch parallelism; together they form the FSDP
+                        axis group along which params & optimizer states
+                        are fully sharded.
+
+Rules are keyed on leaf *names* (the tree's key path suffix), with one
+structural convention: leaves under a ``blocks`` subtree carry a leading
+layer-stack axis which is never sharded.
+
+A spec is the reference's ``PartitionSpec`` as a tuple: per tensor
+dimension an axis name, a tuple of them or ``None`` (``()`` replicates
+everything).  The rules give, leaf for leaf, the reference's specs; they
+need only the mesh's axis sizes, so they run on a mesh with no ranks and
+on ``meta`` tensors.  :func:`placements` turns a spec into DTensor
+placements, one per mesh axis: ``Shard(d)`` where the spec puts that
+axis on tensor dimension ``d``, ``Replicate()`` elsewhere.  A dimension
+over ``("pod", "data")`` takes ``Shard(d)`` on both, ``pod`` the outer,
+as JAX orders them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.launch.mesh import Mesh
+from . import ctx
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec on a mesh (JAX's ``NamedSharding``)."""
+
+    mesh: Mesh
+    spec: tuple
+
+    def placements(self) -> list:
+        return placements(self.mesh, self.spec)
+
+
+def placements(mesh: Mesh, spec: tuple) -> list:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out: list = [Replicate()] * len(mesh.axis_names)
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        index = [mesh.axis_names.index(a) for a in names]
+        if index != sorted(index):
+            raise ValueError(f"spec {spec}: axes {names} out of mesh order "
+                             f"{mesh.axis_names}")
+        for i in index:
+            if isinstance(out[i], Shard):
+                raise ValueError(f"spec {spec} uses mesh axis "
+                                 f"{mesh.axis_names[i]!r} twice")
+            out[i] = Shard(dim)
+    return out
+
+
+def fsdp_axes(mesh: Mesh):
+    return ("pod", "data") if "pod" in mesh.axis_names else "data"
+
+
+def dp_axes(mesh: Mesh):
+    return fsdp_axes(mesh)
+
+
+# ---------------------------------------------------------------------------
+# tree walks keyed by path
+# ---------------------------------------------------------------------------
+
+
+def _map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(keys, leaf)`` over a tree of dicts, ``NamedTuple`` states and
+    lists; ``keys`` are the dict keys, field names and list indices (as
+    strings) down to the leaf; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_path(fn, v, path + (name,))
+                            for name, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _leaves_with_path(tree) -> list:
+    out: list = []
+    _map_with_path(lambda keys, leaf: out.append((keys, leaf)), tree)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# parameter rules
+# ---------------------------------------------------------------------------
+
+
+#: attention leaves whose TP sharding slices q-heads / kv-heads
+_Q_HEAD_LEAVES = frozenset({"wq", "wo", "bq"})
+_KV_HEAD_LEAVES = frozenset({"wk", "wv", "bk", "bv"})
+
+
+def _param_spec_for(name: str, ndim: int, fsdp, *, q_ok=True,
+                    kv_ok=True) -> tuple:
+    """Spec for an *unstacked* leaf (the stack prefix is the caller's).
+
+    ``q_ok`` / ``kv_ok``: whether TP may shard the q / kv head axes; when
+    the heads do not divide the model axis these leaves replicate their
+    head axis instead of slicing inside a head."""
+    if name == "embed":                          # (V, D): vocab-parallel
+        return ("model", fsdp)
+    if name == "lm_head":                        # (D, V)
+        return (fsdp, "model")
+    if name in _Q_HEAD_LEAVES and not q_ok:
+        if name == "wq":
+            return (fsdp, None)
+        if name == "wo":
+            return (None, fsdp)
+        return (None,)                           # bq
+    if name in _KV_HEAD_LEAVES and not kv_ok:
+        if name in ("wk", "wv"):
+            return (fsdp, None)
+        return (None,)                           # bk / bv
+    if name in ("wq", "wk", "wv", "wu", "wg", "in_proj"):   # (D, X)
+        if ndim == 3:                            # MoE experts (E, D, F)
+            return ("model", fsdp, None)
+        return (fsdp, "model")
+    if name in ("wo", "wd", "out_proj"):         # (X, D)
+        if ndim == 3:                            # MoE experts (E, F, D)
+            return ("model", None, fsdp)
+        return ("model", fsdp)
+    if name == "router":                         # (D, E)
+        return (fsdp, None)
+    if name == "conv_w":                         # (K, conv_dim)
+        return (None, "model")
+    if name in ("bq", "bk", "bv"):               # (X,)
+        return ("model",)
+    return ()                                    # norms, scalars: replicate
+
+
+def axis_size(mesh: Mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return mesh.shape[axes]
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _fits(dim: int, mesh: Mesh, axes) -> bool:
+    """True when a dim of this size can shard over the axis group."""
+    n = axis_size(mesh, axes)
+    return n > 0 and dim % n == 0
+
+
+def make_param_shardings(mesh: Mesh, params_shape: Any, cfg=None) -> Any:
+    """Tree of :class:`NamedSharding` congruent with the params tree.
+
+    Divisibility-aware: an axis that does not divide its dimension is
+    dropped (that dimension replicates).  ``cfg`` (a ``ModelConfig``)
+    enables head-aware attention sharding (:func:`_param_spec_for`)."""
+    fsdp = fsdp_axes(mesh)
+    tp = mesh.shape.get("model", 1)
+    q_ok = cfg is None or cfg.num_heads == 0 or cfg.num_heads % tp == 0
+    kv_ok = cfg is None or cfg.num_kv_heads == 0 or \
+        cfg.num_kv_heads % tp == 0
+
+    def spec_for(keys, leaf):
+        name, ndim = keys[-1], len(leaf.shape)
+        if "blocks" in keys:
+            parts = (None, *_param_spec_for(name, ndim - 1, fsdp, q_ok=q_ok,
+                                            kv_ok=kv_ok))
+        else:
+            parts = _param_spec_for(name, ndim, fsdp, q_ok=q_ok, kv_ok=kv_ok)
+        parts = parts[:ndim] + (None,) * (ndim - len(parts))
+        parts = tuple(a if _fits(leaf.shape[i], mesh, a) else None
+                      for i, a in enumerate(parts))
+        return NamedSharding(mesh, parts)
+
+    return _map_with_path(spec_for, params_shape)
+
+
+def make_opt_shardings(mesh: Mesh, opt_state_shape: Any,
+                       param_shardings: Any) -> Any:
+    """Optimizer state: the moments (``mu``, ``nu``) follow their
+    parameter's sharding, matched by path suffix; 0-d leaves (``step``,
+    ``nu_scale``) and anything unmatched replicate."""
+    repl = NamedSharding(mesh, ())
+    flat_p = dict(_leaves_with_path(param_shardings))
+
+    def spec_for(keys, leaf):
+        if len(leaf.shape) == 0:
+            return repl
+        for start in range(len(keys)):
+            if keys[start:] in flat_p:
+                return flat_p[keys[start:]]
+        return repl
+
+    return _map_with_path(spec_for, opt_state_shape)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache rules
+# ---------------------------------------------------------------------------
+
+
+def make_batch_shardings(mesh: Mesh, batch_shape: Any) -> Any:
+    """Batch rows over the DP axis group — dropped when the batch does not
+    divide it (long_500k's global batch of 1)."""
+    dp = dp_axes(mesh)
+
+    def spec_for(keys, leaf):
+        name, nd = keys[-1], len(leaf.shape)
+        if name == "mrope_positions":               # (3, B, S)
+            d = dp if _fits(leaf.shape[1], mesh, dp) else None
+            return NamedSharding(mesh, (None, d, None))
+        if name in ("tokens", "labels", "embeds", "frames", "token"):
+            d = dp if _fits(leaf.shape[0], mesh, dp) else None
+            return NamedSharding(mesh, (d, *([None] * (nd - 1))))
+        return NamedSharding(mesh, (None,) * nd)
+
+    return _map_with_path(spec_for, batch_shape)
+
+
+def make_cache_shardings(mesh: Mesh, cache_shape: Any) -> Any:
+    """KV / SSM cache sharding with divisibility-aware fallbacks.
+
+    Attention KV (L, B, Hkv, S, hd): heads over ``model`` where they
+    divide it, else the sequence over ``model``; the batch over the DP
+    group wherever it divides."""
+    dp = dp_axes(mesh)
+
+    def kv_spec(shape):
+        _, b, h, s, _ = shape
+        d = dp if _fits(b, mesh, dp) else None
+        if _fits(h, mesh, "model"):
+            return (None, d, "model", None, None)
+        if _fits(s, mesh, "model"):
+            return (None, d, None, "model", None)
+        return (None, d, None, None, None)
+
+    def spec_for(keys, leaf):
+        name, nd = keys[-1], len(leaf.shape)
+        if name in ("k", "v", "ck", "cv") and nd == 5:
+            return NamedSharding(mesh, kv_spec(tuple(leaf.shape)))
+        if name == "conv" and nd == 4:          # (L, B, K-1, conv_dim)
+            d = dp if _fits(leaf.shape[1], mesh, dp) else None
+            m = "model" if _fits(leaf.shape[3], mesh, "model") else None
+            return NamedSharding(mesh, (None, d, None, m))
+        if name == "ssm" and nd == 5:           # (L, B, H, P, N)
+            d = dp if _fits(leaf.shape[1], mesh, dp) else None
+            m = "model" if _fits(leaf.shape[2], mesh, "model") else None
+            return NamedSharding(mesh, (None, d, m, None, None))
+        return NamedSharding(mesh, (None,) * nd)
+
+    return _map_with_path(spec_for, cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# placing trees
+# ---------------------------------------------------------------------------
+
+
+def distribute(tensor: torch.Tensor, sharding: NamedSharding):
+    """``tensor`` — the same full value on every rank — as a DTensor on
+    the sharding's mesh: each rank keeps its own shard, nothing moves."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(tensor, sharding.mesh.device_mesh,
+                             sharding.placements(), src_data_rank=None)
+
+
+def distribute_tree(tree: Any, shardings: Any) -> Any:
+    """:func:`distribute` over a tree and its congruent shardings."""
+    by_path = dict(_leaves_with_path(shardings))
+    return _map_with_path(lambda keys, x: distribute(x, by_path[keys]), tree)
+
+
+# ---------------------------------------------------------------------------
+# activation hook (installed by the sharded step; models call
+# ctx.shard_activation)
+# ---------------------------------------------------------------------------
+
+
+def activation_hook(mesh: Mesh) -> Callable:
+    """The hook of a step on ``mesh``.  Compute runs on plain local
+    tensors, so where the reference constrains ``hidden`` (B, S, D) and
+    ``logits`` (B, c, V) to the DP rows, this hook checks that they are
+    plain tensors holding this rank's rows of the microbatch
+    (``ctx.row_split``) and returns them as they are."""
+    from torch.distributed.tensor import DTensor
+
+    def hook(x, kind: str):
+        if kind in ("hidden", "logits") and x.ndim == 3:
+            if isinstance(x, DTensor):
+                raise TypeError(f"a DTensor {kind} activation on {mesh!r}: "
+                                "compute runs on local tensors")
+            split = ctx.row_split()
+            if split is not None and x.shape[0] != split.rows:
+                raise ValueError(
+                    f"{kind} activation holds {x.shape[0]} rows, this rank "
+                    f"of {mesh!r} {split.rows}")
+        return x
+
+    return hook

@@ -127,3 +127,14 @@ def build_libraries(libs, *, verbose: bool = False) -> None:
         os.replace(tmp, lib.path)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise if any operand is a DTensor: a kernel takes plain tensors
+    (a sharded step computes on local ones), and a wrapper never takes
+    its plain version for one."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{kernel}: a DTensor operand — the kernels take "
+                        "plain tensors (gather or take the local shard)")

@@ -56,7 +56,7 @@ import threading
 import torch
 
 from repro_torch.core.dse import plan_conv_rows
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 #: fused-epilogue kinds the conv path supports, applied to the int32/f32
 #: accumulator before the store (zero extra device-memory traffic) →
@@ -148,6 +148,7 @@ def _check(x_shape, w_shape, x_dtype, w_dtype, stride: int, pads, epilogue,
 
 
 def _check_devices(x: torch.Tensor, w: torch.Tensor) -> None:
+    refuse_dtensor("conv2d_stream", x, w)
     if x.device != w.device:
         raise ValueError(
             f"conv2d_stream: x on {x.device} but w on {w.device}")

@@ -71,7 +71,7 @@ import threading
 import torch
 
 from repro_torch.core.dse import plan_attention_blocks, plan_attn_bwd_blocks
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 NEG_INF = -1e30
 
@@ -135,6 +135,7 @@ def scale_in_dtype(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def _check(q, k, v, heads_q: int, heads_kv: int) -> None:
+    refuse_dtensor("flash_attention", q, k, v)
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError(
             "flash_attention wants q (B·Hq, Sq, D), k and v (B·Hkv, Sk, D); "
@@ -404,6 +405,7 @@ def flash_attention_bwd(
     sk = k.shape[1]
     if d > 128:
         raise ValueError(f"flash_attention_bwd: head dim {d} > 128")
+    refuse_dtensor("flash_attention_bwd", out, lse, dout)
     for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
                            ("lse", lse, (bhq, sq))):
         if tuple(t.shape) != tuple(shape) or t.device != q.device:

@@ -68,7 +68,7 @@ import torch
 
 from repro_torch.core.dse import plan_mlp_blocks, plan_mlp_bwd_blocks
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 #: input dtypes the kernel takes → the dtype code of the C interface
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -124,6 +124,7 @@ def reset_counts() -> None:
 
 
 def _check(x, w_gate, w_up, w_down, act: str) -> None:
+    refuse_dtensor("fused_mlp", x, w_gate, w_up, w_down)
     if act not in ACT_CODES:
         raise ValueError(f"fused_mlp: unknown activation {act!r}")
     if x.ndim != 2 or w_up.ndim != 2 or w_down.ndim != 2:
@@ -260,6 +261,7 @@ def act_grad(name: str, v: torch.Tensor) -> torch.Tensor:
 
 def _check_bwd(x, w_gate, w_up, w_down, dy, act: str) -> None:
     _check(x, w_gate, w_up, w_down, act)
+    refuse_dtensor("fused_mlp_bwd", dy)
     if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
         raise ValueError(f"fused_mlp_bwd: dy {tuple(dy.shape)} on "
                          f"{dy.device} does not fit x {tuple(x.shape)} on "

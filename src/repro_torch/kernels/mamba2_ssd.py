@@ -68,7 +68,7 @@ import torch
 
 from repro_torch.core.dse import plan_ssd_blocks, plan_ssd_bwd_blocks
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 #: dtypes of x, b and c the kernel takes → the dtype code of the C
 #: interface (dt, a and the states are f32)
@@ -123,6 +123,7 @@ def reset_counts() -> None:
 
 
 def _check(x, dt, a, b_mat, c_mat, init_state) -> None:
+    refuse_dtensor("mamba2_ssd", x, dt, a, b_mat, c_mat, init_state)
     if x.ndim != 4 or dt.ndim != 3 or a.ndim != 1 or b_mat.ndim != 3 \
             or c_mat.ndim != 3:
         raise ValueError(

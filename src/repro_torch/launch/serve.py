@@ -4,8 +4,9 @@ A small but real engine on one card:
 
 * ``ServeEngine`` holds the parameters on the device and runs the
   prefill / decode steps of ``repro_torch.launch.steps`` eagerly.  There
-  is no mesh: one card serves (the distributed launch is ROADMAP §A
-  item 6).
+  is no mesh: one card serves (serving on a device mesh, with the cache
+  placed by ``distributed.sharding.make_cache_shardings``, is still to
+  come; training runs on a mesh, ``launch.train``).
 * Requests are processed in *waves* (static-batch continuous batching):
   a wave of B prompts is prefilled together — through the hand-written
   flash-attention kernel (each attention layer of the dense, MoE and

@@ -66,15 +66,15 @@ def model_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 #: batch leaves whose microbatch split axis is not 0
-_SPLIT_AXIS = {"mrope_positions": 1}
+SPLIT_AXIS = {"mrope_positions": 1}
 
 
 def _split_microbatches(batch: dict, accum: int) -> list[dict]:
     """``accum`` microbatches of ``batch`` (views): each leaf cut into
-    ``accum`` equal parts along its batch axis (``_SPLIT_AXIS``; 0
+    ``accum`` equal parts along its batch axis (``SPLIT_AXIS``; 0
     otherwise), in order."""
     def parts(name, x):
-        ax = _SPLIT_AXIS.get(name, 0)
+        ax = SPLIT_AXIS.get(name, 0)
         b = x.shape[ax]
         if b % accum:
             raise ValueError(f"{name}: batch {b} does not split into "
@@ -110,41 +110,155 @@ def _rebuild(tree, flat):
 # ---------------------------------------------------------------------------
 
 
+def _loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
+                    grad_accum: int):
+    """(loss, grads) of ``batch``: with ``grad_accum`` > 1 the batch is
+    cut into that many microbatches whose gradients are summed in f32 and
+    divided by ``grad_accum`` (the loss too), as the reference's
+    ``lax.scan`` over microbatches does."""
+    if grad_accum == 1:
+        return _value_and_grad(cfg, params, batch)
+    loss = torch.zeros((), dtype=torch.float32)
+    grads = adamw.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                              device=p.device), params)
+    for mb in _split_microbatches(batch, grad_accum):
+        l, g = _value_and_grad(cfg, params, mb)
+        loss = loss.to(l.device) + l
+        adamw.tree_map(lambda a, b: a.add_(b.to(torch.float32)), grads, g)
+        del g
+    return loss / grad_accum, adamw.tree_map(lambda g: g / grad_accum,
+                                             grads)
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: adamw.AdamWConfig,
     *,
     grad_accum: int = 1,
 ) -> Callable:
-    """Forward + backward + AdamW update, optionally microbatched: with
-    ``grad_accum`` > 1 the batch is cut into that many microbatches whose
-    gradients are summed in f32 and divided by ``grad_accum`` (the loss
-    too), as the reference's ``lax.scan`` over microbatches does.  The
-    returned step leaves its arguments unchanged (``adamw.apply`` is
-    functional)."""
+    """Forward + backward + AdamW update, optionally microbatched
+    (:func:`_loss_and_grads`).  The returned step leaves its arguments
+    unchanged (``adamw.apply`` is functional)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} < 1")
 
     def train_step(params, opt_state, batch):
-        if grad_accum == 1:
-            loss, grads = _value_and_grad(cfg, params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32)
-            grads = adamw.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
-            for mb in _split_microbatches(batch, grad_accum):
-                l, g = _value_and_grad(cfg, params, mb)
-                loss = loss.to(l.device) + l
-                adamw.tree_map(lambda a, b: a.add_(b.to(torch.float32)),
-                               grads, g)
-                del g
-            loss = loss / grad_accum
-            grads = adamw.tree_map(lambda g: g / grad_accum, grads)
-
+        loss, grads = _loss_and_grads(cfg, params, batch, grad_accum)
         params, opt_state, metrics = adamw.apply(params, grads, opt_state,
                                                  opt_cfg)
         metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the train step on a device mesh
+# ---------------------------------------------------------------------------
+
+
+def batch_rows(mesh, global_batch: int, grad_accum: int = 1) -> list:
+    """``[(start, end), ...]``: the rows of a global batch that this rank
+    of ``mesh`` computes, in order.  Along the data axes (``pod`` ×
+    ``data``, ``make_batch_shardings``' group) each microbatch — a
+    ``global_batch / grad_accum`` slice of rows, as the reference cuts
+    them — is cut into one block a rank, in row order; the rank holds its
+    block of every microbatch.  With ``grad_accum`` 1 that is the
+    ``Shard`` of ``make_batch_shardings``.  Where the blocks would not be
+    whole the batch replicates: every rank computes every row."""
+    from repro_torch.distributed import sharding as shd
+
+    n = shd.axis_size(mesh, shd.dp_axes(mesh))
+    if n == 1 or global_batch % (n * grad_accum):
+        return [(0, global_batch)]
+    index = _dp_index(mesh)
+    micro, block = global_batch // grad_accum, global_batch // grad_accum // n
+    return [(i * micro + index * block, i * micro + (index + 1) * block)
+            for i in range(grad_accum)]
+
+
+def _dp_index(mesh) -> int:
+    """This rank's block along the data axes (``pod`` major)."""
+    coord = mesh.coordinate()
+    return coord.get("pod", 0) * mesh.shape["data"] + coord["data"]
+
+
+def local_batch(mesh, batch: dict, grad_accum: int = 1) -> dict:
+    """This rank's rows (:func:`batch_rows`) of a global ``batch``."""
+    def rows(name, x):
+        ax = SPLIT_AXIS.get(name, 0)
+        spans = batch_rows(mesh, x.shape[ax], grad_accum)
+        return torch.cat([x.narrow(ax, a, b - a) for a, b in spans], dim=ax)
+
+    return {name: rows(name, x) for name, x in batch.items()}
+
+
+def make_sharded_train_step(
+    cfg: ModelConfig,
+    opt_cfg: adamw.AdamWConfig,
+    mesh,
+    *,
+    global_batch: int,
+    grad_accum: int = 1,
+) -> Callable:
+    """The train step on ``mesh`` for batches of ``global_batch`` rows:
+    ``step(params, opt_state, batch)`` with params and optimizer state as
+    DTensors placed by the sharding rules and ``batch`` this rank's rows
+    (:func:`batch_rows`; :func:`local_batch` cuts them from a global
+    batch).
+
+    Storage is sharded, compute is local: the params are gathered to
+    full tensors, the loss and its gradient run as in
+    :func:`make_train_step` on this rank's rows — plain tensors, so the
+    hand-written kernels see no DTensor — the gradients and the loss are
+    averaged over the data axes (a sum, then a division by the number of
+    row blocks; nothing when the batch replicates), each gradient is cut
+    to its parameter's placements, and ``adamw.apply`` runs on the
+    DTensors, its global norm and the int8 moments' absmax reduced across
+    the mesh.  Compute along ``model`` is replicated.  On a 1 × 1 mesh
+    every collective is the identity and the step gives
+    :func:`make_train_step`'s bits."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.distributed import ctx, sharding as shd
+
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum {grad_accum} < 1")
+    group = mesh.get_group(shd.dp_axes(mesh))
+    spans = batch_rows(mesh, global_batch, grad_accum)
+    rows = sum(b - a for a, b in spans)
+    count = global_batch // rows
+    split = ctx.RowSplit(group, _dp_index(mesh) if count > 1 else 0, count,
+                         rows // grad_accum)
+    hook = shd.activation_hook(mesh)
+
+    def mean_over_rows(t):
+        if count > 1:
+            dist.all_reduce(t, group=group)
+            t.div_(count)
+        return t
+
+    def train_step(params, opt_state, batch):
+        for name, x in batch.items():
+            if x.shape[SPLIT_AXIS.get(name, 0)] != rows:
+                raise ValueError(f"{name}: {x.shape[SPLIT_AXIS.get(name, 0)]}"
+                                 f" rows, this rank of {mesh!r} computes "
+                                 f"{rows} of {global_batch}")
+        full = adamw.tree_map(lambda p: p.full_tensor(), params)
+        with ctx.data_rows(split), ctx.activation_sharding(hook):
+            loss, grads = _loss_and_grads(cfg, full, batch, grad_accum)
+        del full
+        grads = adamw.tree_map(
+            lambda g, p: distribute_tensor(mean_over_rows(g), p.device_mesh,
+                                           p.placements, src_data_rank=None),
+            grads, params)
+        params, opt_state, metrics = adamw.apply(params, grads, opt_state,
+                                                 opt_cfg)
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
+        metrics["loss"] = mean_over_rows(loss.clone())
         return params, opt_state, metrics
 
     return train_step

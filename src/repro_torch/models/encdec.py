@@ -39,6 +39,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ctx import shard_activation
 from . import layers as L
 from .lm import _EmbedRows, _layer, _unbind_layers, chunked_ce_loss
 
@@ -108,7 +109,7 @@ def _positions(h: torch.Tensor) -> torch.Tensor:
 def encode(params: dict, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T, D) stub embeddings → encoder memory (B, T, D)."""
-    h = frames.to(cfg.param_dtype)
+    h = shard_activation(frames.to(cfg.param_dtype), "hidden")
     positions = _positions(h)
 
     def body(p, hh):
@@ -116,8 +117,9 @@ def encode(params: dict, cfg: ModelConfig,
                                  L.rmsnorm(hh, p["ln1"], cfg.norm_eps),
                                  positions, causal=False)
         hh = hh + a
-        return hh + L.mlp_layer(p["mlp"], cfg,
-                                L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
+        hh = hh + L.mlp_layer(p["mlp"], cfg,
+                              L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
+        return shard_activation(hh, "hidden")
 
     h = _run_layers(params["encoder"]["blocks"], cfg.enc_layers, cfg, body,
                     h)
@@ -151,7 +153,8 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
     over the memory's keys and values (``_cross_kv``, no RoPE) through
     ``attention_layer(kv_override=...)``, then the MLP.  The embedding's
     gradient sums repeated tokens in f32 (``lm._EmbedRows``)."""
-    h = _EmbedRows.apply(params["embed"], tokens.long())
+    h = shard_activation(_EmbedRows.apply(params["embed"], tokens.long()),
+                         "hidden")
     positions = _positions(h)
 
     def body(p, hh):
@@ -165,8 +168,9 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
                                  positions, causal=False,
                                  kv_override=(ck, cv))
         hh = hh + c
-        return hh + L.mlp_layer(p["mlp"], cfg,
-                                L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
+        hh = hh + L.mlp_layer(p["mlp"], cfg,
+                              L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
+        return shard_activation(hh, "hidden")
 
     h = _run_layers(params["decoder"]["blocks"], cfg.dec_layers, cfg, body,
                     h)

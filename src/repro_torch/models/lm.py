@@ -41,6 +41,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.distributed.ctx import shard_activation
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
@@ -206,7 +207,7 @@ def _apply_block(p, cfg, spec: LayerSpec, h, positions, mrope_positions,
         a, cache = M.mamba_layer(p["mamba"], cfg, x, return_state=True)
     else:
         a, cache = M.mamba_layer(p["mamba"], cfg, x), None
-    return _ffn(p, cfg, spec, h + a), cache
+    return shard_activation(_ffn(p, cfg, spec, h + a), "hidden"), cache
 
 
 def _apply_block_decode(p, cfg, spec: LayerSpec, h, pos: int, cache: dict):
@@ -285,7 +286,7 @@ def _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab=None):
     -1e30 (they never win the softmax)."""
     hs = h[:, t * chunk:(t + 1) * chunk]
     ls = labels[:, t * chunk:(t + 1) * chunk]
-    logits = (hs @ lm_head).float()                           # (B, c, V)
+    logits = shard_activation((hs @ lm_head).float(), "logits")  # (B, c, V)
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         logits[..., valid_vocab:] = L.NEG_INF
     logz = torch.logsumexp(logits, dim=-1)
@@ -392,8 +393,10 @@ class _EmbedRows(torch.autograd.Function):
 
 def _embed_in(params: dict, cfg: ModelConfig, tokens_or_embeds):
     if cfg.embeds_input:
-        return tokens_or_embeds.to(cfg.param_dtype)
-    return _EmbedRows.apply(params["embed"], tokens_or_embeds.long())
+        h = tokens_or_embeds.to(cfg.param_dtype)
+    else:
+        h = _EmbedRows.apply(params["embed"], tokens_or_embeds.long())
+    return shard_activation(h, "hidden")
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:

@@ -25,6 +25,15 @@ products over E (``torch.bmm`` in ``param_dtype``; the reference's
 ``jnp.einsum``, outside any kernel), and the combine accumulates in f32
 in the order ``kk = 0..k-1`` before casting back to ``x.dtype``.
 
+On a data-parallel mesh each rank holds only its own rows of the batch
+(``distributed.ctx.row_split``), where the reference's capacity and
+positions are reckoned over the whole batch.  So the capacity comes from
+the global token count, and each rank's positions are offset by the
+choices of every expert on the ranks before it, in row order: one
+all-gather of the per-expert counts (int32) over the data-parallel
+group.  A rank then keeps and drops exactly the pairs the reference
+drops on the global batch.
+
 Under autograd (training) the layer differentiates as it stands, to the
 gradient the reference's ``jax.grad`` gives: the gates' cotangent flows
 through ``softmax(vals[:, :k])`` and the stable sort's backward (a
@@ -42,8 +51,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ref
 from .layers import dense_init
 
@@ -79,12 +90,33 @@ def expert_capacity(num_tokens: int, cfg: ModelConfig) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
+def global_tokens(n: int) -> int:
+    """Tokens of the whole batch when this rank holds ``n`` of them
+    (``n`` itself unless the rows are split across ranks)."""
+    split = ctx.row_split()
+    return n if split is None else n * split.count
+
+
+def _earlier_ranks(onehot: torch.Tensor):
+    """(E, 1) int32: the choices of each expert on the data-parallel
+    ranks that hold earlier rows of the batch; ``None`` when the rows are
+    not split."""
+    split = ctx.row_split()
+    if split is None or split.count == 1:
+        return None
+    counts = onehot.sum(dim=1, dtype=torch.int32)              # (E,)
+    every = [torch.empty_like(counts) for _ in range(split.count)]
+    dist.all_gather(every, counts, group=split.group)
+    return sum(every[:split.index], torch.zeros_like(counts))[:, None]
+
+
 def route(p: dict, cfg: ModelConfig, xf: torch.Tensor):
     """The routing of ``xf`` (N, D) → ``(gate_w (N, k) f32, gate_i (N, k),
     pos (N, k), keep (N, k) bool)``: the k experts of each token by
     falling router logit (ties: the lower index), their softmax weights,
     each choice's slot in its expert's buffer, and whether the slot lies
-    inside the capacity."""
+    inside the capacity — over the whole batch where the rows are split
+    across ranks (:func:`global_tokens`)."""
     m = cfg.moe
     n = xf.shape[0]
     e, k = m.num_experts, m.top_k
@@ -102,8 +134,11 @@ def route(p: dict, cfg: ModelConfig, xf: torch.Tensor):
     onehot = torch.zeros((e, n * k), dtype=torch.int32, device=xf.device)
     onehot.scatter_(0, flat_i[None], 1)                        # (E, N*k)
     before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    earlier = _earlier_ranks(onehot)
+    if earlier is not None:
+        before = before + earlier
     pos = before.gather(0, flat_i[None])[0].reshape(n, k)      # exclusive
-    keep = pos < expert_capacity(n, cfg)
+    keep = pos < expert_capacity(global_tokens(n), cfg)
     return gate_w, gate_i, pos, keep
 
 
@@ -115,7 +150,7 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape
     n = b * s
     e, k = m.num_experts, m.top_k
-    cap = expert_capacity(n, cfg)
+    cap = expert_capacity(global_tokens(n), cfg)
 
     xf = x.reshape(n, d)
     gate_w, gate_i, pos, keep = route(p, cfg, xf)

@@ -89,10 +89,20 @@ def dequantize_params(qparams: Any, dtype=torch.bfloat16) -> Any:
 
 
 def quantized_param_shardings(p_shard: Any, params_shape: Any) -> Any:
-    """Shardings for the quantized tree over a device mesh."""
-    raise NotImplementedError(
-        "quantized_param_shardings needs a device mesh: it comes with "
-        "distributed training (ROADMAP.md §A item 6)")
+    """Shardings for the quantized tree (``distributed.sharding``): at a
+    ≥2-D floating leaf a :class:`QTensor` of two — ``q`` takes the weight's
+    sharding, the (…, 1, out) ``scale`` the same spec with the
+    contraction axis (−2) replicated; every other leaf keeps its own."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    def one(sh, leaf):
+        if leaf.ndim < 2 or not leaf.dtype.is_floating_point:
+            return sh
+        spec = list(sh.spec) + [None] * (leaf.ndim - len(sh.spec))
+        spec[-2] = None
+        return QTensor(sh, NamedSharding(sh.mesh, tuple(spec)))
+
+    return tree_map(one, p_shard, params_shape)
 
 
 def quantization_error(params: Any, qparams: Any) -> dict:

@@ -408,10 +408,13 @@ def test_engine_draws_its_own_params_from_a_seed():
 
 def test_what_is_not_ported_raises():
     """Int8 weights are ported (``test_torch_quant.py``): every family's
-    engine takes them and holds int8 leaves.  What still raises: the
-    shardings of the quantized tree (a device mesh, ROADMAP §A item 6)
-    and frames in ``generate``, which refuses them as the reference's
-    does, with int8 weights too."""
+    engine takes them and holds int8 leaves, and the shardings of the
+    quantized tree come with the device mesh (``test_torch_sharding.py``
+    holds them against the reference's).  What still raises: frames in
+    ``generate``, which refuses them as the reference's does, with int8
+    weights too."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.quant import ptq
 
     cpu = dict(device="cpu", max_len=24)
@@ -421,8 +424,10 @@ def test_what_is_not_ported_raises():
                                  int8_weights=True, **cpu)
         assert any(isinstance(x, ptq.QTensor) for _, x in
                    _flat_leaves(eng.params)), arch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptq.quantized_param_shardings(None, None)
+    sh = NamedSharding(Mesh((2, 4), ("data", "model")), ("data", "model"))
+    q, scale = ptq.quantized_param_shardings(
+        {"w": sh}, {"w": torch.empty(8, 8, device="meta")})["w"]
+    assert q is sh and scale.spec == (None, "model")
     # frames in: generate refuses, as the reference's does
     for int8 in (False, True):
         seamless = tserve.ServeEngine(

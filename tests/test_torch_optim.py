@@ -197,6 +197,12 @@ def test_compress_with_feedback_is_bit_exact_over_steps():
 
 
 def test_compressed_psum_pod_names_the_roadmap_item():
+    """The cross-pod sum runs on a mesh with a ``pod`` axis
+    (``test_torch_compress_pod.py`` holds it against the reference's);
+    a mesh without one raises, as the reference asserts."""
+    from repro_torch.launch.mesh import Mesh
+
     _, g = _both(_tree(6), "float32")
-    with pytest.raises(NotImplementedError, match=r"§A item 6"):
-        TC.compressed_psum_pod(g, TC.init_error_feedback(g))
+    with pytest.raises(ValueError, match="pod axis"):
+        TC.compressed_psum_pod(g, TC.init_error_feedback(g),
+                               Mesh((2, 2), ("data", "model")))

@@ -173,8 +173,25 @@ def test_dequantize_is_the_f32_product_rounded_once():
 
 
 def test_quantized_param_shardings_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TQ.quantized_param_shardings(None, None)
+    """The shardings of the quantized tree, ported with the device mesh:
+    at a ≥2-D float leaf ``q`` keeps the weight's sharding and ``scale``
+    replicates the contraction axis; a vector or an integer leaf keeps
+    its own (``test_torch_sharding.py`` holds every leaf of the ten
+    configs against the reference's)."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh((2, 4), ("data", "model"))
+    w, v = NamedSharding(mesh, (None, "data", "model")), \
+        NamedSharding(mesh, ("model",))
+    meta = dict(device="meta")
+    got = TQ.quantized_param_shardings(
+        {"w": w, "v": v, "i": v},
+        {"w": torch.empty(3, 8, 8, **meta), "v": torch.empty(8, **meta),
+         "i": torch.empty(8, 8, dtype=torch.int32, **meta)})
+    assert got["w"].q is w
+    assert got["w"].scale.spec == (None, None, "model")
+    assert got["v"] is v and got["i"] is v
 
 
 # ---------------------------------------------------------------------------

@@ -144,8 +144,14 @@ def test_fresh_state_and_template():
 
 
 def test_a_mesh_waits_for_distributed_training():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TT.train(steps=1, ckpt_dir=None, mesh=object(), **COMMON)
+    """``train(mesh=...)`` trains on a mesh of ranks
+    (``test_torch_mesh_train.py``); a mesh that is its shape alone, with
+    no process group behind it, raises before any step."""
+    from repro_torch.launch.mesh import Mesh
+
+    with pytest.raises(RuntimeError, match="no ranks"):
+        TT.train(steps=1, ckpt_dir=None, mesh=Mesh((1, 1), ("data", "model")),
+                 **COMMON)
 
 
 def test_the_default_device_needs_the_card(tmp_path):
