@@ -282,6 +282,19 @@ Phases, each printing one JSON object on a line of its own:
                   to the 1 × 1 mesh's on the same global batch at the
                   bf16 train rule (loss rtol 1e-2); with one card the line
                   says so.
+24. ``mesh_serve`` llama3.2-1b at full width and depth (4 × 1024-token
+                  prompts + 32 greedy) served by ``ServeEngine(mesh=
+                  single_device_mesh())`` — the 1 × 1 NCCL mesh, every
+                  collective of the ``model`` split called, each the
+                  identity — and with ``mesh=None``, bf16 and int8
+                  weights: logits and tokens bit for bit; 16 flash
+                  launches a prefill on each mesh engine; prefill ms and
+                  decode tokens/s of both in turns, ``local_shards`` ms,
+                  peak GB; B3 on qwen2-0.5b's ``d_ff`` shard at
+                  ``model`` = 4 (1216 columns) against its plain version.
+                  With two or more cards a (1, 2) tensor-parallel serve of
+                  two torchrun ranks against one card (the LM logit rule;
+                  token agreement); with one card the line says so.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -289,9 +302,10 @@ just after phase 5, and again just before phase 6 and after phase 7 (the
 just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
 the SSD kernel's around phase 15, the attention kernel's around phase
-16b, and around each train phase (17-23) the counts of every forward and
-backward kernel the path runs, each read just after the path's steps
-(the ``kernels`` line adds the counts of every path); the run
+16b, around each train phase (17-23) the counts of every forward and
+backward kernel the path runs, and the attention kernel's around phase
+24 (read after the mesh engines' calls), each read just after the
+path's steps (the ``kernels`` line adds the counts of every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -325,7 +339,8 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "ssd_check", "ssd_bwd_check", "lm_serve", "ssm_serve",
           "moe_serve", "hybrid_serve", "encdec_serve", "int8_serve",
           "lm_train", "lm_train_streamed", "moe_train", "ssm_train",
-          "encdec_train", "hybrid_train", "train_resilient", "mesh_train")
+          "encdec_train", "hybrid_train", "train_resilient", "mesh_train",
+          "mesh_serve")
 
 # data-sheet peaks of one H100 SXM used for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
@@ -368,7 +383,7 @@ DETAIL_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 VERBOSE_KEYS = ("shapes", "top_kernels", "wall_ms_each",
                 "logit_gaps_vs_dense", "decode_step_ms", "libraries",
                 "outputs", "dropped_share_per_layer", "flips",
-                "decode_gaps", "grad_rel_l2")
+                "decode_gaps", "grad_rel_l2", "tokens_1x2", "tokens_1x1")
 #: what a compact per-shape row of the ``kernels`` line keeps
 SHAPE_KEYS = ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
               "library_ms")
@@ -4982,6 +4997,233 @@ def mesh_train(torch, read) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving on a device mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh server: ``lm_serve``'s first model, batch, prompts and new
+#: tokens, on the 1 × 1 mesh beside ``mesh=None``, bf16 and int8 weights
+MESH_SERVE_ARCH = LM_MODELS[0]
+#: B3 on one rank's ``d_ff`` shard that is no multiple of its tiles:
+#: qwen2-0.5b's 4864 at ``model`` = 4 (1216 columns), at a prefill's rows
+MESH_SERVE_B3_SHARD = ("qwen2-0.5b", 4)
+MESH_SERVE_DIR = os.path.join(ROOT, "build", "mesh_serve")
+
+#: what a rank of the two-card serve executes (under torchrun): NCCL on
+#: the cards, gloo on the CPU
+_TWO_CARD_SERVE_RANK = """
+import dataclasses, os, sys
+import numpy as np, torch, torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch.configs.registry import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.serve import ServeEngine
+if {device!r} == "cuda":
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+else:
+    torch.set_num_threads(1)
+dist.init_process_group("nccl" if {device!r} == "cuda" else "gloo")
+cfg = get_config({arch!r}, smoke={smoke!r}).with_(dtype={dtype!r})
+prompts = np.random.default_rng(0).integers(
+    0, cfg.vocab_size, ({batch}, {prompt}), dtype=np.int32)
+eng = ServeEngine(cfg, device={device!r}, max_len={prompt} + {new}, seed=0,
+                  mesh=make_host_mesh((1, 2), ("data", "model")))
+logits, _ = eng.prefill(prompts)
+eng.generate(prompts, max_new={new})
+out, warm = eng.generate(prompts, max_new={new})
+if dist.get_rank() == 0:
+    torch.save({{"logits": logits.cpu(), "tokens": out,
+                "warm": dataclasses.asdict(warm)}}, {path!r})
+dist.destroy_process_group()
+"""
+
+
+def mesh_serve_two_card(torch, *, arch: str = MESH_SERVE_ARCH,
+                        smoke: bool = False, device: str = "cuda",
+                        dtype: str = "bfloat16", batch: int = LM_BATCH,
+                        prompt: int = LM_PROMPT, new: int = LM_NEW,
+                        out_dir: str = MESH_SERVE_DIR) -> dict:
+    """``arch`` served on a (1, 2) tensor-parallel mesh of two ranks
+    spawned by torchrun (NCCL on two cards, gloo with ``device="cpu"``)
+    against one device's engine on the same seeded weights and prompts:
+    the prefill logits at the LM rule, the greedy tokens compared."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import ServeEngine
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "two_card_serve.pt")
+    script = os.path.join(out_dir, "two_card_serve_rank.py")
+    with open(script, "w") as f:
+        f.write(_TWO_CARD_SERVE_RANK.format(
+            src=os.path.join(ROOT, "src"), arch=arch, smoke=smoke,
+            device=device, dtype=dtype, batch=batch, prompt=prompt, new=new,
+            path=path))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "2", script],
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"two-card serve failed ({r.returncode}): "
+                           f"{r.stderr[-3000:]}")
+    two = torch.load(path, weights_only=False)
+    cfg = get_config(arch, smoke=smoke).with_(dtype=dtype)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt), dtype=np.int32)
+    one = ServeEngine(cfg, device=device, max_len=prompt + new, seed=0)
+    logits, _ = one.prefill(prompts)
+    out, _ = one.generate(prompts, max_new=new)
+    gap = _logit_gap(two["logits"], logits.cpu(), LM_LOGIT_RTOL_OF_MAX,
+                     LM_LOGIT_ATOL, "(1, 2) serve against one device")
+    return {"tokens_1x2": two["tokens"].tolist(),
+            "tokens_1x1": out.tolist(),
+            "tokens_equal": bool(np.array_equal(two["tokens"], out)),
+            "token_agreement": float((two["tokens"] == out).mean()),
+            "logits_max_abs_gap": gap["max_abs"], "rule": gap,
+            "warm_1x2": two["warm"], "wall_s": wall}
+
+
+def b3_on_a_shard(torch) -> dict:
+    """B3 as a rank of ``model`` = tp calls it on qwen2-0.5b: its
+    ``d_ff``/tp columns (``MESH_SERVE_B3_SHARD``), the block the layer
+    clamps to them, a prefill's rows, bf16, against its plain version."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import ops
+
+    arch, tp = MESH_SERVE_B3_SHARD
+    cfg = get_config(arch)
+    m, d, f = LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff // tp
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(m, d, generator=gen).to(torch.bfloat16).cuda()
+    wg, wu = (torch.randn(d, f, generator=gen).mul(d ** -0.5)
+              .to(torch.bfloat16).cuda() for _ in range(2))
+    wd = torch.randn(f, d, generator=gen).mul(f ** -0.5).to(
+        torch.bfloat16).cuda()
+    run = lambda: ops.fused_mlp(x, wg, wu, wd, act=cfg.act,      # noqa: E731
+                                block_f=min(2048, f))
+    out, exp = run(), fm.fused_mlp_plain(x, wg, wu, wd, act=cfg.act)
+    tol = MLP_TOL["bfloat16"]
+    diff = (out.float() - exp.float()).abs()
+    if out.shape != exp.shape or not bool(torch.isfinite(out).all()) or \
+            not bool((diff <= tol + tol * exp.float().abs()).all()):
+        raise AssertionError(f"B3 on a {f}-column shard: max |err| "
+                             f"{float(diff.max())} beyond {tol}")
+    return {"arch": arch, "tp": tp, "m": m, "d": d, "f_shard": f,
+            "block_f": min(2048, f), "max_abs_err": float(diff.max()),
+            "tol": tol, "ms": time_ms(run, warmup=2, reps=10)}
+
+
+def mesh_serve(torch, read) -> dict:
+    """llama3.2-1b at full width and depth served on the 1 × 1 mesh (an
+    NCCL world of one: every collective the identity, every local shard a
+    whole leaf, the code a rank of a larger mesh runs) and with
+    ``mesh=None``, bf16 and int8 weights: the same bits, and the costs of
+    the mesh layer.  ``read()`` returns the mesh path's flash launches: it
+    is called after the mesh engines' calls, before the ``mesh=None``
+    engines run."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import tp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.serve import ServeEngine
+
+    torch.cuda.empty_cache()
+    shard = b3_on_a_shard(torch)
+    cfg = get_config(MESH_SERVE_ARCH)
+    max_len = LM_PROMPT + LM_NEW
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    mesh = single_device_mesh()
+    try:
+        # the mesh path: bf16, then int8 weights, each alone on the card
+        meshed, per_prefill, peak_gb = {}, {}, {}
+        for name, int8 in (("bf16", False), ("int8", True)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng = ServeEngine(cfg, mesh=mesh, max_len=max_len, seed=0,
+                              int8_weights=int8)
+            before = fa.launches
+            logits, _ = eng.prefill(prompts)
+            per_prefill[name] = fa.launches - before
+            out, _ = eng.generate(prompts, max_new=LM_NEW)
+            peak_gb[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            meshed[name] = (eng, logits, out)
+        launches = read()              # the mesh path's: read after it
+        for name, n in per_prefill.items():
+            if n != cfg.num_layers:
+                raise AssertionError(f"{name} mesh prefill: {n} flash "
+                                     f"launches, want {cfg.num_layers}")
+
+        # mesh=None on the same seeded weights: the same bits
+        plain = {}
+        for name, int8 in (("bf16", False), ("int8", True)):
+            eng = ServeEngine(cfg, max_len=max_len, seed=0,
+                              int8_weights=int8)
+            logits, _ = eng.prefill(prompts)
+            out, _ = eng.generate(prompts, max_new=LM_NEW)
+            _, logits_m, out_m = meshed[name]
+            if tuple(logits_m.shape) != (LM_BATCH, cfg.vocab_size) or \
+                    not bool(torch.isfinite(logits_m).all()):
+                raise AssertionError(f"{name} mesh logits not finite of "
+                                     "the expected shape")
+            if not torch.equal(logits_m, logits) or \
+                    not np.array_equal(out_m, out):
+                raise AssertionError(
+                    f"{name}: the 1 x 1 mesh against mesh=None: logits "
+                    f"equal {torch.equal(logits_m, logits)}, tokens equal "
+                    f"{np.array_equal(out_m, out)}")
+            plain[name] = eng
+
+        # prefill and decode of both engines, in turns (none, mesh, mesh,
+        # none), and the mesh layer's own cost: the gather of local_shards
+        turns = {w: {"none": [], "mesh": []} for w in meshed}
+        for w in meshed:
+            for name in ("none", "mesh", "mesh", "none"):
+                eng = plain[w] if name == "none" else meshed[w][0]
+                _, st = eng.generate(prompts, max_new=LM_NEW)
+                turns[w][name].append({
+                    "prefill_ms": _prefill_ms(torch, eng, prompts),
+                    "decode_tokens_per_s": st.tokens_per_s})
+        gather_ms = {}
+        for w, (eng, _, _) in meshed.items():
+            tp.local_shards(eng.params, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                tp.local_shards(eng.params, mesh)
+            torch.cuda.synchronize()
+            gather_ms[w] = (time.perf_counter() - t0) / 5 * 1e3
+        del meshed, plain
+        torch.cuda.empty_cache()
+        count = torch.cuda.device_count()
+        two_card = mesh_serve_two_card(torch) if count >= 2 else \
+            f"not run: this machine has {count} card"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {
+        "card": nvidia_smi_line(),
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+        "mesh": {"shape": dict(mesh.shape), "backend": "nccl",
+                 "world_size": 1},
+        "device_count": count,
+        "mesh_equals_none_bit_for_bit": {"bf16": True, "int8": True},
+        "flash_launches_per_prefill": per_prefill,
+        "turns": turns, "local_shards_ms": gather_ms,
+        "peak_mem_gb": peak_gb, "b3_on_a_shard": shard,
+        "launches": {"flash_attention": launches}, "two_card": two_card,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -5205,6 +5447,12 @@ def main(argv=None) -> int:
         fa_launches += meshed["launches"]["flash_attention"]
         bwd_totals["attn"] += meshed["launches"]["flash_attention_bwd"]
         emit_phase("mesh_train", meshed)
+    fa.reset_counts()                  # counts: zero before the mesh server
+    if "mesh_serve" in phases:
+        served = mesh_serve(torch, read=lambda: read_after(     # read after
+            fa, "flash_attention", "mesh serve"))
+        fa_launches += served["launches"]["flash_attention"]
+        emit_phase("mesh_serve", served)
     fb_launches, mb_launches = bwd_totals["attn"], bwd_totals["ssd"]
 
     if set(phases) != set(PHASES):

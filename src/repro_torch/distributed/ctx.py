@@ -11,6 +11,11 @@ the batch lie across the data-parallel ranks.  Compute runs on each
 rank's own rows, so a layer that mixes rows — the MoE layer's capacity
 and buffer positions, reckoned over the whole batch in the reference —
 reads it to see the global batch (``models/moe.py``).
+
+A mesh server also installs its :class:`ModelSplit`: the ``model`` axis
+along which the layers split heads, ``d_ff``, experts and the vocabulary
+(``distributed/tp.py``).  With no split installed every rank holds every
+column, and the layers run as on one device.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 _HOOK: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None
 _ROWS: Optional["RowSplit"] = None
+_MODEL: Optional["ModelSplit"] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +41,21 @@ class RowSplit:
     index: int
     count: int
     rows: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """The ``model`` axis of a mesh: ``group`` is its process group, this
+    rank is ``index`` of ``count`` along it.  ``kv_seq``: the decode
+    caches' positions lie in ``count`` blocks along it (the rules'
+    fallback where the kv heads do not divide it,
+    ``sharding.make_cache_shardings``) — set by the decode step, which
+    sees the caches' placements."""
+
+    group: Any
+    index: int
+    count: int
+    kv_seq: bool = False
 
 
 def shard_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -70,3 +91,20 @@ def data_rows(split: Optional[RowSplit]):
         yield
     finally:
         _ROWS = prev
+
+
+def model_split() -> Optional[ModelSplit]:
+    """The split installed by :func:`model_shards`, or ``None``: this rank
+    holds every column and computes every head."""
+    return _MODEL
+
+
+@contextlib.contextmanager
+def model_shards(split: Optional[ModelSplit]):
+    global _MODEL
+    prev = _MODEL
+    _MODEL = split
+    try:
+        yield
+    finally:
+        _MODEL = prev

@@ -293,16 +293,22 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def activation_hook(mesh: Mesh) -> Callable:
+def activation_hook(mesh: Mesh, cfg=None) -> Callable:
     """The hook of a step on ``mesh``.  Compute runs on plain local
     tensors, so where the reference constrains ``hidden`` (B, S, D) and
     ``logits`` (B, c, V) to the DP rows, this hook checks that they are
     plain tensors holding this rank's rows of the microbatch
-    (``ctx.row_split``) and returns them as they are."""
+    (``ctx.row_split``) and returns them as they are.  Given the model's
+    ``cfg`` it also checks their widths: ``hidden`` holds the whole
+    ``d_model`` (replicated along ``model``), ``logits`` this rank's
+    shard of the vocabulary (all of it with no ``ctx.ModelSplit``
+    installed, or where the vocabulary does not divide it)."""
     from torch.distributed.tensor import DTensor
 
+    from . import tp
+
     def hook(x, kind: str):
-        if kind in ("hidden", "logits") and x.ndim == 3:
+        if kind in ("hidden", "logits") and x.ndim >= 2:
             if isinstance(x, DTensor):
                 raise TypeError(f"a DTensor {kind} activation on {mesh!r}: "
                                 "compute runs on local tensors")
@@ -311,6 +317,13 @@ def activation_hook(mesh: Mesh) -> Callable:
                 raise ValueError(
                     f"{kind} activation holds {x.shape[0]} rows, this rank "
                     f"of {mesh!r} {split.rows}")
+            if cfg is not None:
+                want = cfg.d_model if kind == "hidden" else \
+                    tp.local_extent(tp.vocab_rows(cfg))
+                if x.shape[-1] != want:
+                    raise ValueError(
+                        f"{kind} activation holds {x.shape[-1]} columns, "
+                        f"this rank of {mesh!r} {want}")
         return x
 
     return hook

@@ -3,10 +3,13 @@
 A small but real engine on one card:
 
 * ``ServeEngine`` holds the parameters on the device and runs the
-  prefill / decode steps of ``repro_torch.launch.steps`` eagerly.  There
-  is no mesh: one card serves (serving on a device mesh, with the cache
-  placed by ``distributed.sharding.make_cache_shardings``, is still to
-  come; training runs on a mesh, ``launch.train``).
+  prefill / decode steps of ``repro_torch.launch.steps`` eagerly, on one
+  device or (``mesh=...``) on a device mesh: the parameters as DTensors
+  placed by ``distributed.sharding.make_param_shardings``, the decode
+  caches by ``make_cache_shardings``, and each rank computing its rows
+  of ``data`` on its shard of ``model`` — heads, ``d_ff``, experts and
+  the vocabulary (``distributed/tp.py``).  The hand-written kernels see
+  only plain local tensors.
 * Requests are processed in *waves* (static-batch continuous batching):
   a wave of B prompts is prefilled together — through the hand-written
   flash-attention kernel (each attention layer of the dense, MoE and
@@ -49,8 +52,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tp
 from repro_torch.launch import steps as ST
-from repro_torch.quant import dequantize_params, quantize_params
+from repro_torch.quant.ptq import (dequantize_params, quantize_params,
+                                   quantized_param_shardings)
 
 
 @dataclasses.dataclass
@@ -67,13 +73,24 @@ class ServeEngine:
     with ``seed`` on the device — or taken as given (``params``, e.g. from
     :func:`repro_torch.models.lm.lm_params_from_numpy`).  With
     ``int8_weights`` they are quantized once, here, and ``self.params``
-    holds the int8 tree."""
+    holds the int8 tree.
+
+    On ``mesh`` (``launch.mesh``, with ranks; every rank builds the engine
+    with the same arguments) the whole parameters — the same on every
+    rank — are placed as DTensors by ``make_param_shardings`` (int8
+    leaves and scales by ``quantized_param_shardings``) and each rank
+    keeps its shard.  A call gathers them along the data axes only and
+    computes on the rank's ``model`` shard; prompts go over the data axes
+    where they divide them.  ``generate`` emits on every rank the tokens
+    one device emits: the last-token logits are gathered to the whole
+    (B, V) and every rank samples them alike."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         *,
         device=None,
+        mesh=None,
         max_len: int = 256,
         seed: int = 0,
         int8_weights: bool = False,
@@ -81,23 +98,36 @@ class ServeEngine:
     ) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"{mesh!r} serves on {self.device}")
         self.max_len = max_len
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = ST.model_init(gen, cfg)
         self.int8_weights = int8_weights
+        whole = params
         if int8_weights:
             # weight-only PTQ: int8 weights + per-channel scales, on the
-            # device; dequantized in each prefill and decode call
+            # device (of the whole leaves: a scale is an absmax over the
+            # contraction axis); dequantized in each prefill and decode
+            # call
             params = quantize_params(params)
+        if mesh is not None:
+            p_shard = shd.make_param_shardings(mesh, whole, cfg)
+            if int8_weights:
+                p_shard = quantized_param_shardings(p_shard, whole)
+            params = shd.distribute_tree(params, p_shard)
         self.params = params
-        self._prefill_step = ST.make_prefill_step(cfg)
-        self._decode_step = ST.make_decode_step(cfg)
+        self._prefill_step = ST.make_prefill_step(cfg, mesh)
+        self._decode_step = ST.make_decode_step(cfg, mesh)
 
     def model_params(self) -> dict:
         """The parameters a step takes: ``self.params``, or with int8
-        weights a fresh copy dequantized to ``cfg.param_dtype``."""
-        if self.int8_weights:
+        weights a fresh copy dequantized to ``cfg.param_dtype``.  On a
+        mesh the placed tree as it is: the step takes its local shards
+        and dequantizes those."""
+        if self.int8_weights and self.mesh is None:
             return dequantize_params(self.params, self.cfg.param_dtype)
         return self.params
 
@@ -180,7 +210,15 @@ class ServeEngine:
         the leading corner of the zeroed leaf; a leaf of the same shape
         (the conv line buffer, the SSD state, an encoder memory's K/V as
         long as ``max_len``) is copied whole.  A hybrid's tree holds both
-        kinds under one root."""
+        kinds under one root.  On a mesh the decode cache is a tree of
+        DTensors placed by ``make_cache_shardings``, each rank's block
+        filled from its prefill caches (``tp.cache_from_prefill``)."""
+        if self.mesh is not None:
+            shapes = ST.model_init_cache(self.cfg, bsz, self.max_len,
+                                         device="meta")
+            return tp.cache_from_prefill(
+                prefill_caches, shapes,
+                shd.make_cache_shardings(self.mesh, shapes), self.mesh)
         full = ST.model_init_cache(self.cfg, bsz, self.max_len,
                                    device=self.device)
 

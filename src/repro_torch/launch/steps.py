@@ -7,7 +7,10 @@ so the launchers stay family-agnostic:
   ``prefill_step(params, batch)             -> (logits, caches)``
   ``decode_step(params, cache, token, pos)  -> (logits, cache)``
 
-The train step is the reference's: loss, its gradient, gradient
+The serve steps take ``mesh=``: on a device mesh each rank computes its
+rows of the global batch on its shard of ``model`` (heads, ``d_ff``,
+experts, vocabulary; ``distributed/tp.py``) and the logits come back
+whole.  The train step is the reference's: loss, its gradient, gradient
 accumulation over microbatches, then the AdamW update.  It trains every
 family: dense (dense, vlm, audio), MoE, SSM (the SSD's gradient through
 its backward kernel), the hybrid (Jamba's superblock of all three) and
@@ -16,6 +19,7 @@ streamed (the fused MLP's gradient through its backward kernel).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -184,6 +188,20 @@ def _dp_index(mesh) -> int:
     return coord.get("pod", 0) * mesh.shape["data"] + coord["data"]
 
 
+def _row_split(mesh, global_batch: int, grad_accum: int = 1):
+    """The ``ctx.RowSplit`` of this rank's rows (:func:`batch_rows`) of a
+    global batch of ``global_batch`` rows: the data axes' group, its
+    block index, the number of blocks (1 when the batch replicates) and
+    the rows of each microbatch it holds."""
+    from repro_torch.distributed import ctx, sharding as shd
+
+    rows = sum(b - a for a, b in batch_rows(mesh, global_batch, grad_accum))
+    count = global_batch // rows
+    return ctx.RowSplit(mesh.get_group(shd.dp_axes(mesh)),
+                        _dp_index(mesh) if count > 1 else 0, count,
+                        rows // grad_accum)
+
+
 def local_batch(mesh, batch: dict, grad_accum: int = 1) -> dict:
     """This rank's rows (:func:`batch_rows`) of a global ``batch``."""
     def rows(name, x):
@@ -226,13 +244,9 @@ def make_sharded_train_step(
 
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} < 1")
-    group = mesh.get_group(shd.dp_axes(mesh))
-    spans = batch_rows(mesh, global_batch, grad_accum)
-    rows = sum(b - a for a, b in spans)
-    count = global_batch // rows
-    split = ctx.RowSplit(group, _dp_index(mesh) if count > 1 else 0, count,
-                         rows // grad_accum)
-    hook = shd.activation_hook(mesh)
+    split = _row_split(mesh, global_batch, grad_accum)
+    group, count, rows = split.group, split.count, split.rows * grad_accum
+    hook = shd.activation_hook(mesh, cfg)
 
     def mean_over_rows(t):
         if count > 1:
@@ -269,15 +283,88 @@ def make_sharded_train_step(
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+@contextlib.contextmanager
+def _serving_on(mesh, cfg: ModelConfig, global_batch: int, *,
+                kv_seq: bool = False):
+    """The context of a serve step on ``mesh`` for a batch of
+    ``global_batch`` rows → its ``RowSplit``: the rows as
+    :func:`batch_rows` deals them (MoE capacity counts the global rows),
+    the ``ModelSplit`` along which the layers split heads, ``d_ff``,
+    experts and the vocabulary (``distributed/tp.py``), and the
+    activation hook, which checks the widths the split gives."""
+    from repro_torch.distributed import ctx, sharding as shd
+
+    rsplit = _row_split(mesh, global_batch)
+    msplit = ctx.ModelSplit(mesh.get_group("model"),
+                            mesh.coordinate()["model"], mesh.shape["model"],
+                            kv_seq)
+    with ctx.data_rows(rsplit), ctx.model_shards(msplit), \
+            ctx.activation_sharding(shd.activation_hook(mesh, cfg)):
+        yield rsplit
+
+
+def _rows_of(batch: dict) -> int:
+    name, x = next(iter(batch.items()))
+    return x.shape[SPLIT_AXIS.get(name, 0)]
+
+
+def _compute_params(params, cfg: ModelConfig, mesh):
+    """What a mesh step computes with: the local shards of ``params``
+    (``tp.local_shards``), int8 leaves dequantized to ``cfg.param_dtype``
+    (only this rank's shards)."""
+    from repro_torch.distributed import tp
+    from repro_torch.quant import dequantize_params
+
+    return dequantize_params(tp.local_shards(params, mesh), cfg.param_dtype)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
+    """``prefill_step(params, batch) -> (logits (B, V) f32, caches)``.
+
+    On ``mesh`` the params are DTensors placed by the sharding rules (a
+    ``QTensor``'s q and scale too) and ``batch`` is the global batch: the
+    rank computes its rows (:func:`local_batch`) on its shard of
+    ``model`` (:func:`_serving_on`), the logits are gathered to the whole
+    batch, and the tight caches are the rank's own (its rows; under a
+    head split its heads), as ``tp.cache_from_prefill`` takes them."""
+    if mesh is None:
+        def prefill_step(params, batch):
+            return model_prefill(params, cfg, batch)
+
+        return prefill_step
+    from repro_torch.distributed import tp
+
     def prefill_step(params, batch):
-        return model_prefill(params, cfg, batch)
+        with _serving_on(mesh, cfg, _rows_of(batch)) as rows:
+            logits, caches = model_prefill(_compute_params(params, cfg, mesh),
+                                           cfg, local_batch(mesh, batch))
+            return tp.gather_rows(logits, rows), caches
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, mesh=None) -> Callable:
+    """``decode_step(params, cache, token, pos) -> (logits (B, V) f32,
+    cache)``, the cache updated in place.
+
+    On ``mesh`` the params are placed as for :func:`make_prefill_step`,
+    ``cache`` is a tree of DTensors placed by ``make_cache_shardings``
+    (whose local tensors the step updates) and ``token`` (B,) the global
+    batch's; where the caches hold their positions in blocks along
+    ``model`` the attention layers take their softmax in blocks."""
+    if mesh is None:
+        def decode_step(params, cache, token, pos):
+            return model_decode(params, cfg, cache, token, pos)
+
+        return decode_step
+    from repro_torch.distributed import tp
+
     def decode_step(params, cache, token, pos):
-        return model_decode(params, cfg, cache, token, pos)
+        seq = tp.positions_on_model(cache, mesh)
+        with _serving_on(mesh, cfg, token.shape[0], kv_seq=seq) as rows:
+            logits, _ = model_decode(
+                _compute_params(params, cfg, mesh), cfg, tp.to_local(cache),
+                local_batch(mesh, {"token": token})["token"], pos)
+            return tp.gather_rows(logits, rows), cache
 
     return decode_step

@@ -41,7 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.ctx import shard_activation
 from . import layers as L
-from .lm import _EmbedRows, _layer, _unbind_layers, chunked_ce_loss
+from .lm import (_EmbedRows, _layer, _unbind_layers, chunked_ce_loss,
+                 embed_tokens, head_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -133,15 +134,17 @@ def encode(params: dict, cfg: ModelConfig,
 
 def _cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor):
     """One decoder layer's cross-attention keys and values of the memory,
-    (B, Hkv, T, hd) each — no RoPE."""
+    (B, Hkv, T, hd) each — no RoPE; under a head split this rank's kv
+    heads (``layers.attention_leaves``)."""
     hd = cfg.resolved_head_dim
+    p, _ = L.attention_leaves(p, cfg)
     k = memory @ p["wk"]
     v = memory @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     b, t = memory.shape[:2]
-    k = k.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+    k = k.reshape(b, t, -1, hd).transpose(1, 2)
+    v = v.reshape(b, t, -1, hd).transpose(1, 2)
     return k, v
 
 
@@ -199,7 +202,7 @@ def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict):
     kvs = [_cross_kv(_layer(blocks, li)["cross_attn"], cfg, memory)
            for li in range(cfg.dec_layers)]
     bsz = memory.shape[0]
-    shape = (cfg.dec_layers, bsz, cfg.num_kv_heads, 1, cfg.resolved_head_dim)
+    shape = (cfg.dec_layers, *kvs[0][0].shape[:2], 1, cfg.resolved_head_dim)
     cache = {
         "ck": torch.stack([k for k, _ in kvs]),
         "cv": torch.stack([v for _, v in kvs]),
@@ -217,7 +220,8 @@ def encdec_decode(params: dict, cfg: ModelConfig, cache: dict,
     ``cache`` ``{"ck", "cv": (Ld, B, Hkv, T, hd), "k", "v": (Ld, B, Hkv,
     S, hd)}`` → (logits (B, V) f32, cache): the self cache is the one
     passed in, **updated in place**."""
-    h = params["embed"][token.long()][:, None, :]              # (B, 1, D)
+    h = embed_tokens(params["embed"], cfg, token.long())[:, None, :]
+    h = shard_activation(h, "hidden")                          # (B, 1, D)
     blocks = params["decoder"]["blocks"]
     for li in range(cfg.dec_layers):
         p = _layer(blocks, li)
@@ -232,8 +236,7 @@ def encdec_decode(params: dict, cfg: ModelConfig, cache: dict,
         h = h + L.mlp_layer(p["mlp"], cfg,
                             L.rmsnorm(h, p["ln2"], cfg.norm_eps))
     h = L.rmsnorm(h, params["decoder"]["final_norm"], cfg.norm_eps)
-    logits = (h[:, 0] @ params["lm_head"]).float()
-    return logits, cache
+    return head_logits(h[:, 0], params["lm_head"], cfg), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, mem_len: int, max_len: int,

@@ -35,6 +35,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx, tp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import scale_in_dtype
@@ -326,14 +327,36 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, hd).transpose(1, 2)
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) → (B, n, S, hd): the heads this rank computes."""
+    b, s, width = x.shape
+    return x.reshape(b, s, width // hd, hd).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, hd = x.shape
     return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def attention_leaves(p: dict, cfg: ModelConfig):
+    """(leaves, split): the attention leaves as this rank computes with
+    them.  With a ``ModelSplit`` installed and both the query and the kv
+    heads dividing it (``make_param_shardings``' ``q_ok`` and ``kv_ok``),
+    the rank's shards as they are — H/tp query and Hkv/tp kv heads, the
+    GQA ratio kept — and the split, over which the ``wo`` product is
+    summed.  Otherwise the leaves the rules put on ``model`` gathered
+    along it, and ``None``: every rank computes every head."""
+    q = tp.split_along(cfg.num_heads)
+    kv = tp.split_along(cfg.num_kv_heads)
+    if q is not None and kv is not None:
+        return p, q
+    out = {}
+    for name, t in p.items():
+        if name == "wo":
+            out[name] = tp.gather(t, -2, q)
+        else:
+            out[name] = tp.gather(t, -1, q if name in ("wq", "bq") else kv)
+    return out, None
 
 
 def attention_layer(
@@ -351,19 +374,23 @@ def attention_layer(
     memory's keys and values, as the encoder–decoder's teacher-forced
     cross-attention hands them in) the layer projects only the query,
     applies no RoPE to it (the positions are unrelated to the memory's)
-    and returns the given (k, v)."""
+    and returns the given (k, v).
+
+    Under a head split (:func:`attention_leaves`) the layer computes this
+    rank's heads, and the ``wo`` product is summed over ``model``."""
     hd = cfg.resolved_head_dim
+    p, split = attention_leaves(p, cfg)
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = _split_heads(q, cfg.num_heads, hd)
+    q = _split_heads(q, hd)
     if kv_override is None:
         k = x @ p["wk"]
         v = x @ p["wv"]
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
-        k = _split_heads(k, cfg.num_kv_heads, hd)
-        v = _split_heads(v, cfg.num_kv_heads, hd)
+        k = _split_heads(k, hd)
+        v = _split_heads(v, hd)
         cos, sin = rope_cos_sin(
             positions, hd, cfg.rope_theta,
             mrope_sections=cfg.mrope_sections,
@@ -384,7 +411,27 @@ def attention_layer(
         impl = ATTN_IMPLS[cfg.attn_impl]
         out = impl(q, k, v, causal=causal, q_offset=0,
                    block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-    return _merge_heads(out) @ p["wo"], (k, v)
+    return tp.sum_partial(_merge_heads(out) @ p["wo"], split), (k, v)
+
+
+def _decode_attention_blocks(q, k_cache, v_cache, length: int,
+                             split) -> torch.Tensor:
+    """:func:`decode_attention` over caches whose positions lie in blocks
+    along ``model``: this rank holds positions ``[index·s, (index+1)·s)``
+    (``k_cache`` (B, Hkv, s, D)), attends over those below ``length``,
+    and the (max, sum, out) triples are combined across the group."""
+    b, hq, _, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    g = hq // hkv
+    qg = scale_in_dtype(q.reshape(b, hkv, g, d), d ** -0.5).float()
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
+    valid = split.index * s + torch.arange(s, device=q.device) < length
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    out = tp.combine_softmax(m, p.sum(dim=-1), o, split)
+    return out.reshape(b, hq, 1, d).to(q.dtype)
 
 
 def attention_decode(
@@ -401,17 +448,34 @@ def attention_decode(
     value are written into the caches **in place** (the reference donates
     its caches to the step, which has the same effect).  With ``cross``
     the caches are the fixed encoder memory's keys and values: the query
-    attends to all of them, with no RoPE and no cache write."""
+    attends to all of them, with no RoPE and no cache write.
+
+    Under a head split (:func:`attention_leaves`) the caches hold this
+    rank's kv heads.  Where the caches' positions lie in blocks along
+    ``model`` instead (``ModelSplit.kv_seq``: the heads do not divide
+    it), every rank computes every head, the rank that holds position
+    ``pos`` writes the new key and value, and the softmax is taken in
+    blocks (:func:`_decode_attention_blocks`)."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
+    p, split = attention_leaves(p, cfg)
+    seq = ctx.model_split()
+    seq = seq if seq is not None and seq.kv_seq and split is None else None
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = _split_heads(q, cfg.num_heads, hd)
+    q = _split_heads(q, hd)
+
+    def attend(length):
+        if seq is None:
+            return decode_attention(q, k_cache, v_cache, length)
+        return _decode_attention_blocks(q, k_cache, v_cache, length, seq)
 
     if cross:
-        out = decode_attention(q, k_cache, v_cache, k_cache.shape[2])
-        return _merge_heads(out) @ p["wo"], k_cache, v_cache
+        width = k_cache.shape[2] * (1 if seq is None else seq.count)
+        out = attend(width)
+        return tp.sum_partial(_merge_heads(out) @ p["wo"], split), \
+            k_cache, v_cache
 
     pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     cos, sin = rope_cos_sin(pos_arr, hd, cfg.rope_theta)
@@ -421,12 +485,15 @@ def attention_decode(
     v_new = x @ p["wv"]
     if "bk" in p:
         k_new, v_new = k_new + p["bk"], v_new + p["bv"]
-    k_new = apply_rope(_split_heads(k_new, cfg.num_kv_heads, hd), cos, sin)
-    v_new = _split_heads(v_new, cfg.num_kv_heads, hd)
-    k_cache[:, :, pos: pos + 1] = k_new
-    v_cache[:, :, pos: pos + 1] = v_new
-    out = decode_attention(q, k_cache, v_cache, pos + 1)
-    return _merge_heads(out) @ p["wo"], k_cache, v_cache
+    k_new = apply_rope(_split_heads(k_new, hd), cos, sin)
+    v_new = _split_heads(v_new, hd)
+    owner, at = (0, pos) if seq is None else divmod(pos, k_cache.shape[2])
+    if seq is None or owner == seq.index:
+        k_cache[:, :, at: at + 1] = k_new
+        v_cache[:, :, at: at + 1] = v_new
+    out = attend(pos + 1)
+    return tp.sum_partial(_merge_heads(out) @ p["wo"], split), k_cache, \
+        v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -447,14 +514,18 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def mlp_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP, dense or streamed.  With a ``ModelSplit`` installed that
+    ``d_ff`` divides, the leaves hold this rank's ``d_ff`` columns (and
+    ``wd`` its rows), and the ``wd`` product is summed over ``model``."""
+    split = tp.split_along(cfg.d_ff)
     if cfg.mlp_impl == "streamed":
-        return _mlp_streamed(p, cfg, x)
+        return tp.sum_partial(_mlp_streamed(p, cfg, x), split)
     up = x @ p["wu"]
     if cfg.gated_mlp:
         h = ref._act(cfg.act, x @ p["wg"]) * up
     else:
         h = ref._act(cfg.act, up)
-    return h @ p["wd"]
+    return tp.sum_partial(h @ p["wd"], split)
 
 
 def _mlp_streamed(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -465,7 +536,8 @@ def _mlp_streamed(p: dict, cfg: ModelConfig, x: torch.Tensor,
     under autograd one call of its backward kernel, which recomputes the
     hidden.
 
-    As in the reference, ``block_f`` is clamped to ``d_ff`` and must
+    As in the reference, ``block_f`` is clamped to ``d_ff`` (the rank's
+    shard of it, under a ``model`` split) and must
     divide it (ValueError naming ``block_f`` otherwise); the kernel tiles
     by itself.  Rounding, in bf16: the kernel feeds the hidden to the
     down product as a bf16 high part plus a bf16 low part (16 significant
@@ -475,6 +547,6 @@ def _mlp_streamed(p: dict, cfg: ModelConfig, x: torch.Tensor,
     products, the hidden and each tile's down product to bf16 — so the
     streamed kernel is the more exact of the two; in f32 every route
     keeps f32."""
-    bf = min(block_f, cfg.d_ff)
+    bf = min(block_f, p["wu"].shape[-1])
     return ops.fused_mlp(x, p["wg"] if cfg.gated_mlp else None, p["wu"],
                          p["wd"], act=cfg.act, block_f=bf)

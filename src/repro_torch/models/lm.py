@@ -41,6 +41,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.distributed import tp
 from repro_torch.distributed.ctx import shard_activation
 from . import layers as L
 from . import mamba2 as M
@@ -162,6 +163,30 @@ def _head_matrix(params: dict) -> torch.Tensor:
     return params["embed"].T
 
 
+def embed_tokens(table: torch.Tensor, cfg: ModelConfig, ids: torch.Tensor,
+                 lookup=lambda table, ids: table[ids]) -> torch.Tensor:
+    """Rows ``ids`` of the embedding ``table`` through ``lookup``; with a
+    ``ModelSplit`` installed that the vocabulary divides, the table holds
+    this rank's vocabulary shard and the rows are vocabulary-parallel
+    (``tp.vocab_embed``: zeros outside the shard, summed over
+    ``model``)."""
+    split = tp.split_along(tp.vocab_rows(cfg))
+    if split is None:
+        return lookup(table, ids)
+    return tp.vocab_embed(table, ids, split)
+
+
+def head_logits(h: torch.Tensor, head: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """(B, V) f32 logits of ``h`` (B, D) through ``head`` (D, V) — with a
+    ``ModelSplit`` installed that the vocabulary divides, this rank's
+    vocabulary shard of it, and the logits gathered over ``model`` — cut
+    to ``cfg.vocab_size``."""
+    logits = shard_activation((h @ head).float(), "logits")
+    logits = tp.gather(logits, -1, tp.split_along(tp.vocab_rows(cfg)))
+    return logits[..., : cfg.vocab_size]
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -218,10 +243,16 @@ def _apply_block_decode(p, cfg, spec: LayerSpec, h, pos: int, cache: dict):
         a, _, _ = L.attention_decode(p["attn"], cfg, x, pos, cache["k"],
                                      cache["v"])
     else:
-        a, conv, ssm = M.mamba_decode(p["mamba"], cfg, x, cache["conv"],
-                                      cache["ssm"])
-        cache["conv"].copy_(conv)
-        cache["ssm"].copy_(ssm)
+        # the mixer computes every column: the cache leaves the rules put
+        # on ``model`` are gathered, and each rank writes its block back
+        s, d = cfg.ssm, cfg.d_model
+        on_conv = tp.split_along(s.conv_dim(d))
+        on_ssm = tp.split_along(s.num_heads(d))
+        a, conv, ssm = M.mamba_decode(
+            p["mamba"], cfg, x, tp.gather(cache["conv"], -1, on_conv),
+            tp.gather(cache["ssm"], 1, on_ssm))
+        cache["conv"].copy_(tp.own_block(conv, -1, on_conv))
+        cache["ssm"].copy_(tp.own_block(ssm, 1, on_ssm))
     return _ffn(p, cfg, spec, h + a)
 
 
@@ -395,7 +426,8 @@ def _embed_in(params: dict, cfg: ModelConfig, tokens_or_embeds):
     if cfg.embeds_input:
         h = tokens_or_embeds.to(cfg.param_dtype)
     else:
-        h = _EmbedRows.apply(params["embed"], tokens_or_embeds.long())
+        h = embed_tokens(params["embed"], cfg, tokens_or_embeds.long(),
+                         _EmbedRows.apply)
     return shard_activation(h, "hidden")
 
 
@@ -430,8 +462,7 @@ def lm_prefill(params: dict, cfg: ModelConfig, batch: dict):
         params, cfg, h, positions,
         mrope_positions=batch.get("mrope_positions"), collect_cache=True,
     )
-    logits = (h[:, -1] @ _head_matrix(params)).float()
-    return logits[..., : cfg.vocab_size], caches
+    return head_logits(h[:, -1], _head_matrix(params), cfg), caches
 
 
 def lm_decode(params: dict, cfg: ModelConfig, cache: dict,
@@ -445,15 +476,15 @@ def lm_decode(params: dict, cfg: ModelConfig, cache: dict,
         if h.ndim == 2:
             h = h[:, None, :]
     else:
-        h = params["embed"][token.long()][:, None, :]          # (B, 1, D)
+        h = embed_tokens(params["embed"], cfg, token.long())[:, None, :]
+    h = shard_activation(h, "hidden")                           # (B, 1, D)
     for li in range(num_superblocks(cfg)):
         block_p = _layer(params["blocks"], li)
         for i, spec in enumerate(pat):
             h = _apply_block_decode(block_p[f"b{i}"], cfg, spec, h, pos,
                                     _layer(cache[f"b{i}"], li))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h[:, 0] @ _head_matrix(params)).float()
-    return logits[..., : cfg.vocab_size], cache
+    return head_logits(h[:, 0], _head_matrix(params), cfg), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops, ref
 from .layers import dense_init, rmsnorm
 
@@ -101,6 +102,21 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return z, xbc, dt
 
 
+def _whole_leaves(p: dict, cfg: ModelConfig) -> dict:
+    """The mixer's leaves, gathered along ``model`` where the rules put
+    them there: the mixer computes every column on every rank (its
+    ``in_proj`` columns are ``z | x | B | C | dt``, and a contiguous cut
+    of them is not a set of heads)."""
+    s, d = cfg.ssm, cfg.d_model
+    di = s.d_inner(d)
+    width = 2 * di + 2 * s.state_dim + s.num_heads(d)
+    return dict(p,
+                in_proj=tp.gather(p["in_proj"], -1, tp.split_along(width)),
+                conv_w=tp.gather(p["conv_w"], -1,
+                                 tp.split_along(s.conv_dim(d))),
+                out_proj=tp.gather(p["out_proj"], -2, tp.split_along(di)))
+
+
 def _gate_out(p: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
     """Gated RMSNorm and the output projection (``y`` already carries the
@@ -116,7 +132,10 @@ def mamba_layer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``return_state`` also the decode caches ``{"conv": the last K-1 rows
     of the conv input (B, K-1, conv_dim), "ssm": the final SSD state (B, H,
     P, N) f32}`` — the reference's ``lm._mamba_forward`` — so prefill and
-    the plain layer are one code path."""
+    the plain layer are one code path.  Under a ``ModelSplit`` the leaves
+    are gathered along ``model`` first (:func:`_whole_leaves`), and the
+    caches hold every column."""
+    p = _whole_leaves(p, cfg)
     s = cfg.ssm
     b, l, d = x.shape
     di, h, n = s.d_inner(d), s.num_heads(d), s.state_dim
@@ -146,7 +165,10 @@ def mamba_decode(
     ssm_state: torch.Tensor,      # (B, H, P, N) f32
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The O(1) recurrent step → (out (B, 1, D), new conv cache, new SSM
-    state); the caches passed in are not modified."""
+    state); the caches passed in are not modified.  Under a
+    ``ModelSplit`` the leaves are gathered along ``model`` first
+    (:func:`_whole_leaves`) and the caches hold every column."""
+    p = _whole_leaves(p, cfg)
     s = cfg.ssm
     b = x.shape[0]
     d = cfg.d_model

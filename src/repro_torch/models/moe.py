@@ -54,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, tp
 from repro_torch.kernels import ref
 from .layers import dense_init
 
@@ -145,23 +145,33 @@ def route(p: dict, cfg: ModelConfig, xf: torch.Tensor):
 def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) → (B, S, D): route, dispatch into (E, cap, D), the
     expert MLPs, combine.  In decode N = B, so the capacity is that of B
-    tokens, as in the reference."""
+    tokens, as in the reference.
+
+    With a ``ModelSplit`` installed that E divides, the expert leaves hold
+    this rank's E/tp experts: routing is computed whole on every rank,
+    the rank dispatches and combines only the choices of its experts, and
+    the partial combine is summed over ``model`` in f32."""
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
-    e, k = m.num_experts, m.top_k
+    k = m.top_k
+    split = tp.split_along(m.num_experts)
+    e = p["wu"].shape[0]                                       # this rank's
+    first = 0 if split is None else split.index * e
     cap = expert_capacity(global_tokens(n), cfg)
 
     xf = x.reshape(n, d)
     gate_w, gate_i, pos, keep = route(p, cfg, xf)
+    mine = keep & (gate_i >= first) & (gate_i < first + e)
     safe_pos = torch.where(keep, pos, cap - 1)
-    slot = gate_i * cap + safe_pos                             # (N, k)
+    slot = (gate_i - first).clamp(0, e - 1) * cap + safe_pos   # (N, k)
 
-    # dispatch: one (N, D) scatter per choice; a dropped choice lands on
-    # the spare row e·cap, which no expert reads
+    # dispatch: one (N, D) scatter per choice; a dropped choice (or one of
+    # another rank's experts) lands on the spare row e·cap, which no
+    # expert reads
     buf = x.new_zeros((e * cap + 1, d))
     spare = torch.full_like(slot, e * cap)
-    dest = torch.where(keep, slot, spare)
+    dest = torch.where(mine, slot, spare)
     for kk in range(k):
         buf[dest[:, kk]] = xf
     experts_in = buf[: e * cap].view(e, cap, d)
@@ -178,6 +188,6 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((n, d), dtype=torch.float32, device=x.device)
     for kk in range(k):
         picked = out_buf[slot[:, kk]]
-        w = torch.where(keep[:, kk], gate_w[:, kk], 0.0)
+        w = torch.where(mine[:, kk], gate_w[:, kk], 0.0)
         y = y + picked.float() * w[:, None]
-    return y.reshape(b, s, d).to(x.dtype)
+    return tp.sum_partial(y, split).reshape(b, s, d).to(x.dtype)
