@@ -273,15 +273,27 @@ Phases, each printing one JSON object on a line of its own:
                   bit; the ``mesh=None`` step-8 checkpoint restored onto
                   the mesh equals the mesh's step-8 checkpoint restored
                   onto the ``mesh=None`` path, bit for bit; step ms of both
-                  paths, the sharded step's gather and optimizer ms beside
-                  the plain optimizer's, warm steps of both paths in
-                  turns from the restored states, save (snapshot, write)
-                  and restore s, peak GB; the flash launches are read
-                  after the mesh run.  With two or more cards, a (2, 1) NCCL
-                  mesh of two spawned ranks (torchrun) runs two steps held
-                  to the 1 × 1 mesh's on the same global batch at the
-                  bf16 train rule (loss rtol 1e-2); with one card the line
-                  says so.
+                  paths, the split step's per-superblock gathers and
+                  optimizer ms beside the plain optimizer's, warm steps of
+                  both paths in turns from the restored states, save
+                  (snapshot, write) and restore s, peak GB; the flash
+                  launches are read after the mesh run.  Then the split
+                  step (each rank on its shards of ``model``, the params
+                  gathered along the data axes a superblock at a time)
+                  at full width and depth, 4 × 1024 positions, two steps
+                  on the 1 × 1 mesh beside ``mesh=None`` for llama3.2-1b
+                  (the vocabulary-parallel CE at V 128256; streamed MLP),
+                  granite-moe-1b-a400m, mamba2-1.3b and
+                  seamless-m4t-medium: losses, params and moments bit for
+                  bit; each path's flash / SSD / MLP launches, read right
+                  after it; peak GB; a warm step of each in turns.  B2′
+                  (8 / 2 heads of llama3.2-1b's train shape) and B3′
+                  (M 4096, D 896, F 1216) at a ``model`` = 4 shard's
+                  shapes against their plain versions.  With two or more
+                  cards, a (2, 1) and a (1, 2) NCCL mesh of two spawned
+                  ranks (torchrun) each run two steps held to the 1 × 1
+                  mesh's on the same global batch at the bf16 train rule
+                  (loss rtol 1e-2); with one card the lines say so.
 24. ``mesh_serve`` llama3.2-1b at full width and depth (4 × 1024-token
                   prompts + 32 greedy) served by ``ServeEngine(mesh=
                   single_device_mesh())`` — the 1 × 1 NCCL mesh, every
@@ -4742,7 +4754,8 @@ def train_resilient(torch, read) -> dict:
 #: step-4 and step-8 checkpoints; the timed save writes one more)
 MESH_TRAIN_DIR = os.path.join(ROOT, "build", "mesh_train")
 MESH_TRAIN_CKPTS_ON_DISK = 5
-#: the (2, 1) two-card run: steps, and the bf16 train rule's loss rtol
+#: the two-card runs ((2, 1) and (1, 2)): steps, and the bf16 train
+#: rule's loss rtol
 MESH_TRAIN_TWO_CARD_STEPS = 2
 MESH_TRAIN_TWO_CARD_RTOL = TRAIN_CPU_RULE["bfloat16"][0]
 
@@ -4759,8 +4772,8 @@ if {device!r} == "cuda":
 else:
     torch.set_num_threads(1)
 dist.init_process_group("nccl" if {device!r} == "cuda" else "gloo")
-out = T.train(mesh=make_host_mesh((2, 1), ("data", "model")), ckpt_dir=None,
-              device={device!r}, **{kw!r})
+out = T.train(mesh=make_host_mesh({shape!r}, ("data", "model")),
+              ckpt_dir=None, device={device!r}, **{kw!r})
 if dist.get_rank() == 0:
     with open({path!r}, "w") as f:
         json.dump(out, f)
@@ -4784,22 +4797,26 @@ class _RankView:
                                                 self.shape["model"])))
 
 
-def two_card_rows(batch: int) -> list:
-    """The global batch of a (2, 1) run as the spans its ranks draw
-    (``steps.batch_rows`` of each rank), rank 0's first."""
+def two_card_rows(batch: int, shape: tuple = (2, 1)) -> list:
+    """The global batch of a two-rank run on a mesh of ``shape`` as the
+    spans its ranks of distinct data index draw (``steps.batch_rows`` of
+    each), the first data index's first."""
     from repro_torch.launch import steps as ST
 
-    return [span for rank in range(2)
-            for span in ST.batch_rows(_RankView((2, 1), rank), batch)]
+    return [span for index in range(shape[0])
+            for span in ST.batch_rows(_RankView(shape, index * shape[1]),
+                                      batch)]
 
 
-def two_card_run(torch, run: dict, *, arch: str = RESILIENT_ARCH,
-                 smoke: bool = False, device: str = "cuda",
-                 out_dir: str = MESH_TRAIN_DIR) -> dict:
-    """Two steps of ``arch`` on a (2, 1) mesh of two ranks spawned by
-    torchrun (NCCL on two cards, gloo with ``device="cpu"``) against the
-    same steps on the 1 × 1 mesh of ``device``, on the global batch the
-    two ranks draw (the bf16 train rule on the losses)."""
+def two_card_run(torch, run: dict, *, shape: tuple = (2, 1),
+                 arch: str = RESILIENT_ARCH, smoke: bool = False,
+                 device: str = "cuda", out_dir: str = MESH_TRAIN_DIR) -> dict:
+    """Two steps of ``arch`` on a mesh of ``shape`` — (2, 1): each rank
+    half the rows; (1, 2): each rank every row on its half of the heads,
+    ``d_ff``, experts and vocabulary — of two ranks spawned by torchrun
+    (NCCL on two cards, gloo with ``device="cpu"``) against the same
+    steps on the 1 × 1 mesh of ``device``, on the global batch the two
+    ranks draw (the bf16 train rule on the losses)."""
     import json
 
     from repro_torch.configs.registry import get_config
@@ -4807,20 +4824,23 @@ def two_card_run(torch, run: dict, *, arch: str = RESILIENT_ARCH,
     from repro_torch.launch.mesh import single_device_mesh
 
     steps = MESH_TRAIN_TWO_CARD_STEPS
+    name = "x".join(map(str, shape))
     kw = dict(arch=arch, smoke=smoke, log_every=0,
               **dict(run, steps=steps, ckpt_every=steps))
-    path = os.path.join(out_dir, "two_card.json")
-    script = os.path.join(out_dir, "two_card_rank.py")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"two_card_{name}.json")
+    script = os.path.join(out_dir, f"two_card_{name}_rank.py")
     with open(script, "w") as f:
         f.write(_TWO_CARD_RANK.format(src=os.path.join(ROOT, "src"), kw=kw,
-                                      device=device, path=path))
+                                      shape=tuple(shape), device=device,
+                                      path=path))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
                         "--standalone", "--nproc-per-node", "2", script],
                        capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if r.returncode != 0:
-        raise RuntimeError(f"two-card run failed ({r.returncode}): "
+        raise RuntimeError(f"two-card {name} run failed ({r.returncode}): "
                            f"{r.stderr[-3000:]}")
     with open(path) as f:
         two = json.load(f)
@@ -4831,25 +4851,275 @@ def two_card_run(torch, run: dict, *, arch: str = RESILIENT_ARCH,
     _, (params, opt_state) = one.fresh_state()
     losses = []
     for i in range(steps):
-        batch = one.rows_at(i, two_card_rows(run["batch"]))
+        batch = one.rows_at(i, two_card_rows(run["batch"], shape))
         params, opt_state, m = one.step_fn(params, opt_state, batch)
         losses.append(float(m["loss"]))
     worst = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], losses))
     if worst > MESH_TRAIN_TWO_CARD_RTOL:
-        raise AssertionError(f"(2, 1) losses {two['losses']} against the "
-                             f"1 x 1 mesh's {losses}")
-    return {"losses_2x1": two["losses"], "losses_1x1": losses,
+        raise AssertionError(f"({shape[0]}, {shape[1]}) losses "
+                             f"{two['losses']} against the 1 x 1 mesh's "
+                             f"{losses}")
+    return {f"losses_{name}": two["losses"], "losses_1x1": losses,
             "loss_rel_gap": worst, "rule_rtol": MESH_TRAIN_TWO_CARD_RTOL,
-            "median_step_ms_2x1": two["median_step_s"] * 1e3,
+            f"median_step_ms_{name}": two["median_step_s"] * 1e3,
             "wall_s": wall}
+
+
+#: the split train step at full width and depth on the 1 × 1 mesh beside
+#: ``mesh=None``, in the same process: (arch, config overrides).
+#: llama3.2-1b's vocabulary-parallel CE at V 128256 (with the streamed
+#: MLP, so that B3 and B3′ run on the split path too), granite-moe's
+#: experts and the router's partial gradient, mamba2-1.3b's replicated
+#: mixer (B4, B4′), seamless-m4t-medium's per-layer gathers
+MESH_SPLIT_CONFIGS = (("llama3.2-1b", {"mlp_impl": "streamed"}),
+                      ("granite-moe-1b-a400m", {}),
+                      ("mamba2-1.3b", {}),
+                      ("seamless-m4t-medium", {}))
+#: rows, positions (the encoder–decoder's frames and targets each), steps
+MESH_SPLIT_ROWS, MESH_SPLIT_SEQ, MESH_SPLIT_STEPS = 4, 1024, 2
+#: B2′ and B3′ at one rank's shard of a ``model`` axis of 4: llama3.2-1b's
+#: train shape (B, Hq, Hkv, S, D) with its 32 / 8 heads cut to 8 / 2, and
+#: qwen2-0.5b's MLP (M, D, F) with ``d_ff`` 4864 cut to 1216
+MESH_SPLIT_B2_SHARD = ("llama3.2-1b.train.tp4", 4, 8, 2, 4096, 64)
+MESH_SPLIT_B3_SHARD = ("qwen2-0.5b.train.tp4", 4096, 896, 1216)
+
+
+def _train_kernels() -> dict:
+    """The modules of the kernels a train path launches, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mamba2_ssd as ms
+
+    return {"flash_attention": fa, "mamba2_ssd": ms, "fused_mlp": fm}
+
+
+def _reset_path_counts() -> None:
+    for mod in _train_kernels().values():
+        mod.reset_counts()
+
+
+def _read_path_counts(path: str, need: set) -> dict:
+    """Each kernel's forward and backward launches since the last
+    ``_reset_path_counts``; fails if a kernel named in ``need`` never
+    launched, either way, or any plain version ran on a CUDA tensor."""
+    out = {}
+    for name, mod in _train_kernels().items():
+        if mod.plain_cuda_calls or mod.bwd_plain_cuda_calls:
+            raise AssertionError(f"{name}'s plain versions ran on a CUDA "
+                                 f"tensor on the {path} path")
+        if name in need and (mod.launches < 1 or mod.bwd_launches < 1):
+            raise AssertionError(f"the {path} path launched {name} "
+                                 f"{mod.launches} and its backward "
+                                 f"{mod.bwd_launches} time(s)")
+        out[name], out[name + "_bwd"] = mod.launches, mod.bwd_launches
+    return out
+
+
+def _split_batch(torch, cfg, step: int, rows: int, seq: int,
+                 device: str) -> dict:
+    """Step ``step``'s batch of ``rows`` × ``seq`` positions, drawn on
+    ``device`` from one seed (frames for the encoder–decoder)."""
+    gen = torch.Generator(device=device).manual_seed(1000 + step)
+    shape = (rows, seq)
+    b = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 device=device, dtype=torch.int32),
+         "labels": torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 device=device, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        b["frames"] = torch.randn(shape + (cfg.d_model,), generator=gen,
+                                  device=device).to(cfg.param_dtype)
+    return b
+
+
+def mesh_split_step(torch, arch: str, kw: dict, mesh, *,
+                    smoke: bool = False, device: str = "cuda",
+                    rows: int = MESH_SPLIT_ROWS,
+                    seq: int = MESH_SPLIT_SEQ) -> dict:
+    """``arch`` (at full width and depth unless ``smoke``):
+    ``MESH_SPLIT_STEPS`` steps of the split train step on the 1 × 1 mesh,
+    then of ``make_train_step`` with ``mesh=None``, from the same seeded
+    params on the same batches — the losses and every leaf of the params
+    and moments after them bit for bit; each path's kernel launches
+    (counts zeroed before it, read right after it; on the card), peak GB,
+    and a warm step of each in turns (none, mesh, mesh, none)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten_with_path as flatten
+    from repro_torch.tree import tree_map
+
+    card = device == "cuda"
+    cfg = get_config(arch, smoke=smoke).with_(**kw)
+    need = {"flash_attention"} if cfg.family != "ssm" else set()
+    if cfg.family == "ssm":
+        need.add("mamba2_ssd")
+    if cfg.mlp_impl == "streamed":
+        need.add("fused_mlp")
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    params = ST.model_init(torch.Generator(device=device).manual_seed(0),
+                           cfg)
+    p_shard = shd.make_param_shardings(mesh, params, cfg)
+    opt = adamw.init(params, opt_cfg)
+    state = {
+        "mesh": (shd.distribute_tree(tree_map(torch.clone, params), p_shard),
+                 shd.distribute_tree(
+                     adamw.init(params, opt_cfg),
+                     shd.make_opt_shardings(mesh, opt, p_shard))),
+        "none": (params, opt)}
+    del params, opt
+    fns = {"mesh": ST.make_sharded_train_step(
+               cfg, opt_cfg, mesh, global_batch=rows),
+           "none": ST.make_train_step(cfg, opt_cfg)}
+    batches = [_split_batch(torch, cfg, i, rows, seq, device)
+               for i in range(MESH_SPLIT_STEPS)]
+    losses, launches, peak_gb = {}, {}, {}
+    for name in ("mesh", "none"):
+        if card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_path_counts()      # counts: zero before this path
+        p, o = state.pop(name)      # the steps free what they replace
+        losses[name] = []
+        for b in batches:
+            p, o, m = fns[name](p, o, b)
+            losses[name].append(float(m["loss"]))
+        if card:
+            launches[name] = _read_path_counts(              # read after
+                f"{arch} split-step {name}", need)
+            peak_gb[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        state[name] = (p, o)
+    flat_m = flatten({"params": state["mesh"][0], "opt": state["mesh"][1]})
+    flat_n = flatten({"params": state["none"][0], "opt": state["none"][1]})
+    differ = [p for (p, a), (q, b) in zip(flat_m, flat_n)
+              if p != q or not torch.equal(a.full_tensor(), b)]
+    if losses["mesh"] != losses["none"] or differ or not all(
+            math.isfinite(x) for x in losses["mesh"]):
+        raise AssertionError(f"{arch}: the 1 x 1 split step against "
+                             f"mesh=None: losses {losses}, leaves that "
+                             f"differ {differ[:5]}")
+    del flat_m, flat_n
+
+    def once_ms(name):
+        if card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[name](*state[name], batches[0])
+        if card:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    turns = {"none": [], "mesh": []}
+    for name in ("none", "mesh", "mesh", "none"):
+        turns[name].append(once_ms(name))
+    del state, batches
+    if card:
+        torch.cuda.empty_cache()
+    return {"arch": arch, "overrides": kw, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "rows": rows, "seq": seq,
+            "steps": MESH_SPLIT_STEPS, "losses": losses["mesh"],
+            "mesh_equals_none_bit_for_bit": True,
+            "launches": launches, "peak_mem_gb": peak_gb,
+            "step_ms_in_turns": turns}
+
+
+def bwd_on_a_shard(torch) -> dict:
+    """B2′ and B3′ as a rank of ``model`` = 4 calls them in training
+    (``MESH_SPLIT_B2_SHARD``, ``MESH_SPLIT_B3_SHARD``), bf16, each against
+    its plain version by the bf16 rules of ``attn_bwd_check`` and
+    ``mlp_bwd_check``, each timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    name, b, hq, hkv, s, d = MESH_SPLIT_B2_SHARD
+    bf = torch.bfloat16
+    q = (torch.randn(b * hq, s, d, generator=gen) * d ** -0.5).to(bf).cuda()
+    k, v = (torch.randn(b * hkv, s, d, generator=gen).to(bf).cuda()
+            for _ in range(2))
+    dout = torch.randn(b * hq, s, d, generator=gen).to(bf).cuda()
+    kw = dict(heads_q=hq, heads_kv=hkv, causal=True, q_offset=0)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    bkw = dict(kw, scale=d ** -0.5)
+    run = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,  # noqa
+                                         **bkw)
+    got = run()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **bkw)
+    err = max(_grad_close(g_, w_, "bfloat16", f"{name} {nm}")
+              for g_, w_, nm in zip(got, want, ("dq", "dk", "dv")))
+    b2 = {"shape": name, "q": [b, hq, s, d], "kv": [b, hkv, s, d],
+          "route": fa.bwd_plan(q, k, v, dout, heads_q=hq,
+                               heads_kv=hkv).route,
+          "max_abs_err": err,
+          "row_need": {nm: _row_need(g_, w_) for g_, w_, nm in
+                       zip(got, want, ("dq", "dk", "dv"))},
+          "ms": time_ms(run, warmup=1, reps=5)}
+    del q, k, v, dout, out, lse, got, want
+    name, m, d, f = MESH_SPLIT_B3_SHARD
+    inputs = (torch.randn(m, d, generator=gen).to(bf).cuda(),
+              (torch.randn(d, f, generator=gen) * d ** -0.5).to(bf).cuda(),
+              (torch.randn(d, f, generator=gen) * d ** -0.5).to(bf).cuda(),
+              (torch.randn(f, d, generator=gen) * f ** -0.5).to(bf).cuda(),
+              torch.randn(m, d, generator=gen).to(bf).cuda())
+    run = lambda: fm.fused_mlp_bwd(*inputs, act="silu")  # noqa: E731
+    got = run()
+    want = fm.fused_mlp_bwd_plain(*inputs, act="silu")
+    b3 = {"shape": name, "m": m, "d": d, "f_shard": f,
+          "route": fm.bwd_plan(*inputs).route,
+          **_mlp_bwd_close(got, want, "bfloat16", name),
+          "ms": time_ms(run, warmup=1, reps=5)}
+    del inputs, got, want
+    torch.cuda.empty_cache()
+    return {"b2_bwd": b2, "b3_bwd": b3}
+
+
+def _superblock_gathers_ms(torch, cfg, mesh, params, timed) -> dict:
+    """The split step's gathers along the data axes, timed on DTensor
+    ``params``: every superblock's leaves in turn (each freed before the
+    next, as the step frees them) and the leaves outside the blocks."""
+    from repro_torch.distributed import ctx, tp
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    plan = ST.param_gather(mesh, params)
+    local = tree_map(lambda t: t.to_local(), params)
+    nsb = lm.num_superblocks(cfg)
+    layers = lm._unbind_layers(local["blocks"], nsb)
+
+    def superblocks():
+        with ctx.gathering_params(plan):
+            for layer in layers:
+                tp.gather_data(layer, ("blocks",), layer=True)
+
+    def outside():
+        with ctx.gathering_params(plan):
+            for name, t in local.items():
+                if name != "blocks":
+                    tp.gather_data(t, (name,))
+
+    whole = timed(superblocks)
+    return {"superblocks": nsb, "all_superblocks_ms": whole,
+            "per_superblock_ms": whole / nsb,
+            "outside_blocks_ms": timed(outside)}
 
 
 def mesh_train(torch, read) -> dict:
     """qwen2-0.5b trained through ``launch.train.train`` on the 1 × 1 mesh
     and with ``mesh=None`` (each crashed at step 6, restarted from step
     4): bit-equal losses, checkpoints restoring across bit for bit, the
-    costs of the mesh layer.  ``read()`` returns the path's launch counts:
-    it is called after the mesh run, before anything else runs."""
+    costs of the mesh layer (the per-superblock gathers, AdamW on
+    DTensors, whole steps in turns).  Then the split step of
+    ``MESH_SPLIT_CONFIGS`` at full width and depth beside ``mesh=None``
+    (``mesh_split_step``: bits, launches, peaks, steps in turns), and B2′
+    and B3′ at a ``model`` = 4 shard's shapes (``bwd_on_a_shard``).  With
+    two cards or more also the (2, 1) and (1, 2) runs under torchrun.
+    ``read()`` returns the qwen2 path's launch counts: it is called after
+    the mesh run, before anything else runs; the launches returned add
+    the split steps' mesh paths'."""
     import shutil
 
     import torch.distributed as dist
@@ -4861,7 +5131,6 @@ def mesh_train(torch, read) -> dict:
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_flatten_with_path as flatten
-    from repro_torch.tree import tree_map
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4933,7 +5202,7 @@ def mesh_train(torch, read) -> dict:
 
         p_mesh, o_mesh = onto_mesh["params"], onto_mesh["opt"]
         p_none, o_none = onto_none["params"], onto_none["opt"]
-        gather_ms = timed(lambda: tree_map(lambda t: t.full_tensor(), p_mesh))
+        gather_ms = _superblock_gathers_ms(torch, cfg, mesh, p_mesh, timed)
         opt_ms = {
             "dtensor": timed(lambda: adamw.apply(p_mesh, o_mesh.mu, o_mesh,
                                                  hand.opt_cfg)),
@@ -4963,9 +5232,20 @@ def mesh_train(torch, read) -> dict:
         del onto_mesh, flat_mesh, p_mesh, o_mesh
         torch.cuda.empty_cache()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # the split step of four configs at full width and depth, each
+        # path's launches read right after it (the main path's counts)
+        split = [mesh_split_step(torch, arch, kw, mesh)
+                 for arch, kw in MESH_SPLIT_CONFIGS]
+        for row in split:
+            for name, n in row["launches"]["mesh"].items():
+                launches[name] = launches.get(name, 0) + n
+        shard = bwd_on_a_shard(torch)
         count = torch.cuda.device_count()
-        two_card = two_card_run(torch, run) if count >= 2 else \
-            f"not run: this machine has {count} card"
+        two_card = {
+            "x".join(map(str, shape)): two_card_run(torch, run, shape=shape)
+            if count >= 2 else f"not run: this machine has {count} card"
+            for shape in ((2, 1), (1, 2))}
     finally:
         shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
         if dist.is_initialized():
@@ -4985,13 +5265,14 @@ def mesh_train(torch, read) -> dict:
         "tokens_per_s": {k: run["batch"] * run["seq"] / v["median_step_s"]
                          for k, v in out.items()},
         "step_ms_in_turns": turns,
-        "gather_params_ms": gather_ms, "adamw_ms": opt_ms,
+        "superblock_gathers_ms": gather_ms, "adamw_ms": opt_ms,
         "checkpoint_gb": gb, "free_disk_gb": free / 1e9,
         "save_snapshot_s": snapshot_s, "save_write_s": write_s,
         "restore_s": restore_s,
         "stragglers_flagged": {k: v["straggler_flags"]
                                for k, v in out.items()},
         "run_wall_s": walls, "peak_mem_gb": peak_gb,
+        "split_steps": split, "bwd_on_a_shard": shard,
         "launches": launches, "two_card": two_card,
     }
 
@@ -5446,6 +5727,10 @@ def main(argv=None) -> int:
                                             "mesh train")})
         fa_launches += meshed["launches"]["flash_attention"]
         bwd_totals["attn"] += meshed["launches"]["flash_attention_bwd"]
+        ms_launches += meshed["launches"]["mamba2_ssd"]
+        bwd_totals["ssd"] += meshed["launches"]["mamba2_ssd_bwd"]
+        fm_launches += meshed["launches"]["fused_mlp"]
+        bwd_totals["mlp"] += meshed["launches"]["fused_mlp_bwd"]
         emit_phase("mesh_train", meshed)
     fa.reset_counts()                  # counts: zero before the mesh server
     if "mesh_serve" in phases:

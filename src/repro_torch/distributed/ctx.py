@@ -12,10 +12,17 @@ rank's own rows, so a layer that mixes rows — the MoE layer's capacity
 and buffer positions, reckoned over the whole batch in the reference —
 reads it to see the global batch (``models/moe.py``).
 
-A mesh server also installs its :class:`ModelSplit`: the ``model`` axis
-along which the layers split heads, ``d_ff``, experts and the vocabulary
-(``distributed/tp.py``).  With no split installed every rank holds every
-column, and the layers run as on one device.
+A mesh server and the mesh train step also install their
+:class:`ModelSplit`: the ``model`` axis along which the layers split
+heads, ``d_ff``, experts and the vocabulary (``distributed/tp.py``).
+With no split installed every rank holds every column, and the layers
+run as on one device.
+
+The mesh train step installs its :class:`ParamGather` too: which leaves
+of the params it hands the model are this rank's block along the data
+axes, and along which dimension.  The model gathers a superblock's
+leaves when it runs (``tp.gather_data``).  With none installed every
+leaf is whole along those axes.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 _HOOK: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None
 _ROWS: Optional["RowSplit"] = None
 _MODEL: Optional["ModelSplit"] = None
+_GATHER: Optional["ParamGather"] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +64,20 @@ class ModelSplit:
     index: int
     count: int
     kv_seq: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamGather:
+    """The params of a mesh train step as this rank holds them along the
+    data axes (``pod`` × ``data``): ``dims`` maps a leaf's path in the
+    params tree (a tuple of keys) to the dimension that those axes shard
+    — in the leaf's stacked layout — over ``group``, ``count`` ranks
+    whose group rank is the block index; a leaf not in it is whole along
+    them."""
+
+    group: Any
+    count: int
+    dims: dict
 
 
 def shard_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -108,3 +130,20 @@ def model_shards(split: Optional[ModelSplit]):
         yield
     finally:
         _MODEL = prev
+
+
+def param_gather() -> Optional[ParamGather]:
+    """The plan installed by :func:`gathering_params`, or ``None``: every
+    leaf the model sees is whole along the data axes."""
+    return _GATHER
+
+
+@contextlib.contextmanager
+def gathering_params(plan: Optional[ParamGather]):
+    global _GATHER
+    prev = _GATHER
+    _GATHER = plan
+    try:
+        yield
+    finally:
+        _GATHER = prev

@@ -1,21 +1,32 @@
-"""Tensor-parallel serving along a mesh's ``model`` axis: the parameters
-and caches as a rank computes with them, and the forward's collectives.
+"""Tensor parallelism along a mesh's ``model`` axis, for serving and
+training: the parameters and caches as a rank computes with them, and
+the collectives that join the ranks' shards, each differentiable.
 
 The reference's ``jit`` lets GSPMD split the compute along the
-placements of ``make_param_shardings``.  The port splits it by hand:
-:func:`local_shards` gathers each DTensor leaf along the data axes only,
-so that a rank holds its ``model`` shard — heads, ``d_ff`` columns,
-experts, vocabulary rows — as a plain tensor, and the layers compute on
-it, joined by three collectives over the ``model`` group of the
-installed ``ctx.ModelSplit``:
+placements of ``make_param_shardings``.  The port splits it by hand.  A
+rank holds its ``model`` shard of each leaf — heads, ``d_ff`` columns,
+experts, vocabulary rows — as a plain tensor: the mesh server gathers
+every leaf along the data axes at once (:func:`local_shards`), the mesh
+train step one superblock at a time where the model uses it
+(:func:`gather_data`: the superblock's leaves packed into one buffer,
+one all-gather, and in the backward one reduce-scatter).  The layers
+compute on the shards, joined over the ``model`` group of the installed
+``ctx.ModelSplit`` by:
 
+* :func:`enter` — in front of a column-parallel product (``wq`` / ``wk``
+  / ``wv``, ``wu`` / ``wg``, the experts, the vocabulary-parallel head):
+  the identity, whose backward sums the rank's partial input gradient;
 * :func:`sum_partial` — the sum of row-parallel partial outputs (the
-  ``wo`` and ``wd`` products, the experts' combine, the embedding rows);
+  ``wo`` and ``wd`` products, the experts' combine, the embedding rows,
+  the chunked CE's sums), whose backward passes the gradient on;
 * :func:`gather` — a tensor split along ``model`` made whole (the
   vocabulary shards of the logits; the leaves of a layer every rank
-  computes whole);
+  computes whole), whose backward keeps this rank's block;
+* :func:`max_over` — the group's maximum (the chunked CE's softmax
+  shift; no gradient);
 * :func:`combine_softmax` — the (max, sum, out) triples of a softmax
-  taken in blocks of positions, one block a rank.
+  taken in blocks of positions, one block a rank (decode only: it
+  refuses a gradient).
 
 Which leaves lie on ``model`` is the rules' decision, and
 :func:`split_along` makes it again from a dimension's global extent:
@@ -26,6 +37,7 @@ over a group of one and leaves the values as they are.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -33,6 +45,10 @@ import torch.distributed as dist
 
 from . import ctx
 from .ctx import ModelSplit, RowSplit
+
+#: the data-axes gather's bytes alive now and the most alive at once
+#: since :func:`reset_gathered`
+_GATHERED = {"live": 0, "peak": 0}
 
 #: cache leaves whose dimension 3 is positions (k / v: (L, B, Hkv, S, hd))
 KV_LEAVES = ("k", "v", "ck", "cv")
@@ -181,27 +197,106 @@ def cache_from_prefill(prefill: Any, shapes: Any, shardings: Any,
 # ---------------------------------------------------------------------------
 
 
+def _all_reduce_f32(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` in f32 (a copy; ``t`` is left as it
+    is) and rounded once to its dtype."""
+    acc = t.to(torch.float32, copy=True)
+    dist.all_reduce(acc, group=group)
+    return acc.to(t.dtype)
+
+
+def _all_gather_cat(t: torch.Tensor, dim: int, group,
+                    size: int) -> torch.Tensor:
+    """The blocks ``t`` of the ``size`` ranks of ``group``, in rank order,
+    joined along ``dim``."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _SumPartial(torch.autograd.Function):
+    """Forward: the f32 sum over the group.  Backward: the gradient as it
+    is — every rank holds the whole gradient of the sum, which is each
+    partial's."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce_f32(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity.  Backward: the f32 sum over the group of
+    each rank's partial gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the blocks along ``dim`` over the group, joined.
+    Backward: this rank's block of the gradient — every rank computes
+    with the whole tensor, so each holds its whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return _all_gather_cat(t, dim, split.group, split.count)
+
+    @staticmethod
+    def backward(ctx, g):
+        return own_block(g, ctx.dim, ctx.split), None, None
+
+
 def sum_partial(t: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
     """The sum over ``split``'s group of each rank's partial ``t``, taken
-    in f32 and rounded once to ``t``'s dtype (an f32 ``t`` is summed in
-    place); ``t`` itself with no split."""
+    in f32 and rounded once to ``t``'s dtype; ``t`` itself with no split.
+    Its gradient is the output's, passed to every partial."""
     if split is None:
         return t
-    acc = t.float()
-    dist.all_reduce(acc, group=split.group)
-    return acc.to(t.dtype)
+    return _SumPartial.apply(t, split.group)
+
+
+def enter(x: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
+    """``x`` entering a column-parallel product over ``split``: the
+    identity, whose gradient is the sum over the group of each rank's
+    partial (a rank's columns give only their share of ``x``'s
+    gradient); ``x`` itself with no split.  Only where ``x``'s gradient
+    would be a partial: in front of a branch that every rank computes
+    whole it would count that gradient ``count`` times."""
+    if split is None:
+        return x
+    return _Enter.apply(x, split.group)
 
 
 def gather(t: torch.Tensor, dim: int,
            split: Optional[ModelSplit]) -> torch.Tensor:
     """``t``'s blocks along ``dim`` over ``split``'s group, in rank
-    order, joined; ``t`` itself with no split."""
+    order, joined; ``t`` itself with no split.  Its gradient is this
+    rank's block of the output's."""
     if split is None:
         return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(split.count)]
-    dist.all_gather(parts, t, group=split.group)
-    return torch.cat(parts, dim=dim)
+    return _Gather.apply(t, dim, split)
+
+
+def max_over(t: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``split``'s group (no
+    gradient); ``t`` itself with no split."""
+    if split is None:
+        return t
+    top = t.detach().clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=split.group)
+    return top
 
 
 def own_block(t: torch.Tensor, dim: int,
@@ -220,35 +315,153 @@ def combine_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
     sum ``l`` (...) of ``exp(s − m)`` and unnormalised ``o`` (..., D),
     all f32, rescaled to the group's max and summed → (..., D) f32.  A
     rank that saw no position holds ``m`` = -1e30, ``l`` = 0, ``o`` = 0
-    and adds nothing."""
-    top = m.clone()
-    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=split.group)
+    and adds nothing.  Decode only: under autograd it raises rather than
+    give a gradient it does not compute."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (m, l, o)):
+        raise RuntimeError("combine_softmax has no backward: it combines "
+                           "a decode step's blocks of positions")
+    top = max_over(m, split)
     scale = torch.exp(m - top)
     l = sum_partial(l * scale, split)
     o = sum_partial(o * scale[..., None], split)
     return o / l[..., None]
 
 
-def vocab_embed(table: torch.Tensor, ids: torch.Tensor,
-                split: ModelSplit) -> torch.Tensor:
+def vocab_embed(table: torch.Tensor, ids: torch.Tensor, split: ModelSplit,
+                lookup) -> torch.Tensor:
     """Rows ``ids`` of a vocabulary-parallel embedding: this rank holds
-    rows ``[index·n, (index+1)·n)`` of the table (``table``, n rows);
-    ids outside them give zeros, and the rows are summed over the
-    group."""
+    rows ``[index·n, (index+1)·n)`` of the table (``table``, n rows),
+    read through ``lookup``; ids outside them give zeros, and the rows are
+    summed over the group.  The table's gradient is this rank's rows."""
     n = table.shape[0]
     local = ids - split.index * n
     inside = (local >= 0) & (local < n)
-    rows = table[local.clamp(0, n - 1)]
+    rows = lookup(table, local.clamp(0, n - 1))
     return sum_partial(torch.where(inside[..., None], rows,
                                    rows.new_zeros(())), split)
+
+
+# ---------------------------------------------------------------------------
+# the params along the data axes (the mesh train step)
+# ---------------------------------------------------------------------------
+
+
+#: a leaf's bytes in the data-axes gather's buffer start at a multiple of
+#: this, so that each is a view of its dtype there
+_ALIGN = 16
+
+
+class _DataGather(torch.autograd.Function):
+    """Forward: each leaf's blocks along its dimension over the data
+    axes' group, joined — the leaves packed as bytes into one buffer, one
+    all-gather for them all, each leaf counted live until it is freed.
+    Backward: one reduce-scatter, in f32, of all the leaves' whole
+    gradients — each rank's rows' gradients summed over the group, this
+    rank's blocks kept."""
+
+    @staticmethod
+    def forward(ctx, dims, group, count, *leaves):
+        ctx.dims, ctx.group, ctx.count = dims, group, count
+        ctx.shapes = [t.shape for t in leaves]
+        ctx.dtypes = [t.dtype for t in leaves]
+        sizes = [t.numel() * t.element_size() for t in leaves]
+        starts = _starts(sizes, _ALIGN)
+        buf = leaves[0].new_empty(starts[-1], dtype=torch.uint8)
+        for t, o, n in zip(leaves, starts, sizes):
+            buf[o:o + n].copy_(t.contiguous().view(-1).view(torch.uint8))
+        whole = buf.new_empty(count, starts[-1])
+        dist.all_gather_into_tensor(whole.view(-1), buf, group=group)
+        out = []
+        for t, d, o, n in zip(leaves, dims, starts, sizes):
+            x = whole[:, o:o + n].view(t.dtype).view(count, *t.shape)
+            x = x.movedim(0, d).reshape(_joined(t.shape, d, count))
+            _count_live(x)
+            out.append(x)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        count = ctx.count
+        sizes = [s.numel() for s in ctx.shapes]
+        starts = _starts(sizes, 1)
+        buf = grads[0].new_empty(count, starts[-1], dtype=torch.float32)
+        for g, shape, d, o, n in zip(grads, ctx.shapes, ctx.dims, starts,
+                                     sizes):
+            buf[:, o:o + n].view(count, *shape).copy_(
+                g.unflatten(d, (count, shape[d])).movedim(d, 0))
+        mine = buf.new_empty(starts[-1])
+        dist.reduce_scatter_tensor(mine, buf.view(-1), group=ctx.group)
+        return (None, None, None) + tuple(
+            mine[o:o + n].view(shape).to(dtype)
+            for shape, dtype, o, n in zip(ctx.shapes, ctx.dtypes, starts,
+                                          sizes))
+
+
+def _starts(sizes: list, align: int) -> list:
+    """Where each of ``sizes`` starts in a buffer that packs them, each
+    start a multiple of ``align``; the buffer's size last."""
+    out = [0]
+    for n in sizes:
+        out.append(out[-1] + -(-n // align) * align)
+    return out
+
+
+def _joined(shape: torch.Size, dim: int, count: int) -> tuple:
+    return tuple(n * count if i == dim else n for i, n in enumerate(shape))
+
+
+def _count_live(t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
+    _GATHERED["live"] += n
+    _GATHERED["peak"] = max(_GATHERED["peak"], _GATHERED["live"])
+    weakref.finalize(t, _release, n)
+
+
+def _release(n: int) -> None:
+    _GATHERED["live"] -= n
+
+
+def gathered_bytes() -> dict:
+    """``{"live", "peak"}``: the bytes of the data-axes gather's outputs
+    alive now, and the most alive at once since :func:`reset_gathered`
+    (a tensor counts until it is freed, whoever holds it: a layer, or
+    autograd for the backward)."""
+    return dict(_GATHERED)
+
+
+def reset_gathered() -> None:
+    """Start the peak of :func:`gathered_bytes` from what is alive now."""
+    _GATHERED["peak"] = _GATHERED["live"]
+
+
+def gather_data(tree: Any, path: tuple, *, layer: bool = False) -> Any:
+    """``tree`` — the params' subtree at ``path``, or the leaf there —
+    with each leaf that the installed ``ctx.ParamGather`` names gathered
+    along the data axes, all in one collective (differentiable: their
+    gradients are reduce-scattered back to this rank's blocks, again in
+    one); ``tree`` itself with none installed.  ``layer``: the leaves are
+    one layer of stacked leaves (the layer axis taken off, so each
+    dimension is one less)."""
+    plan = ctx.param_gather()
+    if plan is None:
+        return tree
+    from .sharding import _leaves_with_path, _map_with_path
+
+    picked = [(keys, t, plan.dims[path + keys] - int(layer))
+              for keys, t in _leaves_with_path(tree)
+              if path + keys in plan.dims]
+    if not picked:
+        return tree
+    keys, leaves, dims = zip(*picked)
+    whole = dict(zip(keys, _DataGather.apply(dims, plan.group, plan.count,
+                                             *leaves)))
+    return _map_with_path(lambda k, t: whole.get(k, t), tree)
 
 
 def gather_rows(t: torch.Tensor, split: RowSplit) -> torch.Tensor:
     """A batch-major ``t`` of this rank's rows made the global batch's:
     the blocks of ``split``'s group in rank order, the first
     ``split.count`` of them (one, when every rank holds every row)."""
-    t = t.contiguous()
-    size = dist.get_world_size(split.group)
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t, group=split.group)
-    return torch.cat(parts[:split.count], dim=0)
+    whole = _all_gather_cat(t, 0, split.group,
+                            dist.get_world_size(split.group))
+    return whole[:split.count * t.shape[0]]

@@ -7,15 +7,19 @@ so the launchers stay family-agnostic:
   ``prefill_step(params, batch)             -> (logits, caches)``
   ``decode_step(params, cache, token, pos)  -> (logits, cache)``
 
-The serve steps take ``mesh=``: on a device mesh each rank computes its
-rows of the global batch on its shard of ``model`` (heads, ``d_ff``,
-experts, vocabulary; ``distributed/tp.py``) and the logits come back
-whole.  The train step is the reference's: loss, its gradient, gradient
+The train step is the reference's: loss, its gradient, gradient
 accumulation over microbatches, then the AdamW update.  It trains every
 family: dense (dense, vlm, audio), MoE, SSM (the SSD's gradient through
 its backward kernel), the hybrid (Jamba's superblock of all three) and
 the encoder–decoder (``encdec.encdec_loss``), with ``mlp_impl`` dense or
 streamed (the fused MLP's gradient through its backward kernel).
+
+On a device mesh each rank computes its rows of the global batch on its
+shard of ``model`` (heads, ``d_ff``, experts, vocabulary;
+``distributed/tp.py``): the serve steps (``mesh=``), whose logits come
+back whole, and :func:`make_sharded_train_step`, backward included,
+which gathers the params along the data axes one superblock at a time
+and hands each rank the gradient of its own shards.
 """
 from __future__ import annotations
 
@@ -91,14 +95,16 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
 
 def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
     """(loss, grads): the loss of ``batch`` and its gradient for every
-    parameter leaf, in the leaf's dtype."""
+    parameter leaf, in the leaf's dtype, contiguous — a tied embedding's
+    comes out of autograd transposed, a reduce-scattered one not, and the
+    global norm sums a leaf in the order of its layout."""
     with torch.enable_grad():
         live = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
         loss = model_loss(live, cfg, batch)
         leaves = adamw.tree_leaves(live)
         grads = torch.autograd.grad(loss, leaves)
-    flat = iter(grads)
+    flat = iter(g.contiguous() for g in grads)
     return loss.detach(), _rebuild(live, flat)
 
 
@@ -212,6 +218,48 @@ def local_batch(mesh, batch: dict, grad_accum: int = 1) -> dict:
     return {name: rows(name, x) for name, x in batch.items()}
 
 
+def param_gather(mesh, params):
+    """The ``ctx.ParamGather`` of DTensor ``params`` on ``mesh``: each
+    leaf's dimension that the data axes (``pod`` × ``data``) shard, by
+    its placements."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import ctx, sharding as shd
+
+    dp = shd.dp_axes(mesh)
+    axes = [mesh.axis_names.index(a)
+            for a in ((dp,) if isinstance(dp, str) else dp)]
+    dims = {}
+    for keys, p in shd._leaves_with_path(params):
+        on = [p.placements[i] for i in axes]
+        split = {q.dim for q in on if isinstance(q, Shard)}
+        if not split:
+            continue
+        if len(split) > 1 or not all(isinstance(q, Shard) for q in on):
+            raise ValueError(f"{'/'.join(keys)}: placements "
+                             f"{p.placements} split the data axes apart")
+        dims[keys] = split.pop()
+    return ctx.ParamGather(mesh.get_group(dp), shd.axis_size(mesh, dp), dims)
+
+
+def _model_split(mesh, kv_seq: bool = False):
+    from repro_torch.distributed import ctx
+
+    return ctx.ModelSplit(mesh.get_group("model"), mesh.coordinate()["model"],
+                          mesh.shape["model"], kv_seq)
+
+
+def _whole_scalar(v):
+    """A metric of ``adamw.apply`` on DTensors as a plain tensor: its
+    value made whole on every rank (a 0-d tensor)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(v, DTensor):
+        return v
+    return v.redistribute(v.device_mesh,
+                          [Replicate()] * v.device_mesh.ndim).to_local()
+
+
 def make_sharded_train_step(
     cfg: ModelConfig,
     opt_cfg: adamw.AdamWConfig,
@@ -226,19 +274,30 @@ def make_sharded_train_step(
     (:func:`batch_rows`; :func:`local_batch` cuts them from a global
     batch).
 
-    Storage is sharded, compute is local: the params are gathered to
-    full tensors, the loss and its gradient run as in
-    :func:`make_train_step` on this rank's rows — plain tensors, so the
-    hand-written kernels see no DTensor — the gradients and the loss are
-    averaged over the data axes (a sum, then a division by the number of
-    row blocks; nothing when the batch replicates), each gradient is cut
-    to its parameter's placements, and ``adamw.apply`` runs on the
-    DTensors, its global norm and the int8 moments' absmax reduced across
-    the mesh.  Compute along ``model`` is replicated.  On a 1 × 1 mesh
-    every collective is the identity and the step gives
-    :func:`make_train_step`'s bits."""
+    A rank computes on its own shards.  The loss and its gradient run as
+    in :func:`make_train_step` on this rank's rows, on each leaf's local
+    tensor — plain tensors, so the hand-written kernels see no DTensor —
+    with a ``ctx.ModelSplit`` installed: heads, ``d_ff`` columns, experts
+    and the vocabulary (a vocabulary-parallel chunked CE) split along
+    ``model``, backward included, through the autograd-aware collectives
+    of ``distributed/tp.py``.  A ``ctx.ParamGather`` names the leaves the
+    data axes shard: the model gathers each where it uses it — a
+    superblock's (an encoder–decoder layer's) inside its checkpointed
+    function, so that under ``cfg.remat`` a rank holds one superblock's
+    gathered leaves at a time (without remat autograd keeps them all for
+    the backward) — and their backward reduce-scatters each gradient to
+    this rank's block, summed over the data axes.  That sum is divided by
+    the data axes' size: the number of row blocks, or where the batch
+    replicates, the number of identical copies summed.  A leaf the data
+    axes do not shard has this rank's rows' gradient, averaged over the
+    row blocks by an all-reduce (nothing when the batch replicates).  The
+    gradients become DTensors with their params' placements as they are,
+    and ``adamw.apply`` runs on the DTensors, its global norm and the
+    int8 moments' absmax reduced across the mesh.  No leaf is ever made
+    whole.  On a 1 × 1 mesh every collective is the identity and the
+    step gives :func:`make_train_step`'s bits."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import ctx, sharding as shd
 
@@ -246,6 +305,7 @@ def make_sharded_train_step(
         raise ValueError(f"grad_accum {grad_accum} < 1")
     split = _row_split(mesh, global_batch, grad_accum)
     group, count, rows = split.group, split.count, split.rows * grad_accum
+    msplit = _model_split(mesh)
     hook = shd.activation_hook(mesh, cfg)
 
     def mean_over_rows(t):
@@ -260,18 +320,28 @@ def make_sharded_train_step(
                 raise ValueError(f"{name}: {x.shape[SPLIT_AXIS.get(name, 0)]}"
                                  f" rows, this rank of {mesh!r} computes "
                                  f"{rows} of {global_batch}")
-        full = adamw.tree_map(lambda p: p.full_tensor(), params)
-        with ctx.data_rows(split), ctx.activation_sharding(hook):
-            loss, grads = _loss_and_grads(cfg, full, batch, grad_accum)
-        del full
-        grads = adamw.tree_map(
-            lambda g, p: distribute_tensor(mean_over_rows(g), p.device_mesh,
-                                           p.placements, src_data_rank=None),
-            grads, params)
+        plan = param_gather(mesh, params)
+        local = adamw.tree_map(lambda p: p.to_local(), params)
+        with ctx.data_rows(split), ctx.model_shards(msplit), \
+                ctx.gathering_params(plan), ctx.activation_sharding(hook):
+            loss, grads = _loss_and_grads(cfg, local, batch, grad_accum)
+        del local
+
+        def own(keys, g, p):
+            if keys in plan.dims:
+                g.div_(plan.count)
+            else:
+                mean_over_rows(g)
+            return DTensor.from_local(g, p.device_mesh, p.placements,
+                                      run_check=False, shape=p.shape,
+                                      stride=p.stride())
+
+        by_path = dict(shd._leaves_with_path(params))
+        grads = shd._map_with_path(lambda keys, g: own(keys, g, by_path[keys]),
+                                   grads)
         params, opt_state, metrics = adamw.apply(params, grads, opt_state,
                                                  opt_cfg)
-        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
-                   for k, v in metrics.items()}
+        metrics = {k: _whole_scalar(v) for k, v in metrics.items()}
         metrics["loss"] = mean_over_rows(loss.clone())
         return params, opt_state, metrics
 
@@ -295,9 +365,7 @@ def _serving_on(mesh, cfg: ModelConfig, global_batch: int, *,
     from repro_torch.distributed import ctx, sharding as shd
 
     rsplit = _row_split(mesh, global_batch)
-    msplit = ctx.ModelSplit(mesh.get_group("model"),
-                            mesh.coordinate()["model"], mesh.shape["model"],
-                            kv_seq)
+    msplit = _model_split(mesh, kv_seq)
     with ctx.data_rows(rsplit), ctx.model_shards(msplit), \
             ctx.activation_sharding(shd.activation_hook(mesh, cfg)):
         yield rsplit

@@ -39,6 +39,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp
 from repro_torch.distributed.ctx import shard_activation
 from . import layers as L
 from .lm import (_EmbedRows, _layer, _unbind_layers, chunked_ce_loss,
@@ -80,25 +81,32 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _run_layers(blocks: dict, n: int, cfg: ModelConfig, body,
-                h: torch.Tensor) -> torch.Tensor:
+def _run_layers(blocks: dict, path: tuple, n: int, cfg: ModelConfig,
+                body, h: torch.Tensor) -> torch.Tensor:
     """``h = body(p, h)`` for each of the ``n`` stacked layers of
-    ``blocks`` in turn.  Under autograd each layer's parameters come from
-    one ``torch.unbind`` of the stacked leaves (``lm._unbind_layers``),
-    and with ``cfg.remat`` each layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    dropped and recomputed in the backward, as the reference's
-    ``jax.checkpoint(body)`` does per layer."""
+    ``blocks`` (the params' subtree at ``path``) in turn.  Under autograd
+    each layer's parameters come from one ``torch.unbind`` of the stacked
+    leaves (``lm._unbind_layers``), and with ``cfg.remat`` each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped and recomputed in the backward, as the
+    reference's ``jax.checkpoint(body)`` does per layer.  Where a mesh
+    train step holds the leaves in blocks along the data axes, a layer's
+    leaves are gathered inside that function (``tp.gather_data``): the
+    recompute gathers them again, and a rank holds one layer's at a
+    time."""
+    def run(p, hh):
+        return body(tp.gather_data(p, path, layer=True), hh)
+
     if not torch.is_grad_enabled():
         for li in range(n):
-            h = body(_layer(blocks, li), h)
+            h = run(_layer(blocks, li), h)
         return h
     for p in _unbind_layers(blocks, n):
         if cfg.remat:
-            h = torch.utils.checkpoint.checkpoint(body, p, h,
+            h = torch.utils.checkpoint.checkpoint(run, p, h,
                                                   use_reentrant=False)
         else:
-            h = body(p, h)
+            h = run(p, h)
     return h
 
 
@@ -122,9 +130,11 @@ def encode(params: dict, cfg: ModelConfig,
                               L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
         return shard_activation(hh, "hidden")
 
-    h = _run_layers(params["encoder"]["blocks"], cfg.enc_layers, cfg, body,
-                    h)
-    return L.rmsnorm(h, params["encoder"]["final_norm"], cfg.norm_eps)
+    h = _run_layers(params["encoder"]["blocks"], ("encoder", "blocks"),
+                    cfg.enc_layers, cfg, body, h)
+    return L.rmsnorm(h, tp.gather_data(params["encoder"]["final_norm"],
+                                       ("encoder", "final_norm")),
+                     cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +165,17 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
     layer: causal self-attention with RoPE, non-causal cross-attention
     over the memory's keys and values (``_cross_kv``, no RoPE) through
     ``attention_layer(kv_override=...)``, then the MLP.  The embedding's
-    gradient sums repeated tokens in f32 (``lm._EmbedRows``)."""
-    h = shard_activation(_EmbedRows.apply(params["embed"], tokens.long()),
-                         "hidden")
+    gradient sums repeated tokens in f32 (``lm._EmbedRows``), through the
+    vocabulary-parallel rows where the table is split
+    (``lm.embed_tokens``)."""
+    embed = tp.gather_data(params["embed"], ("embed",))
+    h = shard_activation(embed_tokens(embed, cfg, tokens.long(),
+                                      _EmbedRows.apply), "hidden")
     positions = _positions(h)
+    # under a head split each layer's cross keys and values are this
+    # rank's heads: the memory's gradient from them, a partial, is summed
+    # over ``model`` once for all the layers
+    memory = tp.enter(memory, L.head_split(cfg))
 
     def body(p, hh):
         a, _ = L.attention_layer(p["self_attn"], cfg,
@@ -175,9 +192,11 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
                               L.rmsnorm(hh, p["ln2"], cfg.norm_eps))
         return shard_activation(hh, "hidden")
 
-    h = _run_layers(params["decoder"]["blocks"], cfg.dec_layers, cfg, body,
-                    h)
-    return L.rmsnorm(h, params["decoder"]["final_norm"], cfg.norm_eps)
+    h = _run_layers(params["decoder"]["blocks"], ("decoder", "blocks"),
+                    cfg.dec_layers, cfg, body, h)
+    return L.rmsnorm(h, tp.gather_data(params["decoder"]["final_norm"],
+                                       ("decoder", "final_norm")),
+                     cfg.norm_eps)
 
 
 def encdec_loss(params: dict, cfg: ModelConfig,
@@ -185,12 +204,14 @@ def encdec_loss(params: dict, cfg: ModelConfig,
     """Mean next-token CE of ``batch`` ``{"frames" (B, T, D), "tokens",
     "labels" (B, S)}`` (f32 scalar): encode, decode teacher-forced, and
     the streaming chunked CE over ``lm_head`` in chunks of
-    ``cfg.loss_chunk``."""
+    ``cfg.loss_chunk`` (vocabulary-parallel where a ``ModelSplit`` that
+    the vocabulary divides is installed)."""
     memory = encode(params, cfg, batch["frames"])
     h = decode_train(params, cfg, memory, batch["tokens"])
-    return chunked_ce_loss(h, params["lm_head"], batch["labels"],
-                           cfg.loss_chunk,
-                           streaming_bwd=cfg.loss_streaming_bwd)
+    return chunked_ce_loss(h, tp.gather_data(params["lm_head"], ("lm_head",)),
+                           batch["labels"], cfg.loss_chunk,
+                           streaming_bwd=cfg.loss_streaming_bwd,
+                           split=tp.split_along(tp.vocab_rows(cfg)))
 
 
 def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict):

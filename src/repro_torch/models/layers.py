@@ -338,6 +338,21 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
+def _head_splits(cfg: ModelConfig) -> tuple:
+    """(the query heads' split, the kv heads') — ``tp.split_along`` of
+    each count."""
+    return tp.split_along(cfg.num_heads), tp.split_along(cfg.num_kv_heads)
+
+
+def head_split(cfg: ModelConfig, splits: tuple | None = None):
+    """The installed ``ModelSplit`` where both the query and the kv heads
+    divide it (the rules' ``q_ok`` and ``kv_ok``: the attention layers
+    compute this rank's heads), else ``None``; ``splits``: what
+    :func:`_head_splits` gives, where the caller has it."""
+    q, kv = _head_splits(cfg) if splits is None else splits
+    return q if q is not None and kv is not None else None
+
+
 def attention_leaves(p: dict, cfg: ModelConfig):
     """(leaves, split): the attention leaves as this rank computes with
     them.  With a ``ModelSplit`` installed and both the query and the kv
@@ -346,10 +361,10 @@ def attention_leaves(p: dict, cfg: ModelConfig):
     GQA ratio kept — and the split, over which the ``wo`` product is
     summed.  Otherwise the leaves the rules put on ``model`` gathered
     along it, and ``None``: every rank computes every head."""
-    q = tp.split_along(cfg.num_heads)
-    kv = tp.split_along(cfg.num_kv_heads)
-    if q is not None and kv is not None:
-        return p, q
+    q, kv = splits = _head_splits(cfg)
+    split = head_split(cfg, splits)
+    if split is not None:
+        return p, split
     out = {}
     for name, t in p.items():
         if name == "wo":
@@ -377,9 +392,14 @@ def attention_layer(
     and returns the given (k, v).
 
     Under a head split (:func:`attention_leaves`) the layer computes this
-    rank's heads, and the ``wo`` product is summed over ``model``."""
+    rank's heads: ``x`` enters the projections through ``tp.enter`` (its
+    gradient from this rank's heads is a partial, summed over ``model``)
+    and the ``wo`` product is summed over ``model``.  With ``kv_override``
+    the given keys and values are this rank's kv heads, whose source
+    entered the same way (``encdec.decode_train``'s memory)."""
     hd = cfg.resolved_head_dim
     p, split = attention_leaves(p, cfg)
+    x = tp.enter(x, split)
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
@@ -516,8 +536,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, *,
 def mlp_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The MLP, dense or streamed.  With a ``ModelSplit`` installed that
     ``d_ff`` divides, the leaves hold this rank's ``d_ff`` columns (and
-    ``wd`` its rows), and the ``wd`` product is summed over ``model``."""
+    ``wd`` its rows), ``x`` enters them through ``tp.enter`` and the
+    ``wd`` product is summed over ``model``."""
     split = tp.split_along(cfg.d_ff)
+    x = tp.enter(x, split)
     if cfg.mlp_impl == "streamed":
         return tp.sum_partial(_mlp_streamed(p, cfg, x), split)
     up = x @ p["wu"]

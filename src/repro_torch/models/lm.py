@@ -27,7 +27,11 @@ MoE layer (``models/moe.py``) or none.  The train step of
 ``launch/steps.py`` takes ``lm_loss`` for every family but the
 encoder–decoder: dense (dense, vlm, audio), MoE (the gates' gradient
 through the f32 router), SSM (the SSD's through its backward kernel) and
-the hybrid, which mixes them.
+the hybrid, which mixes them.  Its mesh step runs the same code on the
+rank's shards: the layers split along the installed ``ModelSplit``
+(``distributed/tp.py``), the chunked CE over this rank's vocabulary
+columns, and the leaves gathered along the data axes where they are used
+(``tp.gather_data``: a superblock's inside its checkpointed function).
 """
 from __future__ import annotations
 
@@ -157,10 +161,12 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
 
 
 def _head_matrix(params: dict) -> torch.Tensor:
-    """(D, V) output projection — the transposed embedding when tied."""
+    """(D, V) output projection — the transposed embedding when tied —
+    gathered along the data axes where a mesh train step holds it in
+    blocks (``tp.gather_data``)."""
     if "lm_head" in params:
-        return params["lm_head"]
-    return params["embed"].T
+        return tp.gather_data(params["lm_head"], ("lm_head",))
+    return tp.gather_data(params["embed"], ("embed",)).T
 
 
 def embed_tokens(table: torch.Tensor, cfg: ModelConfig, ids: torch.Tensor,
@@ -168,12 +174,12 @@ def embed_tokens(table: torch.Tensor, cfg: ModelConfig, ids: torch.Tensor,
     """Rows ``ids`` of the embedding ``table`` through ``lookup``; with a
     ``ModelSplit`` installed that the vocabulary divides, the table holds
     this rank's vocabulary shard and the rows are vocabulary-parallel
-    (``tp.vocab_embed``: zeros outside the shard, summed over
-    ``model``)."""
+    (``tp.vocab_embed``: zeros outside the shard, summed over ``model``;
+    the table's gradient is this rank's rows, through ``lookup``'s)."""
     split = tp.split_along(tp.vocab_rows(cfg))
     if split is None:
         return lookup(table, ids)
-    return tp.vocab_embed(table, ids, split)
+    return tp.vocab_embed(table, ids, split, lookup)
 
 
 def head_logits(h: torch.Tensor, head: torch.Tensor,
@@ -279,25 +285,37 @@ def backbone(params: dict, cfg: ModelConfig, h: torch.Tensor,
     ``torch.unbind`` of the stacked leaves, and with ``cfg.remat`` each
     superblock runs under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are dropped and recomputed in the backward, as the
-    reference's ``jax.checkpoint(body)`` does."""
+    reference's ``jax.checkpoint(body)`` does.
+
+    Where a mesh train step holds the leaves in blocks along the data
+    axes, a superblock's leaves are gathered when it runs
+    (``tp.gather_data``), inside the checkpointed function: the
+    recompute gathers them again and no gathered leaf is saved, so a
+    rank holds one superblock's at a time.  Without ``cfg.remat``
+    autograd keeps every superblock's gathered leaves for the
+    backward."""
     pat = superblock_pattern(cfg)
     nsb = num_superblocks(cfg)
     grad = torch.is_grad_enabled()
     layers = _unbind_layers(params["blocks"], nsb) if grad else None
     remat = grad and cfg.remat and not collect_cache
+
+    def run(bp, hh, collect):
+        return _superblock(tp.gather_data(bp, ("blocks",), layer=True), cfg,
+                           pat, hh, positions, mrope_positions, collect)
+
     per_layer = []
     for li in range(nsb):
         block_p = layers[li] if grad else _layer(params["blocks"], li)
         if remat:
             h = torch.utils.checkpoint.checkpoint(
-                lambda bp, hh: _superblock(bp, cfg, pat, hh, positions,
-                                           mrope_positions, False)[0],
-                block_p, h, use_reentrant=False)
+                lambda bp, hh: run(bp, hh, False)[0], block_p, h,
+                use_reentrant=False)
             continue
-        h, caches = _superblock(block_p, cfg, pat, h, positions,
-                                mrope_positions, collect_cache)
+        h, caches = run(block_p, h, collect_cache)
         per_layer.append(caches)
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    h = L.rmsnorm(h, tp.gather_data(params["final_norm"], ("final_norm",)),
+                  cfg.norm_eps)
     if not collect_cache:
         return h, None
     stacked = {name: {leaf: torch.stack([c[name][leaf] for c in per_layer])
@@ -311,87 +329,137 @@ def backbone(params: dict, cfg: ModelConfig, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab=None):
-    """(Σ(logz − gold), (hs, ls, logits, logz)) for chunk ``t`` — shared
-    by the forward and the backward.  Padded vocab columns are set to
-    -1e30 (they never win the softmax)."""
+def _chunk_logits(h, lm_head, t, chunk, valid_vocab, first):
+    """(hs, logits (B, c, v) f32) of chunk ``t``: ``lm_head`` holds the
+    vocabulary's columns ``[first, first + v)``; those at or past
+    ``valid_vocab`` (padding) are set to -1e30 and never win the
+    softmax."""
     hs = h[:, t * chunk:(t + 1) * chunk]
-    ls = labels[:, t * chunk:(t + 1) * chunk]
-    logits = shard_activation((hs @ lm_head).float(), "logits")  # (B, c, V)
-    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
-        logits[..., valid_vocab:] = L.NEG_INF
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, ls.long()[..., None])[..., 0]
-    return (logz - gold).sum(), (hs, ls, logits, logz)
+    logits = shard_activation((hs @ lm_head).float(), "logits")  # (B, c, v)
+    if valid_vocab is not None and valid_vocab < first + logits.shape[-1]:
+        logits[..., max(valid_vocab - first, 0):] = L.NEG_INF
+    return hs, logits
 
 
-def _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab=None):
-    """Mean CE over all (B, S) positions, summed chunk by chunk in f32."""
+def _chunk_labels(labels, t, chunk, first, v):
+    """(this rank's column of each label of chunk ``t``, clamped into
+    ``[0, v)``; whether the label lies in this rank's columns)."""
+    local = labels[:, t * chunk:(t + 1) * chunk].long() - first
+    inside = (local >= 0) & (local < v)
+    return local.clamp(0, v - 1), inside
+
+
+def _first_column(lm_head, split) -> int:
+    return 0 if split is None else split.index * lm_head.shape[-1]
+
+
+def _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab=None,
+                    split=None):
+    """(Σ(logz − gold), logz (B, c)) for chunk ``t``.  With a ``split``
+    ``lm_head`` holds this rank's block of the vocabulary's columns: the
+    softmax's max and sum are taken over the group (``tp.max_over``,
+    ``tp.sum_partial``) and the gold logit comes from the rank that holds
+    it; with none every collective is the identity and the same
+    arithmetic runs on the whole vocabulary."""
+    first = _first_column(lm_head, split)
+    _, logits = _chunk_logits(h, lm_head, t, chunk, valid_vocab, first)
+    v = logits.shape[-1]
+    m = tp.max_over(logits.detach().amax(dim=-1), split)
+    logz = m + torch.log(tp.sum_partial(
+        torch.exp(logits - m[..., None]).sum(dim=-1), split))
+    col, inside = _chunk_labels(labels, t, chunk, first, v)
+    gold = logits.gather(-1, col[..., None])[..., 0]
+    gold = tp.sum_partial(torch.where(inside, gold, 0.0), split)
+    return (logz - gold).sum(), logz
+
+
+def _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab=None,
+                     split=None):
+    """(mean CE over all (B, S) positions, summed chunk by chunk in f32;
+    logz (B, S) f32)."""
     total = torch.zeros((), dtype=torch.float32, device=h.device)
+    logz = []
     for t in range(h.shape[1] // chunk):
-        term, _ = _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab)
+        term, lz = _ce_chunk_terms(h, lm_head, labels, t, chunk, valid_vocab,
+                                   split)
         total = total + term
-    return total / (h.shape[0] * h.shape[1])
+        logz.append(lz)
+    return total / (h.shape[0] * h.shape[1]), torch.cat(logz, dim=1)
 
 
 class _ChunkedCE(torch.autograd.Function):
     """Chunked CE with a *streaming backward*: plain autograd through the
     chunk loop would keep every (B, c, V) logits chunk — the whole
     (B, S, V) tensor — for the backward.  This saves only (h, lm_head,
-    labels) and recomputes each chunk's logits, emitting dh and a running
-    f32 dW (the reference's ``jax.custom_vjp``, ``lm.py:283-326``).  The
-    chunk's softmax and its one-hot correction are made in place in the
-    logits buffer: no (B, c, V) one-hot is built."""
+    labels) and the (B, S) log-partition, and recomputes each chunk's
+    logits, emitting dh and a running f32 dW (the reference's
+    ``jax.custom_vjp``, ``lm.py:283-326``).  The chunk's softmax and its
+    one-hot correction are made in place in the logits buffer: no (B, c,
+    V) one-hot is built.  Vocabulary-parallel (``split``): dW is this
+    rank's columns' and dh a partial, which ``tp.enter`` in front of the
+    head sums; the backward runs no collective."""
 
     @staticmethod
-    def forward(ctx, h, lm_head, labels, chunk, valid_vocab):
-        ctx.save_for_backward(h, lm_head, labels)
-        ctx.args = (chunk, valid_vocab)
-        return _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab)
+    def forward(ctx, h, lm_head, labels, chunk, valid_vocab, split):
+        loss, logz = _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab,
+                                      split)
+        ctx.save_for_backward(h, lm_head, labels, logz)
+        ctx.args = (chunk, valid_vocab, split)
+        return loss
 
     @staticmethod
     def backward(ctx, ct):
-        h, lm_head, labels = ctx.saved_tensors
-        chunk, valid_vocab = ctx.args
+        h, lm_head, labels, logz = ctx.saved_tensors
+        chunk, valid_vocab, split = ctx.args
         b, s, d = h.shape
         v = lm_head.shape[1]
+        first = _first_column(lm_head, split)
         scale = ct / (b * s)                    # dloss/dlogit pre-softmax
         w32 = lm_head.float()
         dh = torch.empty_like(h)
         dw = torch.zeros((d, v), dtype=torch.float32, device=h.device)
         rows = torch.arange(b * chunk, device=h.device)
         for t in range(s // chunk):
-            _, (hs, ls, logits, logz) = _ce_chunk_terms(
-                h, lm_head, labels, t, chunk, valid_vocab)
-            p = logits.sub_(logz[..., None]).exp_()       # softmax (B, c, V)
-            p.view(-1, v)[rows, ls.reshape(-1).long()] -= 1.0
+            hs, logits = _chunk_logits(h, lm_head, t, chunk, valid_vocab,
+                                       first)
+            col, inside = _chunk_labels(labels, t, chunk, first, v)
+            lz = logz[:, t * chunk:(t + 1) * chunk]
+            p = logits.sub_(lz[..., None]).exp_()        # softmax (B, c, v)
+            p.view(-1, v)[rows, col.reshape(-1)] -= inside.reshape(-1).float()
             dlogits = p.mul_(scale)
             dh[:, t * chunk:(t + 1) * chunk] = (dlogits @ w32.T).to(h.dtype)
             dw += hs.reshape(-1, d).float().T @ dlogits.view(-1, v)
-        return dh, dw.to(lm_head.dtype), None, None, None
+        return dh, dw.to(lm_head.dtype), None, None, None, None
 
 
 def chunked_ce_loss(
     h: torch.Tensor,            # (B, S, D)
-    lm_head: torch.Tensor,      # (D, V)
+    lm_head: torch.Tensor,      # (D, V), or this rank's (D, V/tp)
     labels: torch.Tensor,       # (B, S) int
     chunk: int,
     streaming_bwd: bool = True,
     valid_vocab: int | None = None,
+    split=None,
 ) -> torch.Tensor:
     """Cross-entropy streamed over sequence chunks: the (B, S, V) logits
     tensor is never materialised, in the backward either
     (``streaming_bwd``; ``False`` is plain autograd through the chunk
     loop, kept for the before/after measurement).  Each chunk's three
-    products are ``torch.matmul``, as the reference leaves them to XLA."""
+    products are ``torch.matmul``, as the reference leaves them to XLA.
+
+    ``split`` (a ``ctx.ModelSplit``, the vocabulary's; ``None``: the
+    whole vocabulary): ``lm_head`` holds this rank's block of columns,
+    ``valid_vocab`` still counts global columns, and ``h`` enters the
+    head through ``tp.enter``, which sums the ranks' partial dh."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunked_ce_loss: chunk {chunk} does not divide "
                          f"the sequence {s}")
+    h = tp.enter(h, split)
     if streaming_bwd:
-        return _ChunkedCE.apply(h, lm_head, labels, chunk, valid_vocab)
-    return _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab)
+        return _ChunkedCE.apply(h, lm_head, labels, chunk, valid_vocab, split)
+    return _chunked_ce_scan(h, lm_head, labels, chunk, valid_vocab, split)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -426,8 +494,8 @@ def _embed_in(params: dict, cfg: ModelConfig, tokens_or_embeds):
     if cfg.embeds_input:
         h = tokens_or_embeds.to(cfg.param_dtype)
     else:
-        h = embed_tokens(params["embed"], cfg, tokens_or_embeds.long(),
-                         _EmbedRows.apply)
+        h = embed_tokens(tp.gather_data(params["embed"], ("embed",)), cfg,
+                         tokens_or_embeds.long(), _EmbedRows.apply)
     return shard_activation(h, "hidden")
 
 
@@ -445,7 +513,8 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
                            cfg.loss_chunk,
                            streaming_bwd=cfg.loss_streaming_bwd,
                            valid_vocab=cfg.vocab_size
-                           if cfg.padded_vocab != cfg.vocab_size else None)
+                           if cfg.padded_vocab != cfg.vocab_size else None,
+                           split=tp.split_along(tp.vocab_rows(cfg)))
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, batch: dict):

@@ -150,12 +150,19 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     With a ``ModelSplit`` installed that E divides, the expert leaves hold
     this rank's E/tp experts: routing is computed whole on every rank,
     the rank dispatches and combines only the choices of its experts, and
-    the partial combine is summed over ``model`` in f32."""
+    the partial combine is summed over ``model`` in f32.  Under autograd
+    a rank weights only its own choices, so the gradient reaching the
+    gates — and through them the router and ``x`` — is a partial, though
+    the router is replicated: ``x`` and the router leaf enter the layer
+    through ``tp.enter``, which sums each of their gradients over
+    ``model`` once."""
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
     k = m.top_k
     split = tp.split_along(m.num_experts)
+    x = tp.enter(x, split)
+    p = dict(p, router=tp.enter(p["router"], split))
     e = p["wu"].shape[0]                                       # this rank's
     first = 0 if split is None else split.index * e
     cap = expert_capacity(global_tokens(n), cfg)

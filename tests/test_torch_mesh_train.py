@@ -37,8 +37,9 @@ import chip_smoke
 from _torch_port import REPO, ref_and_port, to_np
 from _torch_ranks import load_rank, run_ranks
 
-#: (mesh name, shape) of the dense step's meshes: rows split and model
-#: replicated, rows split only, model only
+#: (mesh name, shape) of the dense step's meshes: rows and the model
+#: split (heads, ``d_ff``, vocabulary), rows split only, the model split
+#: only
 MESHES = {"2x2": (2, 2), "2x1": (2, 1), "1x2": (1, 2)}
 ROWS, SEQ = 4, 32
 PARAM_TOL = dict(atol=3e-4, rtol=1e-3)
