@@ -306,7 +306,23 @@ Phases, each printing one JSON object on a line of its own:
                   ``model`` = 4 (1216 columns) against its plain version.
                   With two or more cards a (1, 2) tensor-parallel serve of
                   two torchrun ranks against one card (the LM logit rule;
-                  token agreement); with one card the line says so.
+                  token agreement); with one card the line says so;
+25. ``dryrun``    ``python -m repro_torch.launch.dryrun`` on the
+                  reference's six smoke cells at the production meshes
+                  (16 × 16, 2 × 16 × 16), in parallel processes on the
+                  host's CPU: per cell ``dominant``, ``bound_s``, the peak
+                  GB a device against the card's 80 GB and its seconds —
+                  modeled for an H100 SXM (data sheet), not measured; then
+                  lm_serve's llama3.2-1b prefill (4 × 1024) and
+                  mesh_train's qwen2-0.5b step (4 × 1024) traced on a
+                  world of one and run on the card's 1 × 1 mesh, each in a
+                  process of its own: the predicted argument bytes must
+                  equal the bytes the allocator was asked for before the
+                  step (``requested_bytes``), with
+                  ``torch.cuda.memory_allocated()``, its blocks, beside
+                  them; the predicted peak beside both peaks and
+                  ``bound_s`` beside the measured ms.  The phase fails if
+                  a cell fails or it takes over 120 s.
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -345,6 +361,23 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the card's data-sheet peaks and each kernel's work, one count shared with
+# the kernels' meta branches and the dry-run
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S,
+    TENSOR_CORE_BF16_OPS_PER_S,
+    attention_bwd_work,
+    attention_work,
+    conv_work,
+    mlp_bwd_mma_work,
+    mlp_bwd_work,
+    mlp_work,
+    ssd_bwd_design_bytes,
+    ssd_bwd_work,
+    ssd_work,
+    visible_pairs,
+)
 PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "frontends", "cli", "attn_check", "attn_bwd_check", "mlp_check",
           "mlp_bwd_check", "mlp_probe",
@@ -352,19 +385,7 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "moe_serve", "hybrid_serve", "encdec_serve", "int8_serve",
           "lm_train", "lm_train_streamed", "moe_train", "ssm_train",
           "encdec_train", "hybrid_train", "train_resilient", "mesh_train",
-          "mesh_serve")
-
-# data-sheet peaks of one H100 SXM used for the roofline bound
-HBM_BYTES_PER_S = 3.35e12
-#: CUDA-core rate: 67 TFLOP/s float32 outside the tensor cores
-CUDA_CORE_OPS_PER_S = 67e12
-#: CUDA-core 32-bit integer rate: 64 multiply-adds a clock an SM at
-#: compute capability 9.0 (the CUDA C++ Programming Guide's arithmetic
-#: instruction throughput table; 128 for f32 FMA) × 132 SMs × 1.98 GHz ×
-#: 2 operations ≈ 33.4 TOP/s — the ceiling of an int32 conv
-CUDA_CORE_INT32_OPS_PER_S = 64 * 132 * 1.98e9 * 2
-#: dense bf16 tensor-core rate — the least time bf16 attention could take
-TENSOR_CORE_BF16_OPS_PER_S = 989e12
+          "mesh_serve", "dryrun")
 
 #: (name, batch, H, W, Cin, Cout, K, stride) — the main path's conv shapes
 MAIN_SHAPES = (
@@ -379,7 +400,9 @@ MAIN_SHAPES = (
 HEADLINE_SHAPE = "deep_cascade_224.conv1"
 
 
-WATCHDOG_S = 1000
+#: a hang fails the run inside the 1200 s a run may take (the full run
+#: took 902 s on an H100 80GB HBM3 at 700 W, build included)
+WATCHDOG_S = 1150
 
 
 def _timed_out(signum, frame):
@@ -815,14 +838,11 @@ def kernel_check(torch) -> dict:
             plain_ms = time_ms(plain, warmup=1, reps=2 if big else 20)
             dev_ms = device_ms(run, reps=5 if big else 20,
                                kernel="conv2d_stream_kernel")
-            n_bytes = (x.numel() * x.element_size()
-                       + w.numel() * w.element_size()
-                       + out.numel() * out.element_size())
-            macs = out.numel() * k * k * cin
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            rate = (CUDA_CORE_OPS_PER_S if dtype.is_floating_point
-                    else CUDA_CORE_INT32_OPS_PER_S)
-            t_ops = 2 * macs / rate * 1e3
+            work = conv_work(x.numel() * x.element_size(),
+                             w.numel() * w.element_size(),
+                             out.numel() * out.element_size(), out.numel(),
+                             k, cin, dtype.is_floating_point)
+            n_bytes, macs = work.bytes, work.flops // 2
             library_ms = None
             if dtype == torch.float32:
                 xn = x.permute(0, 3, 1, 2)        # NHWC storage, NCHW view
@@ -849,8 +869,7 @@ def kernel_check(torch) -> dict:
                 "x": [b, h, w_, cin], "w": [k, k, cin, cout],
                 "stride": stride, "ms": ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": work.bound_ms(), "bound_by": work.bound_by(),
                 "bytes": n_bytes, "macs": macs, "library_ms": library_ms,
                 "max_abs_err": err,
                 "before_ms": CONV_BEFORE_MS.get((name, str(dtype)[6:])),
@@ -1347,14 +1366,6 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 ATTN_KERNELS = ("flash_attention_kernel", "flash_attention_mma_kernel")
 
 
-def _visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
-    """(query, key) pairs the mask lets through — the work this input
-    needs, not the most it could."""
-    if not causal:
-        return sq * sk
-    return sum(max(0, min(sk, r + q_offset + 1)) for r in range(sq))
-
-
 def attn_check(torch) -> dict:
     import torch.nn.functional as F
 
@@ -1398,13 +1409,8 @@ def attn_check(torch) -> dict:
             ms = time_ms(run, warmup=3, reps=20)
             plain_ms = time_ms(plain, warmup=1, reps=5)
             dev_ms = device_ms(run, reps=10, kernel=ATTN_KERNELS)
-            n_bytes = sum(t.numel() * t.element_size()
-                          for t in (q, k, v, out))
-            flops = 4 * b * hq * d * _visible_pairs(sq, sk, causal, q_offset)
-            peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
-                    else CUDA_CORE_OPS_PER_S)
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
+            work = attention_work(b, hq, hkv, sq, sk, d, causal, q_offset,
+                                  dtype)
             # yardstick: one PyTorch call for the same function (Sq == Sk,
             # no offset, so its causal convention is the kernel's)
             q4 = q.view(b, hq, sq, d)
@@ -1422,9 +1428,9 @@ def attn_check(torch) -> dict:
                 "causal": causal, "q_offset": q_offset,
                 "ms": ms, "before_ms": ATTN_BEFORE_MS.get((name, dt_name)),
                 "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": n_bytes, "flops": flops, "library_ms": library_ms,
+                "bound_ms": work.bound_ms(), "bound_by": work.bound_by(),
+                "bytes": work.bytes, "flops": work.flops,
+                "library_ms": library_ms,
                 "library_vs_kernel_max_abs": lib_err, "max_abs_err": err,
             })
     return {"comparisons": n, "max_abs_err_f32": worst["float32"],
@@ -1761,15 +1767,12 @@ def _attn_bwd_times(torch, F, run, plain, q, k, v, out, lse, dout, got, b,
     ms = time_ms(run, warmup=1, reps=5)
     each = device_ms_each(run, reps=3, kernels=ATTN_BWD_EACH)
     plain_ms = time_ms(plain, warmup=1, reps=2)
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in (q, k, v, out, lse, dout, *got))
-    pairs = b * hq * _visible_pairs(sq, sk, causal, q_offset)
-    flops = 5 * 2 * d * pairs
+    bound = attention_bwd_work(b, hq, hkv, sq, sk, d, causal, q_offset,
+                               q.dtype)
+    pairs = b * hq * visible_pairs(sq, sk, causal, q_offset)
     work = {"attn_bwd_delta": 2 * d * b * hq * sq,
             "attn_bwd_dkdv": 4 * 2 * d * pairs,
             "attn_bwd_dq": 3 * 2 * d * pairs}
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
     g = hq // hkv
     q4 = q.view(b, hq, sq, d).detach().requires_grad_(True)
     ke = k.view(b, hkv, sk, d).repeat_interleave(g, 1).requires_grad_(True)
@@ -1790,9 +1793,8 @@ def _attn_bwd_times(torch, F, run, plain, q, k, v, out, lse, dout, got, b,
             "tflops_each": {k_: work[k_] / (each[k_] * 1e-3) / 1e12
                             if each[k_] else None for k_ in ATTN_BWD_EACH},
             "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": flops,
+            "bound_ms": bound.bound_ms(), "bound_by": bound.bound_by(),
+            "bytes": bound.bytes, "flops": bound.flops,
             "design_floor_ms": 7 * 2 * d * pairs
             / TENSOR_CORE_BF16_OPS_PER_S * 1e3,
             "library_ms": library_ms,
@@ -1900,21 +1902,14 @@ def mlp_check(torch) -> dict:
             lib = lambda: _mlp_dense(torch, x, wg, wu, wd, act)
             lib_err = float((lib().float() - exp.float()).abs().max())
             library_ms = time_ms(lib, warmup=2, reps=10)
-            n_bytes = sum(t.numel() * t.element_size()
-                          for t in (x, wg, wu, wd, out) if t is not None)
-            flops = 2 * m * d * f * (3 if gated else 2)
-            peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
-                    else CUDA_CORE_OPS_PER_S)
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
+            work = mlp_work(m, d, f, gated, dtype)
             shapes.append({
                 "shape": name, "dtype": dt_name, "m": m, "d": d, "f": f,
                 "gated": gated, "act": act, "plan": plan.blocks,
                 "ms": ms, "before_ms": MLP_BEFORE_MS[(name, dt_name)],
                 "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": n_bytes, "flops": flops,
+                "bound_ms": work.bound_ms(), "bound_by": work.bound_by(),
+                "bytes": work.bytes, "flops": work.flops,
                 "library_ms": library_ms,
                 "library_is": "dense MLP: 3 cuBLAS matmuls + activation",
                 "library_vs_plain_max_abs": lib_err, "max_abs_err": err,
@@ -2213,18 +2208,6 @@ def _mlp_bwd_hilo_check(inputs, act, got, want, needs: dict) -> dict:
             "lo_dropped": dropped}
 
 
-def mlp_bwd_mma_work(m: int, d: int, f: int, gated: bool) -> dict:
-    """Each backward kernel's tensor-core operations with the lo planes
-    counted: the hidden kernel's g, u and dh (ungated u and dh), 2·M·D·F
-    each; the weight gradients' two or three products and dx's one or two
-    terms, each with its hi + lo operand, 4·M·D·F each."""
-    p = 2 * m * d * f
-    terms = 2 if gated else 1
-    return {"mlp_bwd_hidden": (terms + 1) * p,
-            "mlp_bwd_wgrad": (terms + 1) * 2 * p,
-            "mlp_bwd_dx": terms * 2 * p}
-
-
 def _mlp_bwd_times(torch, run, plain, inputs, got, act) -> dict:
     """ms of a call (CUDA events, warm L2; device ms from the profiler, the
     three kernels summed, and each kernel's own), of the plain version and
@@ -2253,22 +2236,18 @@ def _mlp_bwd_times(torch, run, plain, inputs, got, act) -> dict:
     lib_err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(lib(), [g for g in got if g is not None]))
     library_ms = time_ms(lib, warmup=1, reps=5)
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in (*inputs, *got) if t is not None)
-    flops = 2 * m * d * f * (6 if gated else 4)
+    bound = mlp_bwd_work(m, d, f, gated, x.dtype)
     recompute = 2 * m * d * f * (2 if gated else 1)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
     work = mlp_bwd_mma_work(m, d, f, gated)
     return {"ms": ms_, "device_ms": each["per_call"],
             "device_ms_each": {k: each[k] for k in MLP_BWD_KERNELS},
             "mma_work": work,
             "tflops_each": {k: work[k] / (each[k] * 1e-3) / 1e12
                             if each[k] else None for k in MLP_BWD_KERNELS},
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": flops,
-            "design_floor_ms": (flops + recompute)
+            "plain_ms": plain_ms, "bound_ms": bound.bound_ms(),
+            "bound_by": bound.bound_by(),
+            "bytes": bound.bytes, "flops": bound.flops,
+            "design_floor_ms": (bound.flops + recompute)
             / TENSOR_CORE_BF16_OPS_PER_S * 1e3,
             "library_ms": library_ms,
             "library_is": "autograd's backward of the dense MLP (three "
@@ -2381,9 +2360,6 @@ SSD_HEADLINE = ("mamba2-1.3b.prefill", "bfloat16")
 #: f32: the reference's 1e-3 (tests/test_kernels.py:212); bf16: y is
 #: rounded to bf16 (2^-8 relative) from the same bf16 inputs, 1e-2
 SSD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
-#: the tile over which ``_ssd_work`` counts a scan's operations (fixed
-#: since the first SSD kernel, so that the bound reads the same work)
-SSD_WORK_TILE = 32
 
 
 def _ssd_inputs(torch, gen, b, l, h, p, n):
@@ -2395,20 +2371,6 @@ def _ssd_inputs(torch, gen, b, l, h, p, n):
     bm = torch.randn(b, l, n, generator=gen) * 0.5
     cm = torch.randn(b, l, n, generator=gen) * 0.5
     return x, dt, a, bm, cm
-
-
-def _ssd_work(b, l, h, p, n, q):
-    """Operations of one scan with tiles of ``q`` positions: per tile the
-    causal half of c.b^T once (shared by the heads), and per head the
-    causal intra term, the carried-state term and the state update.  The
-    bound counts it at ``q`` = 32 (``SSD_WORK_TILE``) whatever tile a
-    kernel walks, so it reads the same work whatever implements it."""
-    flops = 0
-    for l0 in range(0, l, q):
-        qv = min(q, l - l0)
-        tri = qv * (qv + 1) // 2
-        flops += 2 * b * (tri * n + h * (tri * p + 2 * qv * n * p))
-    return flops
 
 
 def _close(out, exp, tol, what):
@@ -2472,13 +2434,7 @@ def ssd_check(torch) -> dict:
             ms_ = time_ms(run, warmup=2, reps=20)
             plain_ms = time_ms(plain, warmup=1, reps=5)
             dev_ms = device_ms(run, reps=10, kernel=("mamba2_ssd",))
-            n_bytes = sum(t.numel() * t.element_size()
-                          for t in (x, dt, a, bm, cm, s0, y, sf))
-            flops = _ssd_work(b, l, h, p, n, SSD_WORK_TILE)
-            peak = (TENSOR_CORE_BF16_OPS_PER_S if dtype == torch.bfloat16
-                    else CUDA_CORE_OPS_PER_S)
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
+            work = ssd_work(b, l, h, p, n, dtype)
             plan = dse.plan_ssd_blocks(batch=b, length=l, heads=h,
                                        head_dim=p, state_dim=n,
                                        dtype=dt_name)
@@ -2486,9 +2442,8 @@ def ssd_check(torch) -> dict:
                 "shape": name, "dtype": dt_name, "b": b, "l": l, "h": h,
                 "p": p, "n": n, "chunk": chunk, "ms": ms_,
                 "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": n_bytes, "flops": flops, "library_ms": None,
+                "bound_ms": work.bound_ms(), "bound_by": work.bound_by(),
+                "bytes": work.bytes, "flops": work.flops, "library_ms": None,
                 "max_abs_err": err, "plan": plan.blocks,
                 "before_ms": SSD_BEFORE_MS.get((name, dt_name)),
             }
@@ -2905,20 +2860,6 @@ def _ssd_hilo_check(inputs, got, want, needs: dict) -> dict:
             "lo_dropped": dropped}
 
 
-def _ssd_bwd_work(b, l, h, p, n, q):
-    """Operations of one backward with tiles of ``q`` positions: per tile
-    the causal half of c·bᵀ once (shared by the heads) and, per head, the
-    causal dy·xᵀ, the intra terms of dx, dc and db, and the four (P, N)
-    products (dS·b, xᵀ·dS, dyᵀ·S, the carried dS)."""
-    flops = 0
-    for l0 in range(0, l, q):
-        qv = min(q, l - l0)
-        tri = qv * (qv + 1) // 2
-        flops += 2 * b * (tri * n + h * (2 * tri * p + 2 * tri * n
-                                         + 4 * qv * p * n))
-    return flops
-
-
 def _ssd_bwd_inputs(torch, gen, dtype, b, l, h, p, n, *, model: bool):
     """``_ssd_inputs`` in ``dtype`` on the card, an initial state and the
     cotangents: dy in ``dtype``; the state 0.5 N(0, 1) and its cotangent
@@ -3040,55 +2981,32 @@ def _ssd_bwd_slices(torch, gen, ms, worst, shapes) -> int:
     return n_cmp
 
 
-def _ssd_bwd_design_bytes(b, l, h, p, n, itemsize, *, tile: int,
-                          heads_per_block: int, state_grad: bool) -> int:
-    """Bytes the two-kernel backward moves at one shape, each kernel's
-    reads and writes counted once: the pass reads dy, c, dt (and the
-    state's cotangent) and writes dS_k for every tile and the initial
-    state's gradient; the tile kernel reads x, dy, b, c, dt, the saved
-    states and dS_k and writes dx, ddt and the db, dc and da partials;
-    the wrapper's sums read the partials and write db, dc and da."""
-    nt = -(-l // tile)
-    xs = b * l * h * p * itemsize              # x, dy or dx
-    bc = b * l * n * itemsize                  # b, c, db or dc
-    dts = b * l * h * 4                        # dt or ddt
-    tiles = b * h * nt * p * n * 4             # the states or dS_k
-    state = b * h * p * n * 4
-    parts = 2 * b * -(-h // heads_per_block) * l * n * 4 + b * h * nt * 4
-    pass_ = xs + bc + dts + tiles + state + (state if state_grad else 0)
-    tile = 2 * xs + 2 * bc + dts + 2 * tiles + xs + dts + parts
-    sums = parts + 2 * bc + h * 4
-    return pass_ + tile + sums
-
-
 def _ssd_bwd_times(torch, run, plain, inputs, got, b, l, h, p, n) -> dict:
     """ms of a call (CUDA events, warm L2; device ms from the profiler, the
     two kernels summed, and each kernel's own) and of the plain version at
     one shape; the bound: the bytes the backward must move (x, dt, a, b,
     c, the initial state, dy and the state's cotangent read once; the six
-    gradients written once) at 3.35 TB/s, or ``_ssd_bwd_work`` at the
+    gradients written once) at 3.35 TB/s, or ``ssd_bwd_flops`` at the
     bf16 tensor-core rate; and beside it the design's floor, the bytes its
-    two kernels move (``_ssd_bwd_design_bytes``: the saved states, dS_k
+    two kernels move (``ssd_bwd_design_bytes``: the saved states, dS_k
     and the partials are its own cost) at 3.35 TB/s."""
     from repro_torch.core import dse
 
     ms_ = time_ms(run, warmup=1, reps=5)
     each = device_ms_each(run, reps=3, kernels=SSD_BWD_KERNELS)
     plain_ms = time_ms(plain, warmup=1, reps=2)
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in (*inputs, *got) if t is not None)
-    flops = _ssd_bwd_work(b, l, h, p, n, SSD_WORK_TILE)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TENSOR_CORE_BF16_OPS_PER_S * 1e3
-    design = _ssd_bwd_design_bytes(
+    bound = ssd_bwd_work(b, l, h, p, n, inputs[0].dtype,
+                         state_grad=inputs[7] is not None)
+    design = ssd_bwd_design_bytes(
         b, l, h, p, n, inputs[0].element_size(), tile=dse.SSD_BWD_BLOCK_L,
         heads_per_block=dse.SSD_BWD_HEADS_PER_BLOCK,
         state_grad=inputs[7] is not None)
     return {"ms": ms_, "device_ms": each["per_call"],
             "device_ms_each": {k: each[k] for k in SSD_BWD_KERNELS},
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": flops, "design_bytes": design,
+            "plain_ms": plain_ms, "bound_ms": bound.bound_ms(),
+            "bound_by": bound.bound_by(),
+            "bytes": bound.bytes, "flops": bound.flops,
+            "design_bytes": design,
             "design_floor_ms": design / HBM_BYTES_PER_S * 1e3,
             "library_ms": None}
 
@@ -5505,6 +5423,215 @@ def mesh_serve(torch, read) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 25: the dry-run — the meta device's counts, and the card beside them
+# ---------------------------------------------------------------------------
+
+#: the reference's dry-run smoke cells (``tests/test_dryrun_smoke.py``),
+#: traced here at the production meshes (16 × 16 and 2 × 16 × 16)
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "single"),
+                ("qwen2-0.5b", "prefill_32k", "single"),
+                ("qwen2-0.5b", "decode_32k", "single"),
+                ("mamba2-1.3b", "long_500k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "multi"),
+                ("seamless-m4t-medium", "decode_32k", "single"))
+#: steps the card runs in other phases, traced on a world of one and run
+#: on the card's 1 × 1 mesh: (name, arch, seq, batch, kind) — lm_serve's
+#: prefill of 4 × 1024 and mesh_train's step of 4 × 1024
+DRYRUN_TIES = (("llama3.2-1b.prefill", LM_MODELS[0], LM_PROMPT, LM_BATCH,
+                "prefill"),
+               ("qwen2-0.5b.mesh_train", RESILIENT_ARCH, RESILIENT_RUN["seq"],
+                RESILIENT_RUN["batch"], "train"))
+DRYRUN_DIR = os.path.join(ROOT, "chiprun_out", "dryrun")
+DRYRUN_LIMIT_S = 120
+DRYRUN_TIMED_STEPS = 3
+
+
+def dryrun_tie(name: str, device: str) -> dict:
+    """One of ``DRYRUN_TIES`` through ``dryrun.build_step`` on a 1 × 1
+    mesh.  ``"meta"``: its counts on a fake world of one (argument and
+    peak bytes, and the roofline terms).  ``"cuda"``: the same step on
+    the card — the allocator's requested bytes (``memory_stats()``'s
+    ``requested_bytes``) and ``memory_allocated()`` (its blocks) with the
+    mesh alone and with the arguments built, both peaks over the first
+    call (the libraries' load and cuBLAS' workspace included), and the
+    ms of warm calls.  Each in a process of its own (``python -c``): the
+    two worlds cannot share one, and the card's count starts from
+    nothing allocated."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.graph_analysis import count_step
+    from repro_torch.launch.mesh import make_host_mesh, single_device_mesh
+
+    _, arch, seq, batch, kind = next(t for t in DRYRUN_TIES if t[0] == name)
+    cfg, shape = get_config(arch), ShapeConfig(name, seq, batch, kind)
+    if device == "meta":
+        D.fake_world(1)
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        step, args = D.build_step(cfg, shape, mesh)
+        _, st = count_step(step, *args)
+        terms = {"compute_s": st.compute_s(), "memory_s": st.memory_s(),
+                 "collective_s": st.collective_s()}
+        dist.destroy_process_group()
+        return {"argument_bytes": st.argument_bytes,
+                "peak_bytes": st.peak_bytes, **terms, "bound_s": max(terms.values()),
+                "dominant": max(terms, key=terms.get),
+                "kernel_calls": st.kernel_calls}
+    def held() -> dict:
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        return {"requested": st.get("requested_bytes.all.current", 0),
+                "requested_peak": st.get("requested_bytes.all.peak", 0),
+                "allocated": torch.cuda.memory_allocated(),
+                "allocated_peak": torch.cuda.max_memory_allocated()}
+
+    mesh = single_device_mesh()
+    try:
+        with_mesh = held()
+        step, args = D.build_step(cfg, shape, mesh, device="cuda")
+        before = held()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args)
+        peak = held()
+        del out
+        ms = []
+        for _ in range(DRYRUN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            del out
+    finally:
+        dist.destroy_process_group()
+    return {"with_mesh": with_mesh, "before": before, "first_call": peak,
+            "step_ms": ms}
+
+
+def _python(code: str, *, cpu_only: bool) -> subprocess.Popen:
+    """``python -c code`` from the checkout's root, its output piped."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    for k in ("REPRO_MESH_SHAPE", "REPRO_MESH_SHAPE_MULTI"):
+        env.pop(k, None)
+    if cpu_only:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc: subprocess.Popen, what: str, timeout: float) -> str:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no result after {timeout:.0f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}: {err[-1500:]}")
+    return out
+
+
+def dryrun(torch, smi: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` on the reference's six smoke
+    cells at the production meshes, in parallel processes (each cell's
+    ``dominant``, ``bound_s``, peak GB a device against the card's 80 GB
+    and its seconds; every number modeled, none measured); then each of
+    ``DRYRUN_TIES`` traced on a world of one and run on the card: the
+    predicted argument bytes must equal the bytes the card's allocator
+    was asked for before the step (``requested_bytes``, less the mesh's
+    own), with ``torch.cuda.memory_allocated()`` (its blocks) beside
+    them; the predicted peak against both peaks; ``bound_s`` against the
+    measured ms.  The phase fails if a cell fails or the
+    whole takes over ``DRYRUN_LIMIT_S``."""
+    import shutil
+
+    from torch.testing._internal.distributed import fake_pg  # noqa: F401
+
+    from repro_torch.launch import roofline
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    cells = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        code = ("import sys\nfrom repro_torch.launch.dryrun import main\n"
+                f"sys.exit(main(['--arch', {arch!r}, '--shape', {shape!r}, "
+                f"'--mesh', {mesh!r}, '--out', {DRYRUN_DIR!r}]))")
+        cells[(arch, shape, mesh)] = _python(code, cpu_only=True)
+    predicted = {
+        name: _python("import chip_smoke, json\nprint(json.dumps("
+                      f"chip_smoke.dryrun_tie({name!r}, 'meta')))",
+                      cpu_only=True)
+        for name, *_ in DRYRUN_TIES}
+    rows = []
+    for (arch, shape, mesh), proc in cells.items():
+        what = f"dryrun {arch} {shape} {mesh}"
+        _finish(proc, what, DRYRUN_LIMIT_S)
+        safe = arch.replace(".", "_").replace("/", "_")
+        with open(os.path.join(DRYRUN_DIR,
+                               f"{safe}__{shape}__{mesh}.json")) as f:
+            rec = json.load(f)
+        if not rec.get("ok") or rec.get("skipped"):
+            raise AssertionError(f"{what}: {rec.get('error', rec)}")
+        rows.append({
+            "arch": arch, "shape": shape, "mesh": mesh,
+            "chips": rec["chips"], "dominant": rec["dominant"],
+            "bound_s": rec["bound_s"],
+            "flops_per_device": rec["hlo_flops_per_device"],
+            "bytes_per_device": rec["hlo_bytes_per_device"],
+            "collective_bytes_per_device":
+                rec["collective_bytes_per_device"],
+            "peak_gb": rec["peak_bytes_per_device"] / 1e9,
+            "device_gb": rec["device_memory_bytes"] / 1e9,
+            "kernel_calls": {k: v["launches"]
+                             for k, v in rec["kernel_calls"].items()},
+            "seconds": rec["compile_s"]})
+    ties = []
+    for name, *_ in DRYRUN_TIES:
+        pred = json.loads(_finish(predicted[name], f"dryrun {name} meta",
+                                  DRYRUN_LIMIT_S).strip().splitlines()[-1])
+        card = json.loads(_finish(
+            _python("import chip_smoke, json\nprint(json.dumps("
+                    f"chip_smoke.dryrun_tie({name!r}, 'cuda')))",
+                    cpu_only=False), f"dryrun {name} cuda",
+            DRYRUN_LIMIT_S).strip().splitlines()[-1])
+        mesh_, before, first = card["with_mesh"], card["before"], \
+            card["first_call"]
+        requested = before["requested"] - mesh_["requested"]
+        if pred["argument_bytes"] != requested:
+            raise AssertionError(
+                f"{name}: predicted argument bytes {pred['argument_bytes']}"
+                f" != {requested} requested of the card's allocator "
+                f"({before['requested']} less {mesh_['requested']} with "
+                "the mesh alone)")
+        ties.append({
+            "name": name,
+            "predicted_argument_bytes": pred["argument_bytes"],
+            "requested_bytes_by_arguments": requested,
+            "memory_allocated_by_arguments":
+                before["allocated"] - mesh_["allocated"],
+            "predicted_peak_bytes": pred["peak_bytes"],
+            "requested_bytes_peak": first["requested_peak"],
+            "max_memory_allocated": first["allocated_peak"],
+            "predicted_bound_ms": pred["bound_s"] * 1e3,
+            "predicted_dominant": pred["dominant"],
+            "step_ms": card["step_ms"],
+            "kernel_calls": {k: v["launches"]
+                             for k, v in pred["kernel_calls"].items()}})
+    seconds = time.perf_counter() - t0
+    if seconds > DRYRUN_LIMIT_S:
+        raise AssertionError(f"the dryrun phase took {seconds:.0f} s, over "
+                             f"{DRYRUN_LIMIT_S}")
+    return {"card": smi, "modeled": roofline.MODELED,
+            "fake_pg_imports": True, "cells": rows, "ties": ties,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -5531,7 +5658,6 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs one CUDA device and takes no CPU path", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels import conv2d_stream as cs
     from repro_torch.kernels import flash_attention as fa
@@ -5738,6 +5864,8 @@ def main(argv=None) -> int:
             fa, "flash_attention", "mesh serve"))
         fa_launches += served["launches"]["flash_attention"]
         emit_phase("mesh_serve", served)
+    if "dryrun" in phases:               # meta and subprocesses: no count
+        emit_phase("dryrun", dryrun(torch, smi))
     fb_launches, mb_launches = bwd_totals["attn"], bwd_totals["ssd"]
 
     if set(phases) != set(PHASES):

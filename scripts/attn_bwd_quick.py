@@ -125,7 +125,7 @@ def main() -> int:
         run()
         ms = cs.time_ms(run, warmup=1, reps=5)
         each = cs.device_ms_each(run, reps=3, kernels=KERNELS)
-        pairs = b * hq * cs._visible_pairs(sq, sk, causal, off)
+        pairs = b * hq * cs.visible_pairs(sq, sk, causal, off)
         work = {"attn_bwd_dkdv": 4 * 2 * d * pairs,
                 "attn_bwd_dq": 3 * 2 * d * pairs}
         rate = {k_: work[k_] / (each[k_] * 1e-3) / 1e12

@@ -71,6 +71,7 @@ import threading
 import torch
 
 from repro_torch.core.dse import plan_attention_blocks, plan_attn_bwd_blocks
+from repro_torch.kernels import work
 from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 NEG_INF = -1e30
@@ -249,7 +250,7 @@ def flash_attention(
     plan = plan_attention_blocks(     # raises for d > 128
         seq_q=sq, seq_k=sk, head_dim=d, batch_heads=bhq,
         dtype=str(q.dtype).removeprefix("torch."))
-    if not q.is_cuda:
+    if not q.is_cuda and not q.is_meta:
         return flash_attention_plain(q, k, v, heads_q=heads_q,
                                      heads_kv=heads_kv, causal=causal,
                                      q_offset=q_offset,
@@ -258,6 +259,11 @@ def flash_attention(
     out = torch.empty_like(q)
     lse = (torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.is_meta:                   # shapes only: the launch's work counted
+        work.record_kernel("flash_attention", work.attention_work(
+            bhq // heads_q, heads_q, heads_kv, sq, sk, d, causal, q_offset,
+            q.dtype, lse=return_lse), out)
+        return (out, lse) if return_lse else out
     lib = LIBRARY.load()
     rc = _on_device(q, lambda: lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -414,7 +420,7 @@ def flash_attention_bwd(
                 f" does not fit q {tuple(q.shape)} on {q.device}")
     kw = dict(heads_q=heads_q, heads_kv=heads_kv, causal=causal,
               q_offset=q_offset, scale=scale)
-    if not q.is_cuda:
+    if not q.is_cuda and not q.is_meta:
         bwd_plan(q, k, v, dout, heads_q=heads_q, heads_kv=heads_kv)
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -424,6 +430,11 @@ def flash_attention_bwd(
     plan = bwd_plan(q, k, v, dout, heads_q=heads_q, heads_kv=heads_kv)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:                   # shapes only: the launch's work counted
+        work.record_kernel("flash_attention_bwd", work.attention_bwd_work(
+            bhq // heads_q, heads_q, heads_kv, sq, sk, d, causal, q_offset,
+            q.dtype), dq)
+        return dq, dk, dv
     lib = BWD_LIBRARY.load()
     rc = _on_device(q, lambda: lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -67,7 +67,7 @@ import threading
 import torch
 
 from repro_torch.core.dse import plan_mlp_blocks, plan_mlp_bwd_blocks
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 #: input dtypes the kernel takes → the dtype code of the C interface
@@ -201,7 +201,7 @@ def fused_mlp(
     f = w_up.shape[1]
     plan = plan_mlp_blocks(m=m, d=d, f=f,      # raises for d > the limit
                            dtype=str(x.dtype).removeprefix("torch."))
-    if not x.is_cuda:
+    if not x.is_cuda and not x.is_meta:
         return fused_mlp_plain(x, w_gate, w_up, w_down, act=act)
     x, w_up, w_down = x.contiguous(), w_up.contiguous(), w_down.contiguous()
     if w_gate is not None:
@@ -212,6 +212,10 @@ def fused_mlp(
     if blocks["splits"] > 1:
         part = torch.empty((blocks["splits"], m, d), dtype=torch.float32,
                            device=x.device)
+    if x.is_meta:                   # shapes only: the launch's work counted
+        work.record_kernel("fused_mlp", work.mlp_work(
+            m, d, f, w_gate is not None, x.dtype), out)
+        return out
     lib = LIBRARY.load()
 
     def launch() -> int:
@@ -361,7 +365,7 @@ def fused_mlp_bwd(
     _check_bwd(x, w_gate, w_up, w_down, dy, act)
     m, d = x.shape
     f = w_up.shape[1]
-    if not x.is_cuda:
+    if not x.is_cuda and not x.is_meta:
         bwd_plan(x, w_gate, w_up, w_down, dy)       # the planner's checks
         return fused_mlp_bwd_plain(x, w_gate, w_up, w_down, dy, act=act)
     x, w_up, w_down = x.contiguous(), w_up.contiguous(), w_down.contiguous()
@@ -374,6 +378,10 @@ def fused_mlp_bwd(
     dwg = None if w_gate is None else torch.empty_like(w_gate)
     hidden = torch.empty(plan.hidden_bytes, dtype=torch.uint8,
                          device=x.device)
+    if x.is_meta:                   # shapes only: the launch's work counted
+        work.record_kernel("fused_mlp_bwd", work.mlp_bwd_work(
+            m, d, f, w_gate is not None, x.dtype), dx)
+        return dx, dwg, dwu, dwd
     lib = BWD_LIBRARY.load()
 
     def ptr(t):

@@ -67,7 +67,7 @@ import threading
 import torch
 
 from repro_torch.core.dse import plan_ssd_blocks, plan_ssd_bwd_blocks
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 
 #: dtypes of x, b and c the kernel takes → the dtype code of the C
@@ -214,7 +214,7 @@ def mamba2_ssd(
                            state_dim=b_mat.shape[-1],
                            dtype=str(x.dtype).removeprefix("torch."),
                            save_states=return_states)
-    if not x.is_cuda:
+    if not x.is_cuda and not x.is_meta:
         out = mamba2_ssd_plain(x, dt, a, b_mat, c_mat, init_state,
                                chunk=chunk)
         return (*out, None) if return_states else out
@@ -226,7 +226,9 @@ def launch_plan(x, dt, a, b_mat, c_mat, init_state, plan, *,
                 return_states: bool = False):
     """Launch the kernel on CUDA tensors with a given ``plan`` (what
     :func:`mamba2_ssd` does after planning; a timing harness may hand it
-    another of ``dse.SSD_MMA_TILES``).  Adds one to ``launches``."""
+    another of ``dse.SSD_MMA_TILES``).  Adds one to ``launches``.  On
+    ``meta`` tensors it launches nothing: the outputs' shapes, and the
+    launch's work recorded (``work.record_kernel``)."""
     global launches
     bsz, l, h, p = x.shape
     n = b_mat.shape[-1]
@@ -242,6 +244,10 @@ def launch_plan(x, dt, a, b_mat, c_mat, init_state, plan, *,
     if return_states:
         states = torch.empty((bsz, h, -(-l // blk["block_l"]), p, n),
                              dtype=torch.float32, device=x.device)
+    if x.is_meta:                   # shapes only: the launch's work counted
+        work.record_kernel("mamba2_ssd", work.ssd_work(
+            bsz, l, h, p, n, x.dtype, states=return_states), y)
+        return (y, sf, states) if return_states else (y, sf)
     lib = LIBRARY.load()
 
     def launch() -> int:
@@ -357,7 +363,7 @@ def mamba2_ssd_bwd(
                 f"mamba2_ssd_bwd: {name} {tuple(t.shape)} on {t.device} "
                 f"does not fit x {tuple(x.shape)} on {x.device} (want "
                 f"{tuple(shape)})")
-    if not x.is_cuda:
+    if not x.is_cuda and not x.is_meta:
         return mamba2_ssd_bwd_plain(x, dt, a, b_mat, c_mat, init_state,
                                     y_grad, state_grad, chunk=chunk)
     if states is None:
@@ -380,25 +386,29 @@ def mamba2_ssd_bwd(
     dc_part = torch.empty_like(db_part)
     da_part = torch.empty((bsz, h, nt), **f32)
     d_init = torch.empty((bsz, h, p, n), **f32)
-    lib = BWD_LIBRARY.load()
-    rc = _on_device(x, lambda: lib.mamba2_ssd_bwd_launch(
-        x.data_ptr(), dtf.data_ptr(), af.data_ptr(), b_mat.data_ptr(),
-        c_mat.data_ptr(), states.data_ptr(), dy.data_ptr(),
-        None if dsf is None else dsf.data_ptr(), ds_tiles.data_ptr(),
-        dx.data_ptr(), ddt.data_ptr(), db_part.data_ptr(),
-        dc_part.data_ptr(), da_part.data_ptr(), d_init.data_ptr(),
-        _DTYPE_CODES[x.dtype], bsz, l, h, p, n, x.stride(0), x.stride(1),
-        b_mat.stride(0), b_mat.stride(1), c_mat.stride(0), c_mat.stride(1),
-        q, *plan.grids["pass"], *plan.grids["tile"],
-        torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        msg = lib.mamba2_ssd_bwd_error_string(rc).decode()
-        raise RuntimeError(
-            f"mamba2_ssd_bwd launch failed: {msg} (code {rc}); x "
-            f"{tuple(x.shape)} N {n} {x.dtype} grids {plan.grids} smem "
-            f"{plan.smem_bytes}")
-    with _LOCK:
-        bwd_launches += 1
+    if x.is_meta:                   # shapes only: the launch's work counted
+        work.record_kernel("mamba2_ssd_bwd", work.ssd_bwd_work(
+            bsz, l, h, p, n, x.dtype, state_grad=dsf is not None), dx)
+    else:
+        lib = BWD_LIBRARY.load()
+        rc = _on_device(x, lambda: lib.mamba2_ssd_bwd_launch(
+            x.data_ptr(), dtf.data_ptr(), af.data_ptr(), b_mat.data_ptr(),
+            c_mat.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            None if dsf is None else dsf.data_ptr(), ds_tiles.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), db_part.data_ptr(),
+            dc_part.data_ptr(), da_part.data_ptr(), d_init.data_ptr(),
+            _DTYPE_CODES[x.dtype], bsz, l, h, p, n, x.stride(0),
+            x.stride(1), b_mat.stride(0), b_mat.stride(1), c_mat.stride(0),
+            c_mat.stride(1), q, *plan.grids["pass"], *plan.grids["tile"],
+            torch.cuda.current_stream(dev).cuda_stream))
+        if rc != 0:
+            msg = lib.mamba2_ssd_bwd_error_string(rc).decode()
+            raise RuntimeError(
+                f"mamba2_ssd_bwd launch failed: {msg} (code {rc}); x "
+                f"{tuple(x.shape)} N {n} {x.dtype} grids {plan.grids} smem "
+                f"{plan.smem_bytes}")
+        with _LOCK:
+            bwd_launches += 1
     # the head groups' (and batch rows' and tiles') partials, summed in a
     # fixed order
     db = db_part.sum(1).to(x.dtype)

@@ -141,7 +141,9 @@ def mamba_layer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     di, h, n = s.d_inner(d), s.num_heads(d), s.state_dim
 
     z, xbc, dt = _split_proj(cfg, x @ p["in_proj"])
-    conv_cache = xbc[:, -(s.conv_kernel - 1):, :]   # before the conv
+    # before the conv; a copy, so that the cache does not hold the whole
+    # (B, L, conv_dim) projection it is a view of
+    conv_cache = xbc[:, -(s.conv_kernel - 1):, :].clone()
     xbc = F.silu(_causal_depthwise_conv(xbc, p["conv_w"]))
     xs = xbc[..., :di].reshape(b, l, h, s.head_dim)
     b_mat = xbc[..., di: di + n]
