@@ -289,11 +289,15 @@ Phases, each printing one JSON object on a line of its own:
                   after it; peak GB; a warm step of each in turns.  B2′
                   (8 / 2 heads of llama3.2-1b's train shape) and B3′
                   (M 4096, D 896, F 1216) at a ``model`` = 4 shard's
-                  shapes against their plain versions.  With two or more
+                  shapes against their plain versions; B4 (4 × 1024) and
+                  B4′ (4 × 4096) on the 32 and 4 heads a rank of
+                  ``model`` = 2 and 16 computes of mamba2-1.3b's 64,
+                  against theirs.  With two or more
                   cards, a (2, 1) and a (1, 2) NCCL mesh of two spawned
                   ranks (torchrun) each run two steps held to the 1 × 1
                   mesh's on the same global batch at the bf16 train rule
-                  (loss rtol 1e-2); with one card the lines say so.
+                  (loss rtol 1e-2), and a (1, 2) run of mamba2-1.3b's
+                  smoke config; with one card the lines say so.
 24. ``mesh_serve`` llama3.2-1b at full width and depth (4 × 1024-token
                   prompts + 32 greedy) served by ``ServeEngine(mesh=
                   single_device_mesh())`` — the 1 × 1 NCCL mesh, every
@@ -304,16 +308,15 @@ Phases, each printing one JSON object on a line of its own:
                   decode tokens/s of both in turns, ``local_shards`` ms,
                   peak GB; B3 on qwen2-0.5b's ``d_ff`` shard at
                   ``model`` = 4 (1216 columns) against its plain version.
-                  With two or more cards a (1, 2) tensor-parallel serve of
-                  two torchrun ranks against one card (the LM logit rule;
+                  Then mamba2-1.3b at full width and depth the same way
+                  (bf16; its mixer split by heads over a group of one):
+                  prefill logits and tokens bit for bit, 48 SSD launches
+                  a prefill, prefill ms and decode tokens/s in turns.
+                  With two or more cards (1, 2) tensor-parallel serves of
+                  two torchrun ranks (llama3.2-1b, and mamba2-1.3b's
+                  smoke config) against one card (the LM logit rule;
                   token agreement); with one card the line says so;
-25. ``dryrun``    ``python -m repro_torch.launch.dryrun`` on the
-                  reference's six smoke cells at the production meshes
-                  (16 × 16, 2 × 16 × 16), in parallel processes on the
-                  host's CPU: per cell ``dominant``, ``bound_s``, the peak
-                  GB a device against the card's 80 GB and its seconds —
-                  modeled for an H100 SXM (data sheet), not measured; then
-                  lm_serve's llama3.2-1b prefill (4 × 1024) and
+25. ``dryrun``    lm_serve's llama3.2-1b prefill (4 × 1024) and
                   mesh_train's qwen2-0.5b step (4 × 1024) traced on a
                   world of one and run on the card's 1 × 1 mesh, each in a
                   process of its own: the predicted argument bytes must
@@ -322,7 +325,8 @@ Phases, each printing one JSON object on a line of its own:
                   ``torch.cuda.memory_allocated()``, its blocks, beside
                   them; the predicted peak beside both peaks and
                   ``bound_s`` beside the measured ms.  The phase fails if
-                  a cell fails or it takes over 120 s.
+                  a tie fails or it takes over 120 s (the production
+                  meshes' modeled cells are the CPU tests').
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -331,9 +335,11 @@ just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
 the SSD kernel's around phase 15, the attention kernel's around phase
 16b, around each train phase (17-23) the counts of every forward and
-backward kernel the path runs, and the attention kernel's around phase
-24 (read after the mesh engines' calls), each read just after the
-path's steps (the ``kernels`` line adds the counts of every path); the run
+backward kernel the path runs, and around phase 24 the attention
+kernel's (read after llama's mesh engines' calls) and the SSD kernel's
+(zeroed before mamba2's mesh engine, read after its calls), each read
+just after the path's steps (the ``kernels`` line adds the counts of
+every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` summary (per kernel its headline numbers and a
@@ -4676,6 +4682,9 @@ MESH_TRAIN_CKPTS_ON_DISK = 5
 #: rule's loss rtol
 MESH_TRAIN_TWO_CARD_STEPS = 2
 MESH_TRAIN_TWO_CARD_RTOL = TRAIN_CPU_RULE["bfloat16"][0]
+#: the (1, 2) run of a smoke config (mamba2-1.3b's: its mixer on 4 of 8
+#: heads a rank)
+MESH_TRAIN_TWO_CARD_SMOKE = {"batch": 4, "seq": 32, "lr": 1e-3, "seed": 3}
 
 #: what a rank of the two-card run executes (under torchrun): NCCL on the
 #: cards, gloo on the CPU
@@ -4787,8 +4796,8 @@ def two_card_run(torch, run: dict, *, shape: tuple = (2, 1),
 #: ``mesh=None``, in the same process: (arch, config overrides).
 #: llama3.2-1b's vocabulary-parallel CE at V 128256 (with the streamed
 #: MLP, so that B3 and B3′ run on the split path too), granite-moe's
-#: experts and the router's partial gradient, mamba2-1.3b's replicated
-#: mixer (B4, B4′), seamless-m4t-medium's per-layer gathers
+#: experts and the router's partial gradient, mamba2-1.3b's mixer split
+#: by heads (B4, B4′), seamless-m4t-medium's per-layer gathers
 MESH_SPLIT_CONFIGS = (("llama3.2-1b", {"mlp_impl": "streamed"}),
                       ("granite-moe-1b-a400m", {}),
                       ("mamba2-1.3b", {}),
@@ -4879,11 +4888,12 @@ def mesh_split_step(torch, arch: str, kw: dict, mesh, *,
                            cfg)
     p_shard = shd.make_param_shardings(mesh, params, cfg)
     opt = adamw.init(params, opt_cfg)
+    shardings = {"params": p_shard,
+                 "opt": shd.make_opt_shardings(mesh, opt, p_shard)}
     state = {
         "mesh": (shd.distribute_tree(tree_map(torch.clone, params), p_shard),
-                 shd.distribute_tree(
-                     adamw.init(params, opt_cfg),
-                     shd.make_opt_shardings(mesh, opt, p_shard))),
+                 shd.distribute_tree(adamw.init(params, opt_cfg),
+                                     shardings["opt"])),
         "none": (params, opt)}
     del params, opt
     fns = {"mesh": ST.make_sharded_train_step(
@@ -4910,8 +4920,9 @@ def mesh_split_step(torch, arch: str, kw: dict, mesh, *,
         state[name] = (p, o)
     flat_m = flatten({"params": state["mesh"][0], "opt": state["mesh"][1]})
     flat_n = flatten({"params": state["none"][0], "opt": state["none"][1]})
-    differ = [p for (p, a), (q, b) in zip(flat_m, flat_n)
-              if p != q or not torch.equal(a.full_tensor(), b)]
+    flat_s = flatten(shardings)
+    differ = [p for (p, a), (q, b), (_, sh) in zip(flat_m, flat_n, flat_s)
+              if p != q or not torch.equal(shd.whole(a, sh), b)]
     if losses["mesh"] != losses["none"] or differ or not all(
             math.isfinite(x) for x in losses["mesh"]):
         raise AssertionError(f"{arch}: the 1 x 1 split step against "
@@ -4994,6 +5005,70 @@ def bwd_on_a_shard(torch) -> dict:
     return {"b2_bwd": b2, "b3_bwd": b3}
 
 
+#: B4 and B4′ as a rank of ``model`` = tp calls them on mamba2-1.3b's 64
+#: heads: tp, and the (B, L, chunk) of the prefill and of the train
+#: microbatch, as ``ssd_check``'s and ``ssd_bwd_check``'s rows have them
+MESH_SPLIT_SSD_TP = (2, 16)
+MESH_SPLIT_SSD_PREFILL = (LM_BATCH, LM_PROMPT, 64)
+MESH_SPLIT_SSD_TRAIN = (4, 4096, 64)
+
+
+def ssd_on_a_shard(torch) -> list:
+    """B4 at mamba2-1.3b's prefill shape and B4′ at its train microbatch,
+    each on the H/tp heads a rank of ``model`` = tp computes
+    (``MESH_SPLIT_SSD_TP``), bf16, against their plain versions by the
+    rules of ``ssd_check`` and ``ssd_bwd_check`` (B4′'s db and dc are the
+    rank's sums over its own heads, which the split's backward then sums
+    over the ranks), each timed beside its plain version and its bound."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import mamba2_ssd as ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SSM_ARCH)
+    s = cfg.ssm
+    heads, p, n = s.num_heads(cfg.d_model), s.head_dim, s.state_dim
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for tp in MESH_SPLIT_SSD_TP:
+        h = heads // tp
+        b, l, chunk = MESH_SPLIT_SSD_PREFILL
+        x, dt, a, bm, cm = _ssd_inputs(torch, gen, b, l, h, p, n)
+        x, bm, cm = (v.to(bf).cuda() for v in (x, bm, cm))
+        dt, a = dt.cuda(), a.cuda()
+        s0 = torch.zeros(b, h, p, n, device="cuda")
+        run = lambda: ms.mamba2_ssd(x, dt, a, bm, cm, s0,  # noqa: E731
+                                    chunk=chunk)
+        plain = lambda: ms.mamba2_ssd_plain(x, dt, a, bm,  # noqa: E731
+                                            cm, s0, chunk=chunk)
+        (y, sf), (ye, se) = run(), plain()
+        name = f"{SSM_ARCH}.prefill.tp{tp}"
+        err = max(_close(y, ye, SSD_TOL["bfloat16"], f"{name} y"),
+                  _close(sf, se, SSD_TOL["float32"], f"{name} state"))
+        work = ssd_work(b, l, h, p, n, bf)
+        fwd = {"shape": name, "b": b, "l": l, "h": h, "p": p, "n": n,
+               "max_abs_err": err, "tol": SSD_TOL["bfloat16"],
+               "ms": time_ms(run, warmup=2, reps=20),
+               "plain_ms": time_ms(plain, warmup=1, reps=5),
+               "bound_ms": work.bound_ms(), "bound_by": work.bound_by()}
+        del x, dt, a, bm, cm, s0, y, sf, ye, se
+        b, l, chunk = MESH_SPLIT_SSD_TRAIN
+        name = f"{SSM_ARCH}.train.tp{tp}"
+        inputs = _ssd_bwd_inputs(torch, gen, bf, b, l, h, p, n, model=True)
+        row, run, plain, got, want = _ssd_bwd_one(torch, ms, inputs, chunk,
+                                                  "bfloat16", name)
+        bound = ssd_bwd_work(b, l, h, p, n, bf, state_grad=False)
+        bwd = {"shape": name, "b": b, "l": l, "h": h, "p": p, "n": n, **row,
+               "tol": SSD_BWD_TOL["bfloat16"],
+               "ms": time_ms(run, warmup=1, reps=5),
+               "plain_ms": time_ms(plain, warmup=1, reps=2),
+               "bound_ms": bound.bound_ms(), "bound_by": bound.bound_by()}
+        del inputs, got, want, run, plain
+        rows.append({"tp": tp, "heads": h, "b4": fwd, "b4_bwd": bwd})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _superblock_gathers_ms(torch, cfg, mesh, params, timed) -> dict:
     """The split step's gathers along the data axes, timed on DTensor
     ``params``: every superblock's leaves in turn (each freed before the
@@ -5044,6 +5119,7 @@ def mesh_train(torch, read) -> dict:
 
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as ST
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import single_device_mesh
@@ -5100,9 +5176,10 @@ def mesh_train(torch, read) -> dict:
         torch.cuda.synchronize()
         restore_s["mesh_onto_none"] = time.perf_counter() - t0
         flat_mesh, flat_none = flatten(onto_mesh), flatten(onto_none)
-        differ = [p for (p, a), (_, b) in zip(flat_mesh, flat_none)
+        differ = [p for (p, a), (_, b), (_, sh) in zip(
+                      flat_mesh, flat_none, flatten(shardings))
                   if type(a).__name__ != "DTensor" or a.dtype != b.dtype
-                  or not torch.equal(a.full_tensor(), b)]
+                  or not torch.equal(shd.whole(a, sh), b)]
         if differ or [p for p, _ in flat_mesh] != [p for p, _ in flat_none]:
             raise AssertionError(f"checkpoints restored across differ: "
                                  f"{differ[:5]}")
@@ -5143,7 +5220,8 @@ def mesh_train(torch, read) -> dict:
                                   keep=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        saver.save_async(steps, onto_mesh, extra={"step": steps})
+        saver.save_async(steps, onto_mesh, extra={"step": steps},
+                         shardings=shardings)
         snapshot_s = time.perf_counter() - t0
         saver.wait()
         write_s = time.perf_counter() - t0 - snapshot_s
@@ -5159,11 +5237,16 @@ def mesh_train(torch, read) -> dict:
             for name, n in row["launches"]["mesh"].items():
                 launches[name] = launches.get(name, 0) + n
         shard = bwd_on_a_shard(torch)
+        ssd_shard = ssd_on_a_shard(torch)
         count = torch.cuda.device_count()
         two_card = {
             "x".join(map(str, shape)): two_card_run(torch, run, shape=shape)
             if count >= 2 else f"not run: this machine has {count} card"
             for shape in ((2, 1), (1, 2))}
+        two_card[f"1x2.{SSM_ARCH}.smoke"] = two_card_run(
+            torch, MESH_TRAIN_TWO_CARD_SMOKE, shape=(1, 2), arch=SSM_ARCH,
+            smoke=True) if count >= 2 else \
+            f"not run: this machine has {count} card"
     finally:
         shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
         if dist.is_initialized():
@@ -5191,6 +5274,7 @@ def mesh_train(torch, read) -> dict:
                                for k, v in out.items()},
         "run_wall_s": walls, "peak_mem_gb": peak_gb,
         "split_steps": split, "bwd_on_a_shard": shard,
+        "ssd_on_a_shard": ssd_shard,
         "launches": launches, "two_card": two_card,
     }
 
@@ -5314,14 +5398,73 @@ def b3_on_a_shard(torch) -> dict:
             "tol": tol, "ms": time_ms(run, warmup=2, reps=10)}
 
 
-def mesh_serve(torch, read) -> dict:
+def mesh_serve_ssm(torch, mesh, read) -> dict:
+    """mamba2-1.3b at full width and depth served on the 1 × 1 mesh — the
+    mixer split by heads, on one rank: its leaves taken as they are, B and
+    C gathered, the norm's statistic and ``out_proj`` summed, each over a
+    group of one — and with ``mesh=None`` on the same seeded weights and
+    prompts, bf16: prefill logits and greedy tokens bit for bit; one SSD
+    launch a layer of a prefill; prefill ms and decode tokens/s of both in
+    turns.  The SSD counts are zeroed just before the mesh engine runs;
+    ``read()`` returns its launches, called after its calls, before the
+    ``mesh=None`` engine runs."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import mamba2_ssd as ms
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = get_config(SSM_ARCH)
+    max_len = LM_PROMPT + LM_NEW
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    ms.reset_counts()                  # counts: zero before the mesh path
+    meshed = ServeEngine(cfg, mesh=mesh, max_len=max_len, seed=0)
+    logits_m, _ = meshed.prefill(prompts)
+    per_prefill = ms.launches
+    out_m, _ = meshed.generate(prompts, max_new=LM_NEW)
+    launches = read()                  # the mesh path's: read after it
+    if per_prefill != cfg.num_layers:
+        raise AssertionError(f"{SSM_ARCH} mesh prefill: {per_prefill} SSD "
+                             f"launches, want {cfg.num_layers}")
+    plain = ServeEngine(cfg, max_len=max_len, seed=0)
+    logits, _ = plain.prefill(prompts)
+    out, _ = plain.generate(prompts, max_new=LM_NEW)
+    if tuple(logits_m.shape) != (LM_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits_m).all()):
+        raise AssertionError(f"{SSM_ARCH} mesh logits not finite of the "
+                             "expected shape")
+    if not torch.equal(logits_m, logits) or not np.array_equal(out_m, out):
+        raise AssertionError(
+            f"{SSM_ARCH}: the 1 x 1 mesh against mesh=None: logits equal "
+            f"{torch.equal(logits_m, logits)}, tokens equal "
+            f"{np.array_equal(out_m, out)}")
+    turns = {"none": [], "mesh": []}
+    for name in ("none", "mesh", "mesh", "none"):
+        eng = plain if name == "none" else meshed
+        _, st = eng.generate(prompts, max_new=LM_NEW)
+        turns[name].append({
+            "prefill_ms": _prefill_ms(torch, eng, prompts),
+            "decode_tokens_per_s": st.tokens_per_s})
+    del meshed, plain
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "ssm_heads": cfg.ssm.num_heads(
+                cfg.d_model), "batch": LM_BATCH, "prompt": LM_PROMPT,
+            "new": LM_NEW, "mesh_equals_none_bit_for_bit": True,
+            "ssd_launches_per_prefill": per_prefill, "turns": turns,
+            "launches": {"mamba2_ssd": launches}}
+
+
+def mesh_serve(torch, read, read_ssd) -> dict:
     """llama3.2-1b at full width and depth served on the 1 × 1 mesh (an
     NCCL world of one: every collective the identity, every local shard a
     whole leaf, the code a rank of a larger mesh runs) and with
     ``mesh=None``, bf16 and int8 weights: the same bits, and the costs of
-    the mesh layer.  ``read()`` returns the mesh path's flash launches: it
-    is called after the mesh engines' calls, before the ``mesh=None``
-    engines run."""
+    the mesh layer; then mamba2-1.3b the same way (``mesh_serve_ssm``).
+    ``read()`` returns the llama mesh path's flash launches: it is called
+    after the mesh engines' calls, before the ``mesh=None`` engines run;
+    ``read_ssd()`` the mamba2 mesh path's SSD launches, likewise."""
     import numpy as np
 
     import torch.distributed as dist
@@ -5401,9 +5544,13 @@ def mesh_serve(torch, read) -> dict:
             gather_ms[w] = (time.perf_counter() - t0) / 5 * 1e3
         del meshed, plain
         torch.cuda.empty_cache()
+        ssm = mesh_serve_ssm(torch, mesh, read_ssd)
         count = torch.cuda.device_count()
-        two_card = mesh_serve_two_card(torch) if count >= 2 else \
-            f"not run: this machine has {count} card"
+        two_card = {
+            MESH_SERVE_ARCH: mesh_serve_two_card(torch),
+            f"{SSM_ARCH}.smoke": mesh_serve_two_card(torch, arch=SSM_ARCH,
+                                                     smoke=True)} \
+            if count >= 2 else f"not run: this machine has {count} card"
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -5417,8 +5564,10 @@ def mesh_serve(torch, read) -> dict:
         "mesh_equals_none_bit_for_bit": {"bf16": True, "int8": True},
         "flash_launches_per_prefill": per_prefill,
         "turns": turns, "local_shards_ms": gather_ms,
-        "peak_mem_gb": peak_gb, "b3_on_a_shard": shard,
-        "launches": {"flash_attention": launches}, "two_card": two_card,
+        "peak_mem_gb": peak_gb, "b3_on_a_shard": shard, "ssm": ssm,
+        "launches": {"flash_attention": launches,
+                     "mamba2_ssd": ssm["launches"]["mamba2_ssd"]},
+        "two_card": two_card,
     }
 
 
@@ -5426,14 +5575,6 @@ def mesh_serve(torch, read) -> dict:
 # phase 25: the dry-run — the meta device's counts, and the card beside them
 # ---------------------------------------------------------------------------
 
-#: the reference's dry-run smoke cells (``tests/test_dryrun_smoke.py``),
-#: traced here at the production meshes (16 × 16 and 2 × 16 × 16)
-DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "single"),
-                ("qwen2-0.5b", "prefill_32k", "single"),
-                ("qwen2-0.5b", "decode_32k", "single"),
-                ("mamba2-1.3b", "long_500k", "single"),
-                ("granite-moe-1b-a400m", "train_4k", "multi"),
-                ("seamless-m4t-medium", "decode_32k", "single"))
 #: steps the card runs in other phases, traced on a world of one and run
 #: on the card's 1 × 1 mesh: (name, arch, seq, batch, kind) — lm_serve's
 #: prefill of 4 × 1024 and mesh_train's step of 4 × 1024
@@ -5441,7 +5582,6 @@ DRYRUN_TIES = (("llama3.2-1b.prefill", LM_MODELS[0], LM_PROMPT, LM_BATCH,
                 "prefill"),
                ("qwen2-0.5b.mesh_train", RESILIENT_ARCH, RESILIENT_RUN["seq"],
                 RESILIENT_RUN["batch"], "train"))
-DRYRUN_DIR = os.path.join(ROOT, "chiprun_out", "dryrun")
 DRYRUN_LIMIT_S = 120
 DRYRUN_TIMED_STEPS = 3
 
@@ -5537,59 +5677,27 @@ def _finish(proc: subprocess.Popen, what: str, timeout: float) -> str:
 
 
 def dryrun(torch, smi: str) -> dict:
-    """``python -m repro_torch.launch.dryrun`` on the reference's six smoke
-    cells at the production meshes, in parallel processes (each cell's
-    ``dominant``, ``bound_s``, peak GB a device against the card's 80 GB
-    and its seconds; every number modeled, none measured); then each of
-    ``DRYRUN_TIES`` traced on a world of one and run on the card: the
-    predicted argument bytes must equal the bytes the card's allocator
-    was asked for before the step (``requested_bytes``, less the mesh's
-    own), with ``torch.cuda.memory_allocated()`` (its blocks) beside
-    them; the predicted peak against both peaks; ``bound_s`` against the
-    measured ms.  The phase fails if a cell fails or the
-    whole takes over ``DRYRUN_LIMIT_S``."""
-    import shutil
-
+    """Each of ``DRYRUN_TIES`` traced on a world of one
+    (``launch.dryrun.build_step`` under its ``StepCounter``, on the host's
+    CPU) and run on the card: the predicted argument bytes must equal the
+    bytes the card's allocator was asked for before the step
+    (``requested_bytes``, less the mesh's own), with
+    ``torch.cuda.memory_allocated()`` (its blocks) beside them; the
+    predicted peak against both peaks; ``bound_s`` against the measured
+    ms.  (The production meshes' cells are the CPU's to count:
+    ``tests/test_torch_dryrun.py`` runs the reference's smoke cells.)  The
+    phase fails if a tie fails or the whole takes over
+    ``DRYRUN_LIMIT_S``."""
     from torch.testing._internal.distributed import fake_pg  # noqa: F401
 
     from repro_torch.launch import roofline
 
     t0 = time.perf_counter()
-    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
-    cells = {}
-    for arch, shape, mesh in DRYRUN_CELLS:
-        code = ("import sys\nfrom repro_torch.launch.dryrun import main\n"
-                f"sys.exit(main(['--arch', {arch!r}, '--shape', {shape!r}, "
-                f"'--mesh', {mesh!r}, '--out', {DRYRUN_DIR!r}]))")
-        cells[(arch, shape, mesh)] = _python(code, cpu_only=True)
     predicted = {
         name: _python("import chip_smoke, json\nprint(json.dumps("
                       f"chip_smoke.dryrun_tie({name!r}, 'meta')))",
                       cpu_only=True)
         for name, *_ in DRYRUN_TIES}
-    rows = []
-    for (arch, shape, mesh), proc in cells.items():
-        what = f"dryrun {arch} {shape} {mesh}"
-        _finish(proc, what, DRYRUN_LIMIT_S)
-        safe = arch.replace(".", "_").replace("/", "_")
-        with open(os.path.join(DRYRUN_DIR,
-                               f"{safe}__{shape}__{mesh}.json")) as f:
-            rec = json.load(f)
-        if not rec.get("ok") or rec.get("skipped"):
-            raise AssertionError(f"{what}: {rec.get('error', rec)}")
-        rows.append({
-            "arch": arch, "shape": shape, "mesh": mesh,
-            "chips": rec["chips"], "dominant": rec["dominant"],
-            "bound_s": rec["bound_s"],
-            "flops_per_device": rec["hlo_flops_per_device"],
-            "bytes_per_device": rec["hlo_bytes_per_device"],
-            "collective_bytes_per_device":
-                rec["collective_bytes_per_device"],
-            "peak_gb": rec["peak_bytes_per_device"] / 1e9,
-            "device_gb": rec["device_memory_bytes"] / 1e9,
-            "kernel_calls": {k: v["launches"]
-                             for k, v in rec["kernel_calls"].items()},
-            "seconds": rec["compile_s"]})
     ties = []
     for name, *_ in DRYRUN_TIES:
         pred = json.loads(_finish(predicted[name], f"dryrun {name} meta",
@@ -5627,8 +5735,7 @@ def dryrun(torch, smi: str) -> dict:
         raise AssertionError(f"the dryrun phase took {seconds:.0f} s, over "
                              f"{DRYRUN_LIMIT_S}")
     return {"card": smi, "modeled": roofline.MODELED,
-            "fake_pg_imports": True, "cells": rows, "ties": ties,
-            "seconds": seconds}
+            "fake_pg_imports": True, "ties": ties, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -5860,9 +5967,13 @@ def main(argv=None) -> int:
         emit_phase("mesh_train", meshed)
     fa.reset_counts()                  # counts: zero before the mesh server
     if "mesh_serve" in phases:
-        served = mesh_serve(torch, read=lambda: read_after(     # read after
-            fa, "flash_attention", "mesh serve"))
+        served = mesh_serve(
+            torch, read=lambda: read_after(                     # read after
+                fa, "flash_attention", "mesh serve"),
+            read_ssd=lambda: read_after(                        # read after
+                ms, "mamba2_ssd", "SSM mesh serve"))
         fa_launches += served["launches"]["flash_attention"]
+        ms_launches += served["launches"]["mamba2_ssd"]
         emit_phase("mesh_serve", served)
     if "dryrun" in phases:               # meta and subprocesses: no count
         emit_phase("dryrun", dryrun(torch, smi))

@@ -31,7 +31,11 @@ Layout (one directory per step)::
   their mesh.  So a checkpoint written on a (4, 2) mesh restores onto
   (2, 2, 2) or one device.
 * **Under a process group** — a DTensor leaf is gathered to its full
-  value on the calling thread, a collective every rank takes part in;
+  value on the calling thread, a collective every rank takes part in,
+  and given the tree's ``shardings`` laid back into the reference's
+  column order (``distributed.sharding.whole``: a Mamba mixer leaf split
+  by heads is placed in another), so that a file holds the same arrays
+  whatever mesh wrote it;
   only rank 0 copies the leaves to host memory, writes files, renames
   and collects old steps (the other ranks drop what they gathered), and
   ``save`` and ``wait`` end at a barrier, so that every rank then sees
@@ -64,14 +68,15 @@ _EXT_DTYPES = {
 }
 
 
-def _to_host(x) -> tuple[np.ndarray, str]:
+def _to_host(x, sharding=None) -> tuple[np.ndarray, str]:
     """(storage array, logical dtype name) of a host copy of ``x`` that
     the caller may not mutate: a tensor copied off its device (a CUDA
-    tensor blocking) or cloned, an array copied."""
+    tensor blocking) or cloned, an array copied; a DTensor made whole
+    by ``sharding`` (``distributed.sharding.whole``) first."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
         if _is_dtensor(t):
-            t = t.full_tensor()        # a collective: every rank gathers
+            t = _whole(t, sharding)    # a collective: every rank gathers
         t = t.to("cpu") if t.device.type != "cpu" else t.clone()
         t = t.contiguous()
         name = str(t.dtype).removeprefix("torch.")
@@ -81,6 +86,25 @@ def _to_host(x) -> tuple[np.ndarray, str]:
         return t.numpy(), name
     arr = np.array(x, copy=True)
     return arr, arr.dtype.name
+
+
+def _whole(t, sharding):
+    from repro_torch.distributed.sharding import whole
+
+    return whole(t, sharding)
+
+
+def _shardings_of(tree, shardings) -> list:
+    """``shardings`` (congruent with ``tree``) flattened in its order, or
+    ``None`` for every leaf."""
+    n = len(tree_flatten_with_path(tree))
+    if shardings is None:
+        return [None] * n
+    place = [sh for _, sh in tree_flatten_with_path(shardings)]
+    if len(place) != n:
+        raise ValueError(f"{len(place)} shardings for a template of {n} "
+                         "leaves")
+    return place
 
 
 def _is_dtensor(x) -> bool:
@@ -155,21 +179,28 @@ class CheckpointManager:
 
     # -- save ------------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
-        """Synchronous atomic save; returns the step's directory."""
-        host = self._snapshot(tree)
+    def save(self, step: int, tree: Any, extra: dict | None = None, *,
+             shardings: Any = None) -> str:
+        """Synchronous atomic save; returns the step's directory.
+        ``shardings``: the ``distributed.sharding.NamedSharding`` tree the
+        DTensor leaves were placed by — needed where one carries a column
+        order (a Mamba mixer split by heads), which the file then holds
+        as the reference's."""
+        host = self._snapshot(tree, shardings)
         if _writes():
             self._write(step, host, extra or {})
         _barrier()
         return self._step_dir(step)
 
-    def save_async(self, step: int, tree: Any, extra: dict | None = None) -> None:
+    def save_async(self, step: int, tree: Any, extra: dict | None = None,
+                   *, shardings: Any = None) -> None:
         """Snapshot now, write on a background thread.  The snapshot
         copies every leaf, so the caller may change or free the tree as
         soon as this returns.  A failed write raises from the next
-        ``wait`` (or ``save_async``, which waits first)."""
+        ``wait`` (or ``save_async``, which waits first).  ``shardings``
+        as for :meth:`save`."""
         self.wait()
-        host = self._snapshot(tree)
+        host = self._snapshot(tree, shardings)
         if not _writes():
             return
 
@@ -194,18 +225,21 @@ class CheckpointManager:
             raise err
 
     @staticmethod
-    def _snapshot(tree: Any) -> list:
+    def _snapshot(tree: Any, shardings: Any = None) -> list:
         """(path, storage array, logical dtype) of a host copy of every
-        leaf, in the reference's order.  A rank that writes no files only
-        takes part in the gathers of the DTensor leaves, copies nothing to
-        the host and returns an empty list."""
+        leaf, in the reference's order, each DTensor made whole by its
+        sharding.  A rank that writes no files only takes part in the
+        gathers of the DTensor leaves, copies nothing to the host and
+        returns an empty list."""
         flat = tree_flatten_with_path(tree)
+        place = _shardings_of(tree, shardings)
         if not _writes():
-            for _, x in flat:
+            for (_, x), sh in zip(flat, place):
                 if _is_dtensor(x):
-                    x.detach().full_tensor()    # a collective
+                    _whole(x.detach(), sh)      # a collective
             return []
-        return [(path, *_to_host(x)) for path, x in flat]
+        return [(path, *_to_host(x, sh))
+                for (path, x), sh in zip(flat, place)]
 
     def _write(self, step: int, host: list, extra: dict) -> str:
         final = self._step_dir(step)
@@ -260,11 +294,9 @@ class CheckpointManager:
         :class:`ValueError`.
         """
         dev = resolve_device(device)
-        place = [None] * len(tree_flatten_with_path(template))
+        place = _shardings_of(template, shardings)
         if shardings is not None:
             from repro_torch.distributed.sharding import distribute
-
-            place = [sh for _, sh in tree_flatten_with_path(shardings)]
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -273,9 +305,6 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, template "
                 f"{len(flat)} — structure changed?")
-        if len(place) != len(flat):
-            raise ValueError(f"{len(place)} shardings for a template of "
-                             f"{len(flat)} leaves")
         out = []
         for i, (meta, (_, tmpl), sh) in enumerate(
                 zip(manifest["leaves"], flat, place)):

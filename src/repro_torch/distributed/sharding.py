@@ -20,12 +20,25 @@ placements, one per mesh axis: ``Shard(d)`` where the spec puts that
 axis on tensor dimension ``d``, ``Replicate()`` elsewhere.  A dimension
 over ``("pod", "data")`` takes ``Shard(d)`` on both, ``pod`` the outer,
 as JAX orders them.
+
+The Mamba-2 mixer's leaves take the reference's specs, but which of
+their columns lie on a rank differs: ``in_proj``'s columns are ``z | x |
+B | C | dt`` (the conv's ``x | B | C``), and a contiguous cut of them is
+not a set of heads.  Where the mixer splits by heads
+(:func:`mixer_splits`), the sharding carries the widths of those parts
+(``NamedSharding.parts``): each part is cut into ``model`` blocks, and a
+rank's blocks lie side by side (:func:`column_order`), so that a rank
+holds the columns of its own heads in the same local extent.
+:func:`distribute` lays a whole leaf out in that order and
+:func:`whole` takes it back to the reference's; a checkpoint holds the
+reference's order whatever mesh wrote it.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -35,13 +48,25 @@ from . import ctx
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class NamedSharding:
-    """A spec on a mesh (JAX's ``NamedSharding``)."""
+    """A spec on a mesh (JAX's ``NamedSharding``).  ``parts``: the widths
+    of the parts of the last dimension, each cut into ``model`` blocks
+    with a rank's blocks side by side (:func:`column_order`) — a Mamba
+    mixer leaf split by heads; ``None``: the dimension is cut as it
+    lies."""
 
     mesh: Mesh
     spec: tuple
+    parts: Optional[tuple] = None
 
     def placements(self) -> list:
         return placements(self.mesh, self.spec)
+
+    def order(self) -> Optional[torch.Tensor]:
+        """:func:`column_order` of ``parts`` over the ``model`` axis, or
+        ``None``."""
+        if self.parts is None:
+            return None
+        return column_order(self.parts, self.mesh.shape["model"])
 
 
 def placements(mesh: Mesh, spec: tuple) -> list:
@@ -150,6 +175,70 @@ def _param_spec_for(name: str, ndim: int, fsdp, *, q_ok=True,
     return ()                                    # norms, scalars: replicate
 
 
+# ---------------------------------------------------------------------------
+# the Mamba mixer's columns, by heads
+# ---------------------------------------------------------------------------
+
+
+def mixer_splits(cfg, count: int) -> bool:
+    """Whether ``cfg``'s Mamba-2 mixer computes a rank's heads over a
+    ``model`` axis of ``count`` ranks: ``count`` divides its heads and its
+    state, and so ``d_inner`` and the widths of ``in_proj`` and the conv.
+    Elsewhere its leaves are gathered along ``model`` and every rank
+    computes every column (``models/mamba2.py:_whole_leaves``)."""
+    s = cfg.ssm
+    return s is not None and s.num_heads(cfg.d_model) % count == 0 \
+        and s.state_dim % count == 0
+
+
+def mixer_parts(cfg, *, conv: bool = False) -> tuple:
+    """The widths of ``in_proj``'s parts ``z | x | B | C | dt`` (d_inner,
+    d_inner, N, N, H), or with ``conv`` of the conv's ``x | B | C``."""
+    s, d = cfg.ssm, cfg.d_model
+    di, n = s.d_inner(d), s.state_dim
+    return (di, n, n) if conv else (di, di, n, n, s.num_heads(d))
+
+
+def column_order(parts: tuple, count: int) -> torch.Tensor:
+    """The columns of a dimension of ``parts`` (widths, side by side) laid
+    out for ``count`` ranks: each part cut into ``count`` blocks, rank
+    ``r``'s blocks side by side, the ranks in order — position ``j``
+    holds column ``order[j]`` of the whole.  The identity at ``count``
+    1."""
+    starts = [0, *itertools.accumulate(parts)][:-1]
+    blocks = [torch.arange(w).view(count, w // count) + s0
+              for s0, w in zip(starts, parts)]
+    return torch.cat(blocks, dim=1).reshape(-1)
+
+
+def mixer_order(cfg, count: int, *, conv: bool = False) -> torch.Tensor:
+    """:func:`column_order` of ``in_proj``'s columns (``conv``: the conv
+    weight's and the conv cache's) for a ``model`` axis of ``count``."""
+    return column_order(mixer_parts(cfg, conv=conv), count)
+
+
+def mixer_order_inverse(cfg, count: int, *,
+                        conv: bool = False) -> torch.Tensor:
+    """The inverse of :func:`mixer_order`: column ``i`` of the whole lies
+    at position ``inverse[i]`` of the laid-out dimension."""
+    return torch.argsort(mixer_order(cfg, count, conv=conv))
+
+
+def _mixer_leaf_parts(cfg, mesh: Mesh, name: str, spec: tuple):
+    """``parts`` of a leaf named ``name``: a Mamba mixer leaf whose last
+    dimension the spec puts on ``model`` where the mixer splits by heads
+    over more than one rank; else ``None``."""
+    count = mesh.shape.get("model", 1)
+    if cfg is None or count == 1 or not spec or spec[-1] != "model" \
+            or not mixer_splits(cfg, count):
+        return None
+    if name == "in_proj":
+        return mixer_parts(cfg)
+    if name in ("conv_w", "conv"):              # the weight, the cache
+        return mixer_parts(cfg, conv=True)
+    return None
+
+
 def axis_size(mesh: Mesh, axes) -> int:
     if axes is None:
         return 1
@@ -169,7 +258,13 @@ def make_param_shardings(mesh: Mesh, params_shape: Any, cfg=None) -> Any:
 
     Divisibility-aware: an axis that does not divide its dimension is
     dropped (that dimension replicates).  ``cfg`` (a ``ModelConfig``)
-    enables head-aware attention sharding (:func:`_param_spec_for`)."""
+    enables head-aware attention sharding (:func:`_param_spec_for`) and
+    the Mamba mixer's split by heads: where ``model`` divides its heads
+    and its state (:func:`mixer_splits`), ``in_proj`` and ``conv_w`` keep
+    their specs and carry their parts (``NamedSharding.parts``), and the
+    mixer computes a rank's heads on its own columns; elsewhere they are
+    cut as they lie and the mixer gathers them whole along ``model``
+    (``models/mamba2.py:_whole_leaves``, the fallback)."""
     fsdp = fsdp_axes(mesh)
     tp = mesh.shape.get("model", 1)
     q_ok = cfg is None or cfg.num_heads == 0 or cfg.num_heads % tp == 0
@@ -186,7 +281,8 @@ def make_param_shardings(mesh: Mesh, params_shape: Any, cfg=None) -> Any:
         parts = parts[:ndim] + (None,) * (ndim - len(parts))
         parts = tuple(a if _fits(leaf.shape[i], mesh, a) else None
                       for i, a in enumerate(parts))
-        return NamedSharding(mesh, parts)
+        return NamedSharding(mesh, parts,
+                             _mixer_leaf_parts(cfg, mesh, name, parts))
 
     return _map_with_path(spec_for, params_shape)
 
@@ -233,12 +329,14 @@ def make_batch_shardings(mesh: Mesh, batch_shape: Any) -> Any:
     return _map_with_path(spec_for, batch_shape)
 
 
-def make_cache_shardings(mesh: Mesh, cache_shape: Any) -> Any:
+def make_cache_shardings(mesh: Mesh, cache_shape: Any, cfg=None) -> Any:
     """KV / SSM cache sharding with divisibility-aware fallbacks.
 
     Attention KV (L, B, Hkv, S, hd): heads over ``model`` where they
     divide it, else the sequence over ``model``; the batch over the DP
-    group wherever it divides."""
+    group wherever it divides.  Given ``cfg``, the Mamba conv cache
+    carries the conv's parts where the mixer splits by heads, as
+    ``conv_w`` does (:func:`make_param_shardings`)."""
     dp = dp_axes(mesh)
 
     def kv_spec(shape):
@@ -257,7 +355,9 @@ def make_cache_shardings(mesh: Mesh, cache_shape: Any) -> Any:
         if name == "conv" and nd == 4:          # (L, B, K-1, conv_dim)
             d = dp if _fits(leaf.shape[1], mesh, dp) else None
             m = "model" if _fits(leaf.shape[3], mesh, "model") else None
-            return NamedSharding(mesh, (None, d, None, m))
+            spec = (None, d, None, m)
+            return NamedSharding(mesh, spec,
+                                 _mixer_leaf_parts(cfg, mesh, name, spec))
         if name == "ssm" and nd == 5:           # (L, B, H, P, N)
             d = dp if _fits(leaf.shape[1], mesh, dp) else None
             m = "model" if _fits(leaf.shape[2], mesh, "model") else None
@@ -274,9 +374,14 @@ def make_cache_shardings(mesh: Mesh, cache_shape: Any) -> Any:
 
 def distribute(tensor: torch.Tensor, sharding: NamedSharding):
     """``tensor`` — the same full value on every rank — as a DTensor on
-    the sharding's mesh: each rank keeps its own shard, nothing moves."""
+    the sharding's mesh: each rank keeps its own shard, nothing moves.
+    Where the sharding carries parts, the last dimension is laid out in
+    their order first (:func:`column_order`)."""
     from torch.distributed.tensor import distribute_tensor
 
+    order = sharding.order()
+    if order is not None:
+        tensor = tensor.index_select(-1, order.to(tensor.device))
     return distribute_tensor(tensor, sharding.mesh.device_mesh,
                              sharding.placements(), src_data_rank=None)
 
@@ -285,6 +390,28 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
     """:func:`distribute` over a tree and its congruent shardings."""
     by_path = dict(_leaves_with_path(shardings))
     return _map_with_path(lambda keys, x: distribute(x, by_path[keys]), tree)
+
+
+def whole(x, sharding: Optional[NamedSharding] = None):
+    """A DTensor placed by ``sharding`` (:func:`distribute`) as its full
+    value in the reference's column order — a collective every rank of
+    its mesh takes part in; a plain tensor as it is.  ``sharding``
+    ``None``: the full value as the ranks lay it out."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    t = x.full_tensor()
+    order = None if sharding is None else sharding.order()
+    if order is None:
+        return t
+    return t.index_select(-1, torch.argsort(order).to(t.device))
+
+
+def whole_tree(tree: Any, shardings: Any) -> Any:
+    """:func:`whole` over a tree and its congruent shardings."""
+    by_path = dict(_leaves_with_path(shardings))
+    return _map_with_path(lambda keys, x: whole(x, by_path[keys]), tree)
 
 
 # ---------------------------------------------------------------------------

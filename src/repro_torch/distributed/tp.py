@@ -22,6 +22,13 @@ compute on the shards, joined over the ``model`` group of the installed
 * :func:`gather` — a tensor split along ``model`` made whole (the
   vocabulary shards of the logits; the leaves of a layer every rank
   computes whole), whose backward keeps this rank's block;
+* :func:`gather_shared` — the same forward, for a tensor that every
+  rank then uses in its own way (the Mamba mixer's ``B`` and ``C``,
+  shared by every head): its backward sums every rank's gradient and
+  keeps this rank's block (a reduce-scatter);
+* :func:`sum_shared` — :func:`sum_partial`'s forward, for a sum that
+  every rank uses in its own way (the Mamba gated norm's statistic over
+  ``d_inner``): its backward sums the gradient over the group too;
 * :func:`max_over` — the group's maximum (the chunked CE's softmax
   shift; no gradient);
 * :func:`combine_softmax` — the (max, sum, out) triples of a softmax
@@ -153,11 +160,13 @@ def cache_from_prefill(prefill: Any, shapes: Any, shardings: Any,
     (``make_cache_shardings`` of ``shapes``, the zeroed cache on
     ``meta``), filled from ``prefill``, the tight caches a mesh prefill
     step returns.  Those hold this rank's rows and, under a head split,
-    its heads; along the rest they hold every index — an attention
-    cache's ``plen`` positions, the Mamba leaves' columns, which the
-    mixer computes whole — and the rank takes its block there: positions
-    ``[offset, offset + S/count)`` of the zero-padded prompt, the
-    columns of its ``model`` shard."""
+    its heads — the Mamba mixer's conv columns and SSM heads too, in the
+    mixer's column order (``sharding.column_order``) — and are kept as
+    they are there.  Along the rest they hold every index — an attention
+    cache's ``plen`` positions; the Mamba leaves' columns and heads where
+    the mixer computes them whole (``mamba2._whole_leaves``) — and the
+    rank takes its block: positions ``[offset, offset + S/count)`` of the
+    zero-padded prompt, the columns of its ``model`` shard."""
     from torch.distributed.tensor import DTensor
 
     from .sharding import _leaves_with_path, _map_with_path
@@ -173,7 +182,8 @@ def cache_from_prefill(prefill: Any, shapes: Any, shardings: Any,
         for d, axes in enumerate(spec):
             on_model = axes == "model" or (
                 isinstance(axes, tuple) and "model" in axes)
-            if (d == 3) if positional else on_model:
+            if (d == 3) if positional else (on_model
+                                            and src.shape[d] != local[d]):
                 start = min(offset[d], src.shape[d])
                 src = src.narrow(d, start,
                                  min(local[d], src.shape[d] - start))
@@ -258,6 +268,43 @@ class _Gather(torch.autograd.Function):
         return own_block(g, ctx.dim, ctx.split), None, None
 
 
+class _SumShared(torch.autograd.Function):
+    """Forward: the f32 sum over the group.  Backward: the f32 sum over
+    the group of the gradient — each rank uses the sum in its own way, so
+    each holds only its share of the sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce_f32(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.group), None
+
+
+class _GatherShared(torch.autograd.Function):
+    """Forward: the blocks along ``dim`` over the group, joined.
+    Backward: the f32 sum over the group of every rank's gradient of the
+    whole, this rank's block kept (one reduce-scatter) — each rank uses
+    the whole in its own way, so each holds a partial of its gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return _all_gather_cat(t, dim, split.group, split.count)
+
+    @staticmethod
+    def backward(ctx, g):
+        count, dim = ctx.split.count, ctx.dim % g.ndim
+        parts = g.to(torch.float32).unflatten(dim, (count, -1)).movedim(
+            dim, 0).contiguous()
+        mine = parts.new_empty(parts[0].numel())
+        dist.reduce_scatter_tensor(mine, parts.view(-1),
+                                   group=ctx.split.group)
+        return mine.view(parts.shape[1:]).to(g.dtype), None, None
+
+
 def sum_partial(t: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
     """The sum over ``split``'s group of each rank's partial ``t``, taken
     in f32 and rounded once to ``t``'s dtype; ``t`` itself with no split.
@@ -287,6 +334,40 @@ def gather(t: torch.Tensor, dim: int,
     if split is None:
         return t
     return _Gather.apply(t, dim, split)
+
+
+def sum_shared(t: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
+    """:func:`sum_partial`'s sum, for a sum that every rank then uses in
+    its own way (a statistic over columns that the ranks share out): its
+    gradient is the sum over the group of each rank's; ``t`` itself with
+    no split."""
+    if split is None:
+        return t
+    return _SumShared.apply(t, split.group)
+
+
+def gather_shared(t: torch.Tensor, dim: int,
+                  split: Optional[ModelSplit]) -> torch.Tensor:
+    """:func:`gather`'s whole, for a tensor that every rank then uses in
+    its own way (``B`` and ``C``, which every head of the Mamba mixer
+    reads): its gradient is the sum over the group of every rank's, this
+    rank's block kept; ``t`` itself with no split."""
+    if split is None:
+        return t
+    return _GatherShared.apply(t, dim, split)
+
+
+def mixer_split(cfg) -> Optional[ModelSplit]:
+    """The installed split where the Mamba mixer of ``cfg`` computes this
+    rank's heads (``sharding.mixer_splits``: it divides the heads and the
+    state), else ``None``: the mixer's leaves are gathered along
+    ``model`` and every rank computes every column."""
+    from .sharding import mixer_splits
+
+    split = ctx.model_split()
+    if split is None or not mixer_splits(cfg, split.count):
+        return None
+    return split
 
 
 def max_over(t: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:

@@ -237,7 +237,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     d = S.decode_input_specs(cfg, shape)
     cache = d["cache"] if meta else ST.model_init_cache(
         cfg, shape.global_batch, shape.seq_len, device=device)
-    cache = shd.distribute_tree(cache, shd.make_cache_shardings(mesh, cache))
+    cache = shd.distribute_tree(cache,
+                                shd.make_cache_shardings(mesh, cache, cfg))
     token = fill({"token": d["token"]})["token"]
     return step, (placed, cache, token, shape.seq_len - 1)
 

@@ -7,9 +7,9 @@ A small but real engine on one card:
   device or (``mesh=...``) on a device mesh: the parameters as DTensors
   placed by ``distributed.sharding.make_param_shardings``, the decode
   caches by ``make_cache_shardings``, and each rank computing its rows
-  of ``data`` on its shard of ``model`` — heads, ``d_ff``, experts and
-  the vocabulary (``distributed/tp.py``).  The hand-written kernels see
-  only plain local tensors.
+  of ``data`` on its shard of ``model`` — heads, ``d_ff``, experts, the
+  vocabulary and the Mamba mixer's heads (``distributed/tp.py``).  The
+  hand-written kernels see only plain local tensors.
 * Requests are processed in *waves* (static-batch continuous batching):
   a wave of B prompts is prefilled together — through the hand-written
   flash-attention kernel (each attention layer of the dense, MoE and
@@ -218,7 +218,8 @@ class ServeEngine:
                                          device="meta")
             return tp.cache_from_prefill(
                 prefill_caches, shapes,
-                shd.make_cache_shardings(self.mesh, shapes), self.mesh)
+                shd.make_cache_shardings(self.mesh, shapes, self.cfg),
+                self.mesh)
         full = ST.model_init_cache(self.cfg, bsz, self.max_len,
                                    device=self.device)
 

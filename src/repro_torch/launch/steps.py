@@ -15,8 +15,8 @@ the encoder–decoder (``encdec.encdec_loss``), with ``mlp_impl`` dense or
 streamed (the fused MLP's gradient through its backward kernel).
 
 On a device mesh each rank computes its rows of the global batch on its
-shard of ``model`` (heads, ``d_ff``, experts, vocabulary;
-``distributed/tp.py``): the serve steps (``mesh=``), whose logits come
+shard of ``model`` (heads, ``d_ff``, experts, vocabulary, the Mamba
+mixer's heads; ``distributed/tp.py``): the serve steps (``mesh=``), whose logits come
 back whole, and :func:`make_sharded_train_step`, backward included,
 which gathers the params along the data axes one superblock at a time
 and hands each rank the gradient of its own shards.

@@ -136,9 +136,11 @@ class TrainRun:
         if self.ckpt is None:
             return
         params, opt_state = state
+        shardings = None if self.mesh is None else \
+            {"params": self.p_shard, "opt": self.o_shard}
         self.ckpt.save_async(
-            step, {"params": params, "opt": opt_state}, extra={"step": step}
-        )
+            step, {"params": params, "opt": opt_state}, extra={"step": step},
+            shardings=shardings)
 
     # -- one step -------------------------------------------------------------
 

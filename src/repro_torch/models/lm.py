@@ -249,11 +249,15 @@ def _apply_block_decode(p, cfg, spec: LayerSpec, h, pos: int, cache: dict):
         a, _, _ = L.attention_decode(p["attn"], cfg, x, pos, cache["k"],
                                      cache["v"])
     else:
-        # the mixer computes every column: the cache leaves the rules put
-        # on ``model`` are gathered, and each rank writes its block back
+        # a rank of a head split updates its own conv columns and heads;
+        # where the mixer computes every column instead, the cache leaves
+        # the rules put on ``model`` are gathered and each rank writes its
+        # block back
         s, d = cfg.ssm, cfg.d_model
-        on_conv = tp.split_along(s.conv_dim(d))
-        on_ssm = tp.split_along(s.num_heads(d))
+        on_conv = on_ssm = None
+        if tp.mixer_split(cfg) is None:
+            on_conv = tp.split_along(s.conv_dim(d))
+            on_ssm = tp.split_along(s.num_heads(d))
         a, conv, ssm = M.mamba_decode(
             p["mamba"], cfg, x, tp.gather(cache["conv"], -1, on_conv),
             tp.gather(cache["ssm"], 1, on_ssm))

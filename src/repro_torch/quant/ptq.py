@@ -30,6 +30,7 @@ Usage::
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -92,15 +93,16 @@ def quantized_param_shardings(p_shard: Any, params_shape: Any) -> Any:
     """Shardings for the quantized tree (``distributed.sharding``): at a
     ≥2-D floating leaf a :class:`QTensor` of two — ``q`` takes the weight's
     sharding, the (…, 1, out) ``scale`` the same spec with the
-    contraction axis (−2) replicated; every other leaf keeps its own."""
-    from repro_torch.distributed.sharding import NamedSharding
+    contraction axis (−2) replicated and the weight's column order
+    (``NamedSharding.parts``), so that each column keeps its scale; every
+    other leaf keeps its own."""
 
     def one(sh, leaf):
         if leaf.ndim < 2 or not leaf.dtype.is_floating_point:
             return sh
         spec = list(sh.spec) + [None] * (leaf.ndim - len(sh.spec))
         spec[-2] = None
-        return QTensor(sh, NamedSharding(sh.mesh, tuple(spec)))
+        return QTensor(sh, dataclasses.replace(sh, spec=tuple(spec)))
 
     return tree_map(one, p_shard, params_shape)
 

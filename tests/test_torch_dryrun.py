@@ -14,6 +14,7 @@ import pytest
 
 from repro_torch.configs.base import SHAPES, count_params, shape_applicable
 from repro_torch.configs.registry import all_archs, get_config
+from repro_torch.kernels import work
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import roofline
 
@@ -243,6 +244,19 @@ def _embedding_share(cfg, rec) -> float:
         / rec["params_active"]
 
 
+def _unapplied_head_share(cfg, rec, shape: str) -> float:
+    """A prefill applies the output head to the last position of each row
+    only, where the model's count applies it at every position: the
+    share of an untied ``lm_head``'s params in ``model_flops_per_chip``
+    (a tied head is the embedding's, which :func:`_embedding_share`
+    leaves out already)."""
+    if SHAPES[shape].kind != "prefill" or cfg.tie_embeddings or \
+            cfg.family == "encdec":
+        return 0.0
+    return rec["model_flops_per_chip"] * cfg.padded_vocab * cfg.d_model \
+        / rec["params_active"]
+
+
 #: one prefill and one train cell per family, at full width on the
 #: production 16 × 16 mesh, where a cell traces in well under a minute
 FULL_WIDTH = [
@@ -258,16 +272,18 @@ FULL_WIDTH = [
 @pytest.mark.parametrize("arch,shape", FULL_WIDTH)
 def test_invariants_at_full_width(arch, shape, subproc, tmp_path):
     """On the production mesh: the counted FLOPs a device are at least
-    the model's share less the embedding lookup's (no undercount), the
-    peak holds the arguments, and rank 0 and the last rank count the
-    same (SPMD) but for the MoE routing's sum over earlier ranks, named
-    here.  (The cell's ``data`` × ``model`` is ``pick_tp``'s, as the
+    the model's share less the embedding lookup's and, in a prefill, the
+    head's at every position but the last (no undercount), the peak
+    holds the arguments, and rank 0 and the last rank count the same
+    (SPMD) but for the MoE routing's sum over earlier ranks, named here.
+    (The cell's ``data`` × ``model`` is ``pick_tp``'s, as the
     reference's.)"""
     first = _port_cell(subproc, tmp_path / "first", arch, shape, "single")
     assert first["ok"] and first["chips"] == 256, first
     cfg = get_config(arch)
     assert first["hlo_flops_per_device"] >= \
-        first["model_flops_per_chip"] - _embedding_share(cfg, first)
+        first["model_flops_per_chip"] - _embedding_share(cfg, first) \
+        - _unapplied_head_share(cfg, first, shape)
     assert first["peak_bytes_per_device"] >= \
         first["memory_analysis"]["argument_size_in_bytes"]
     assert first["kernel_calls"], first
@@ -296,23 +312,34 @@ def test_invariants_at_full_width(arch, shape, subproc, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_mamba_mixer_is_replicated_along_model(subproc, tmp_path):
+def test_mamba_mixer_is_split_by_heads_along_model(subproc, tmp_path):
     """mamba2-1.3b prefill at the same ``data`` size: on (4, 2) a device
-    computes its mixer as on (4, 1) — the SSD's FLOPs and every product
-    but the vocabulary-parallel head's are the same — because the mixer
-    is replicated along ``model`` (§A item 6 (b)'s head split is still
-    to come).  The head split flips this test."""
+    computes half of (4, 1)'s mixer, because the mixer computes a rank's
+    heads along ``model``.  Every product — ``in_proj``, ``out_proj`` and
+    the vocabulary-parallel head — is exactly half, and B4 runs on half
+    the heads: its FLOPs are ``ssd_flops`` at H/2, half of (4, 1)'s but
+    for the c·bᵀ product that every head shares, which each rank
+    computes whole."""
     one = _port_cell(subproc, tmp_path / "one", "mamba2-1.3b", "prefill_32k",
                      "single", {"REPRO_MESH_SHAPE": "4,1"})
     two = _port_cell(subproc, tmp_path / "two", "mamba2-1.3b", "prefill_32k",
                      "single", {"REPRO_MESH_SHAPE": "4,2"})
-    assert one["kernel_calls"]["mamba2_ssd"] == two["kernel_calls"][
-        "mamba2_ssd"]
+    assert one["product_flops_by_dtype"]["bfloat16"] == \
+        2 * two["product_flops_by_dtype"]["bfloat16"]
     cfg = get_config("mamba2-1.3b")
+    s = cfg.ssm
     rows = SHAPES["prefill_32k"].global_batch // 4
-    head_half = 2 * rows * cfg.d_model * cfg.padded_vocab / 2
-    assert one["hlo_flops_per_device"] - two["hlo_flops_per_device"] \
-        == head_half
+
+    def ssd(heads):
+        return cfg.num_layers * work.ssd_flops(rows, 32_768, heads,
+                                               s.head_dim, s.state_dim)
+
+    h = s.num_heads(cfg.d_model)
+    calls = one["kernel_calls"]["mamba2_ssd"], two["kernel_calls"][
+        "mamba2_ssd"]
+    assert calls[0]["launches"] == calls[1]["launches"] == cfg.num_layers
+    assert (calls[0]["flops"], calls[1]["flops"]) == (ssd(h), ssd(h // 2))
+    assert 2 * calls[1]["flops"] - calls[0]["flops"] == ssd(0)
 
 
 def test_llama_gathers_its_attention_at_model_16(subproc, tmp_path):

@@ -71,10 +71,10 @@ def trace(eng, inputs, new):
     """Prefill ``inputs`` (prompts, or the encoder–decoder's frames) on
     ``eng``, lay out the decode cache, take ``new - 1`` greedy decode
     steps → {"logits" (new, B, V), "tokens" (B, new), "cache" {path: the
-    whole leaf}}."""
+    whole leaf, in the reference's column order}}."""
     import torch
-    from torch.distributed.tensor import DTensor
 
+    from repro_torch.distributed import sharding as shd
     from repro_torch.tree import tree_flatten_with_path
 
     frames = eng.cfg.family == "encdec"
@@ -91,8 +91,10 @@ def trace(eng, inputs, new):
                                              plen + i - 1)
             every.append(logits)
     logits = torch.stack(every)
-    whole = {path: t.full_tensor() if isinstance(t, DTensor) else t
-             for path, t in tree_flatten_with_path(cache)}
+    if eng.mesh is not None:
+        cache = shd.whole_tree(cache, shd.make_cache_shardings(
+            eng.mesh, cache, eng.cfg))
+    whole = dict(tree_flatten_with_path(cache))
     return {"logits": logits, "cache": whole,
             "tokens": logits.argmax(-1).T.to(torch.int32).numpy()}
 
@@ -106,10 +108,13 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import ServeEngine
 
+from repro_torch.kernels import ref
+
 inp = torch.load(os.path.join(OUT, "inputs.pt"), weights_only=False)
 mesh = make_host_mesh(inp["shape"], ("data", "model"))
-seen = {"attn": [], "mlp": [], "experts": []}
-real = (ops.flash_attention, ops.fused_mlp, torch.bmm)
+seen = {"attn": [], "mlp": [], "experts": [], "ssd": [], "ssd_plain": []}
+real = (ops.flash_attention, ops.fused_mlp, torch.bmm, ops.mamba2_ssd,
+        ref.ssd_chunked)
 
 def attn(q, k, v, **kw):
     seen["attn"].append((q.shape[1], k.shape[1]))
@@ -123,7 +128,16 @@ def bmm(a, b):
     seen["experts"].append(b.shape[0])
     return real[2](a, b)
 
+def ssd(x, *a, **kw):
+    seen["ssd"].append(x.shape[2])
+    return real[3](x, *a, **kw)
+
+def ssd_plain(x, *a, **kw):
+    seen["ssd_plain"].append(x.shape[2])
+    return real[4](x, *a, **kw)
+
 ops.flash_attention, ops.fused_mlp, torch.bmm = attn, mlp, bmm
+ops.mamba2_ssd, ref.ssd_chunked = ssd, ssd_plain
 out = {"coord": mesh.coordinate()}
 for name, case in inp["cases"].items():
     cfg = get_config(case["arch"], smoke=True).with_(dtype="float32",
@@ -259,11 +273,18 @@ def test_the_kernels_and_the_experts_run_on_a_model_shard(served, mesh):
     """The wrappers' inputs on a rank of ``model`` = tp: B2 gets H/tp
     query and Hkv/tp kv heads where both divide tp (4/2 heads at tp 2),
     every head where they do not (tp 4); B3 gets ``d_ff``/tp columns; the
-    experts' ``bmm`` E/tp experts."""
+    experts' ``bmm`` E/tp experts; B4 and its plain version (the CPU's)
+    the Mamba mixer's H/tp heads, in mamba2-1.3b's prefill and in
+    Jamba's."""
     _, _, runs = served
     tp = MESHES[mesh][1]
     heads = [(4 // tp, 2 // tp)] if tp == 2 else [(4, 2)]
     for rank in runs[mesh]:
+        for case in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+            cfg = treg.get_config(case, smoke=True)
+            want = [cfg.ssm.num_heads(cfg.d_model) // tp]
+            seen = rank[case]["seen"]
+            assert seen["ssd"] == seen["ssd_plain"] == want, case
         streamed = rank["llama3.2-1b-streamed"]["seen"]
         assert streamed["attn"] == heads
         assert streamed["mlp"] == [128 // tp]
@@ -382,19 +403,20 @@ def test_the_activation_hook_checks_the_widths_of_a_model_split():
 TWO_CARD_SERVE = """
 sys.path.insert(0, {repo!r})
 import chip_smoke
-res = chip_smoke.mesh_serve_two_card(torch, arch="llama3.2-1b", smoke=True,
+res = chip_smoke.mesh_serve_two_card(torch, arch={arch!r}, smoke=True,
                                      device="cpu", dtype="float32",
                                      batch=2, prompt=16, new=8, out_dir=OUT)
 torch.save(res, f"{{OUT}}/rank0.pt")
 """
 
 
-def test_the_two_card_serve_runs_on_two_gloo_ranks(tmp_path):
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+def test_the_two_card_serve_runs_on_two_gloo_ranks(tmp_path, arch):
     """``chip_smoke.mesh_serve_two_card``, which the card machine runs
     only with two cards: its rank script under ``torchrun`` as a (1, 2)
-    gloo mesh, held to the one-device engine's tokens and prefill
-    logits."""
-    run_ranks(TWO_CARD_SERVE.format(repo=REPO), 0, tmp_path)
+    gloo mesh (mamba2-1.3b's mixer on half its heads a rank), held to the
+    one-device engine's tokens and prefill logits."""
+    run_ranks(TWO_CARD_SERVE.format(repo=REPO, arch=arch), 0, tmp_path)
     got = load_rank(tmp_path, 0)
     assert got["tokens_equal"] is True
     assert len(got["tokens_1x2"]) == 2 and len(got["tokens_1x2"][0]) == 8

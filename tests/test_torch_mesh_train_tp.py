@@ -64,30 +64,38 @@ CASES = {
     "rows3": ("llama3.2-1b", {}, 3, (1,)),
     "accum": ("llama3.2-1b", {}, ROWS, (1, 2)),
     "router_unsummed": ("granite-moe-1b-a400m", {}, ROWS, (1,)),
+    "bc_gathered": ("mamba2-1.3b", {}, ROWS, (1,)),
+    "stat_partial": ("mamba2-1.3b", {}, ROWS, (1,)),
 }
-#: cases that run with a fault planted (:class:`RouterNotEntered`), to
-#: show that the checks catch it
-PLANTED = {"router_unsummed"}
+#: cases that run with a fault planted, to show that the checks catch it:
+#: case → (the model module whose ``tp`` it replaces, the fault's class)
+PLANTED = {"router_unsummed": ("moe", "RouterNotEntered"),
+           "bc_gathered": ("mamba2", "BCGatheredAsLeaves"),
+           "stat_partial": ("mamba2", "NormStatNotShared")}
 FAMILIES = ["llama3.2-1b", "granite-moe-1b-a400m", "mamba2-1.3b",
             "jamba-1.5-large-398b", "seamless-m4t-medium"]
 #: mesh → (shape, cases)
 MESHES = {
-    "1x2": ((1, 2), FAMILIES + ["padded", "router_unsummed"]),
+    "1x2": ((1, 2), FAMILIES + ["padded", *PLANTED]),
     "2x2": ((2, 2), FAMILIES + ["rows3", "accum"]),
-    "1x4": ((1, 4), ["llama3.2-1b", "olmoe-1b-7b"]),
+    "1x4": ((1, 4), ["llama3.2-1b", "olmoe-1b-7b", "mamba2-1.3b",
+                     "jamba-1.5-large-398b"]),
 }
 
 
 def spy_kernels(seen):
     """Record the wrappers' shapes into ``seen`` (``attn``: query and kv
-    heads; ``experts``: the experts of a ``bmm``) and the
+    heads; ``experts``: the experts of a ``bmm``; ``ssd``: B4's heads),
+    the shapes ``tp.gather`` joins along ``model`` (``gather``) and the
     ``DTensor.full_tensor`` calls (``full``); → what to put back."""
     import torch
     from torch.distributed.tensor import DTensor
 
+    from repro_torch.distributed import tp
     from repro_torch.kernels import ops
 
-    real = (ops.flash_attention, torch.bmm, DTensor.full_tensor)
+    real = (ops.flash_attention, torch.bmm, DTensor.full_tensor,
+            ops.mamba2_ssd, tp.gather)
 
     def attn(q, k, v, **kw):
         seen["attn"].append((q.shape[1], k.shape[1]))
@@ -101,8 +109,30 @@ def spy_kernels(seen):
         seen["full"].append(tuple(self.shape))
         return real[2](self, *a, **kw)
 
+    def ssd(x, *a, **kw):
+        seen["ssd"].append(x.shape[2])
+        return real[3](x, *a, **kw)
+
+    def gather(t, dim, split):
+        if split is not None:
+            seen["gather"].append(tuple(t.shape))
+        return real[4](t, dim, split)
+
     ops.flash_attention, torch.bmm, DTensor.full_tensor = attn, bmm, full
+    ops.mamba2_ssd, tp.gather = ssd, gather
     return real
+
+
+def unspy_kernels(real) -> None:
+    """Put back what :func:`spy_kernels` replaced."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import tp
+    from repro_torch.kernels import ops
+
+    (ops.flash_attention, torch.bmm, DTensor.full_tensor, ops.mamba2_ssd,
+     tp.gather) = real
 
 
 class RouterNotEntered:
@@ -123,6 +153,43 @@ class RouterNotEntered:
         return t if t.ndim == 2 else tp.enter(t, split)
 
 
+class BCGatheredAsLeaves:
+    """``distributed.tp`` as ``models/mamba2.py`` sees it, with a fault
+    planted: ``B`` and ``C`` gathered by ``tp.gather``, whose backward
+    keeps this rank's block of its own gradient, where every rank's heads
+    give a partial gradient of the whole (``tp.gather_shared`` sums
+    them)."""
+
+    def __getattr__(self, name):
+        from repro_torch.distributed import tp
+
+        return getattr(tp, name)
+
+    @staticmethod
+    def gather_shared(t, dim, split):
+        from repro_torch.distributed import tp
+
+        return tp.gather(t, dim, split)
+
+
+class NormStatNotShared:
+    """``distributed.tp`` as ``models/mamba2.py`` sees it, with a fault
+    planted: the gated norm's statistic summed by ``tp.sum_partial``,
+    whose backward passes the gradient on, where each rank's output
+    columns give only their share of it (``tp.sum_shared`` sums them)."""
+
+    def __getattr__(self, name):
+        from repro_torch.distributed import tp
+
+        return getattr(tp, name)
+
+    @staticmethod
+    def sum_shared(t, split):
+        from repro_torch.distributed import tp
+
+        return tp.sum_partial(t, split)
+
+
 #: one mesh's steps on a rank: each case's params and AdamW state placed
 #: by the rules, one step a ``grad_accum`` on the rank's rows of the
 #: global batch, the wrappers' shapes and ``full_tensor`` calls recorded
@@ -133,7 +200,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_flatten_with_path
 from torch.distributed.tensor import DTensor
@@ -147,32 +214,33 @@ for name, case in inp["cases"].items():
                                                       **case["kw"])
     p_shard = shd.make_param_shardings(mesh, case["params"], cfg)
     opt = adamw.init(case["params"], opt_cfg)
+    o_shard = shd.make_opt_shardings(mesh, opt, p_shard)
     params = shd.distribute_tree(case["params"], p_shard)
-    opt = shd.distribute_tree(opt, shd.make_opt_shardings(mesh, opt, p_shard))
+    opt = shd.distribute_tree(opt, o_shard)
     res = {}
     for accum in case["accums"]:
         step = ST.make_sharded_train_step(cfg, opt_cfg, mesh,
                                           global_batch=case["rows"],
                                           grad_accum=accum)
         local = ST.local_batch(mesh, case["batch"], accum)
-        seen = {"attn": [], "experts": [], "full": []}
-        real = spy_kernels(seen)
-        tp = moe.tp
+        seen = {"attn": [], "experts": [], "full": [], "ssd": [], "gather": []}
+        real, models_tp = spy_kernels(seen), (mamba2.tp, moe.tp)
         if case["planted"]:
-            moe.tp = RouterNotEntered()
+            module, fault = globals()[case["planted"][0]], case["planted"][1]
+            module.tp = globals()[fault]()
         try:
             p2, o2, m = step(params, opt, local)
         finally:
-            ops.flash_attention, torch.bmm, DTensor.full_tensor = real
-            moe.tp = tp
+            unspy_kernels(real)
+            mamba2.tp, moe.tp = models_tp
         state = {"params": p2, "opt": o2}
         res[accum] = {
             "rows": {k: tuple(v.shape) for k, v in local.items()},
             "loss": m["loss"], "grad_norm": m["grad_norm"],
             "seen": {k: sorted(set(v)) for k, v in seen.items()},
             "full_calls": len(seen["full"]),
-            "full": {p: t.full_tensor()
-                     for p, t in tree_flatten_with_path(state)},
+            "full": dict(tree_flatten_with_path(shd.whole_tree(
+                state, {"params": p_shard, "opt": o_shard}))),
         }
     out[name] = res
 torch.save(out, f"{OUT}/rank{RANK}.pt")
@@ -227,15 +295,16 @@ def _run_mesh(tmp, shape, names):
         arch, kw, rows, accums = CASES[name]
         _, tcfg, _, _, tp = ref_and_port(arch, "float32", **kw)
         cases[name] = {"arch": arch, "kw": kw, "rows": rows,
-                       "accums": accums, "planted": name in PLANTED,
+                       "accums": accums, "planted": PLANTED.get(name),
                        "params": tp,
                        "batch": {k: torch.from_numpy(v) for k, v in _batch(
                            name, tcfg.vocab_size, tcfg.d_model).items()}}
     torch.save({"shape": shape, "cases": cases},
                os.path.join(tmp, "inputs.pt"))
     world = shape[0] * shape[1]
-    run_ranks(inspect.getsource(spy_kernels)
-              + inspect.getsource(RouterNotEntered) + STEP_RANK, world, tmp)
+    run_ranks("".join(inspect.getsource(f) for f in (
+        spy_kernels, unspy_kernels, RouterNotEntered, BCGatheredAsLeaves,
+        NormStatNotShared)) + STEP_RANK, world, tmp)
     return [load_rank(tmp, r) for r in range(world)]
 
 
@@ -297,11 +366,13 @@ def test_every_family_matches_the_reference_unsharded_step(trained, mesh,
         _check_against_reference(rank[case][1], ref[case][1])
 
 
-@pytest.mark.parametrize("case", ["llama3.2-1b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("case", MESHES["1x4"][1])
 def test_a_model_axis_of_4_matches_the_reference(trained, case):
     """``model`` = 4: llama's attention gathered and computed whole (its 2
     kv heads do not divide 4), olmoe's split (4 and 4 heads); the MLP,
-    the experts and the vocabulary split either way."""
+    the experts and the vocabulary split either way; the Mamba mixer of
+    mamba2-1.3b and Jamba on 2 of its 8 heads a rank (Jamba's attention
+    gathered, as llama's)."""
     ref, runs = trained
     for rank in runs["1x4"]:
         _check_against_reference(rank[case][1], ref[case][1])
@@ -324,6 +395,53 @@ def test_a_planted_unsummed_router_gradient_is_caught(trained):
         assert router and min(gaps[p] for p in router) > 100 * NU_RTOL, gaps
         with pytest.raises(AssertionError):
             _check_against_reference(got, want)
+
+
+@pytest.mark.parametrize("case", ["bc_gathered", "stat_partial"])
+def test_a_planted_mixer_gradient_fault_is_caught(trained, case):
+    """The faults of :class:`BCGatheredAsLeaves` and
+    :class:`NormStatNotShared` at ``model`` = 2: the forward is unchanged,
+    so the loss is the reference's, but each rank's gradient of ``B`` and
+    ``C``, or of the norm's statistic, is its own share where it should
+    be the sum over the ranks.  The check every case passes refuses the
+    step."""
+    ref, runs = trained
+    want = ref["mamba2-1.3b"][1]
+    for rank in runs["1x2"]:
+        got = rank[case][1]
+        np.testing.assert_allclose(float(got["loss"]), want["loss"],
+                                   rtol=1e-5)
+        with pytest.raises(AssertionError):
+            _check_against_reference(got, want)
+
+
+def _mixer_local_shapes(arch: str, tp: int) -> set:
+    """A layer's ``in_proj``, ``conv_w`` and ``out_proj`` as a rank of
+    ``model`` = tp holds them."""
+    cfg = treg.get_config(arch, smoke=True)
+    s, d = cfg.ssm, cfg.d_model
+    di = s.d_inner(d)
+    width = 2 * di + 2 * s.state_dim + s.num_heads(d)
+    return {(d, width // tp), (s.conv_kernel, s.conv_dim(d) // tp),
+            (di // tp, d)}
+
+
+def test_the_mixer_computes_its_heads_and_gathers_no_leaf(trained):
+    """mamba2-1.3b and Jamba on every mesh, backward included: B4 (and
+    under autograd B4′, which takes the same tensors) gets H/tp heads,
+    and no leaf of the mixer is gathered along ``model``."""
+    _, runs = trained
+    for mesh, ((_, tp), names) in MESHES.items():
+        for case in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+            if case not in names:
+                continue
+            cfg = treg.get_config(case, smoke=True)
+            heads = cfg.ssm.num_heads(cfg.d_model) // tp
+            leaves = _mixer_local_shapes(case, tp)
+            for rank in runs[mesh]:
+                seen = rank[case][1]["seen"]
+                assert seen["ssd"] == [heads], (mesh, case)
+                assert not leaves & set(seen["gather"]), (mesh, case)
 
 
 def test_the_kernels_and_the_experts_run_on_a_model_shard(trained):
@@ -563,21 +681,22 @@ def test_the_collectives_and_their_gradients_on_two_ranks(tmp_path):
 TWO_CARD_TP_PHASE = """
 sys.path.insert(0, {repo!r})
 import chip_smoke
-run = dict(batch=4, seq=32, lr=1e-3, seed=3)
-res = chip_smoke.two_card_run(torch, run, shape=(1, 2), arch="qwen2-0.5b",
-                              smoke=True, device="cpu", out_dir=OUT)
+res = chip_smoke.two_card_run(torch, chip_smoke.MESH_TRAIN_TWO_CARD_SMOKE,
+                              shape=(1, 2), arch={arch!r}, smoke=True,
+                              device="cpu", out_dir=OUT)
 torch.save(res, f"{{OUT}}/rank0.pt")
 """
 
 
-def test_the_two_card_tp_phase_runs_on_two_gloo_ranks(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-1.3b"])
+def test_the_two_card_tp_phase_runs_on_two_gloo_ranks(tmp_path, arch):
     """``chip_smoke.two_card_run`` at ``shape=(1, 2)``, which the card
     machine runs only with two cards, on the CPU: its rank script under
     ``torchrun`` as a (1, 2) gloo mesh — every rank all the rows, half of
-    each split — held to the 1 × 1 mesh on the same global batch at the
-    bf16 train rule."""
+    each split (mamba2-1.3b's mixer half its heads) — held to the 1 × 1
+    mesh on the same global batch at the bf16 train rule."""
     assert chip_smoke.two_card_rows(4, (1, 2)) == [(0, 4)]
-    run_ranks(TWO_CARD_TP_PHASE.format(repo=REPO), 0, tmp_path)
+    run_ranks(TWO_CARD_TP_PHASE.format(repo=REPO, arch=arch), 0, tmp_path)
     got = load_rank(tmp_path, 0)
     assert len(got["losses_1x2"]) == len(got["losses_1x1"]) == 2
     assert all(np.isfinite(got["losses_1x2"]))
