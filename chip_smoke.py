@@ -305,9 +305,14 @@ Phases, each printing one JSON object on a line of its own:
                   identity — and with ``mesh=None``, bf16 and int8
                   weights: logits and tokens bit for bit; 16 flash
                   launches a prefill on each mesh engine; prefill ms and
-                  decode tokens/s of both in turns, ``local_shards`` ms,
-                  peak GB; B3 on qwen2-0.5b's ``d_ff`` shard at
-                  ``model`` = 4 (1216 columns) against its plain version.
+                  decode tokens/s of both in turns, the ms of one
+                  call's gathers along the data axes (every superblock
+                  in turn, then the leaves outside the blocks), the
+                  gathered bytes' peak of a prefill and of a decode step
+                  (at most one superblock plus the largest leaf outside
+                  the blocks, none left alive), peak GB; B3 on
+                  qwen2-0.5b's ``d_ff`` shard at ``model`` = 4 (1216
+                  columns) against its plain version.
                   Then mamba2-1.3b at full width and depth the same way
                   (bf16; its mixer split by heads over a group of one):
                   prefill logits and tokens bit for bit, 48 SSD launches
@@ -5069,19 +5074,21 @@ def ssd_on_a_shard(torch) -> list:
     return rows
 
 
-def _superblock_gathers_ms(torch, cfg, mesh, params, timed) -> dict:
-    """The split step's gathers along the data axes, timed on DTensor
-    ``params``: every superblock's leaves in turn (each freed before the
-    next, as the step frees them) and the leaves outside the blocks."""
+def _superblock_gathers_ms(torch, cfg, mesh, params, timed,
+                           dequantize=None) -> dict:
+    """A mesh step's gathers along the data axes (``tp.gather_data``),
+    timed on DTensor ``params``: every superblock's leaves in turn (each
+    freed before the next, as the step frees them) and the leaves outside
+    the blocks; ``dequantize``: the dtype int8 leaves become right after
+    their gather (the serve steps')."""
     from repro_torch.distributed import ctx, tp
     from repro_torch.launch import steps as ST
     from repro_torch.models import lm
-    from repro_torch.tree import tree_map
 
-    plan = ST.param_gather(mesh, params)
-    local = tree_map(lambda t: t.to_local(), params)
+    plan = ST.param_gather(mesh, params, dequantize)
+    local = tp.to_local(params)
     nsb = lm.num_superblocks(cfg)
-    layers = lm._unbind_layers(local["blocks"], nsb)
+    layers = [lm._layer(local["blocks"], i) for i in range(nsb)]
 
     def superblocks():
         with ctx.gathering_params(plan):
@@ -5094,10 +5101,10 @@ def _superblock_gathers_ms(torch, cfg, mesh, params, timed) -> dict:
                 if name != "blocks":
                     tp.gather_data(t, (name,))
 
-    whole = timed(superblocks)
+    whole, rest = timed(superblocks), timed(outside)
     return {"superblocks": nsb, "all_superblocks_ms": whole,
-            "per_superblock_ms": whole / nsb,
-            "outside_blocks_ms": timed(outside)}
+            "per_superblock_ms": whole / nsb, "outside_blocks_ms": rest,
+            "per_call_ms": whole + rest}
 
 
 def mesh_train(torch, read) -> dict:
@@ -5456,6 +5463,44 @@ def mesh_serve_ssm(torch, mesh, read) -> dict:
             "launches": {"mamba2_ssd": launches}}
 
 
+def _serve_gathered_bytes(torch, eng, prompts) -> dict:
+    """The most bytes of gathered params (``tp.gathered_bytes``) alive at
+    once in one prefill and in one decode step of mesh engine ``eng``,
+    beside their bound — one superblock's leaves plus the largest leaf
+    outside the blocks, each whole — and the live bytes after each call,
+    which must be back at their value before it; raises if either
+    fails."""
+    from repro_torch.distributed import sharding as shd, tp
+    from repro_torch.models import lm
+
+    leaves = [(keys, t.numel() * t.element_size())
+              for keys, t in shd._leaves_with_path(eng.params)]
+    one = sum(n for keys, n in leaves if keys[0] == "blocks") \
+        // lm.num_superblocks(eng.cfg)
+    outside = max(n for keys, n in leaves if keys[0] != "blocks")
+    out = {"superblock_bytes": one, "largest_outside_bytes": outside}
+    with torch.inference_mode():
+        for kind in ("prefill", "decode"):
+            tp.reset_gathered()
+            before = tp.gathered_bytes()["live"]
+            if kind == "prefill":
+                logits, caches = eng.prefill(prompts)
+                cache = eng._expand_cache(caches, *prompts.shape)
+                del caches
+            else:
+                eng._decode_step(eng.model_params(), cache,
+                                 logits.argmax(-1).to(torch.int32),
+                                 prompts.shape[1])
+            got = tp.gathered_bytes()
+            peak, live = got["peak"] - before, got["live"] - before
+            if live or not 0 < peak <= one + outside:
+                raise AssertionError(
+                    f"{kind}: gathered bytes' peak {peak} (bound "
+                    f"{one + outside}), {live} left alive")
+            out[kind] = {"peak_bytes": peak, "live_after_bytes": live}
+    return out
+
+
 def mesh_serve(torch, read, read_ssd) -> dict:
     """llama3.2-1b at full width and depth served on the 1 × 1 mesh (an
     NCCL world of one: every collective the identity, every local shard a
@@ -5524,7 +5569,9 @@ def mesh_serve(torch, read, read_ssd) -> dict:
             plain[name] = eng
 
         # prefill and decode of both engines, in turns (none, mesh, mesh,
-        # none), and the mesh layer's own cost: the gather of local_shards
+        # none), and the mesh layer's own costs: one call's gathers along
+        # the data axes, and the gathered bytes a prefill and a decode
+        # step hold at once
         turns = {w: {"none": [], "mesh": []} for w in meshed}
         for w in meshed:
             for name in ("none", "mesh", "mesh", "none"):
@@ -5533,15 +5580,21 @@ def mesh_serve(torch, read, read_ssd) -> dict:
                 turns[w][name].append({
                     "prefill_ms": _prefill_ms(torch, eng, prompts),
                     "decode_tokens_per_s": st.tokens_per_s})
-        gather_ms = {}
+        def timed(fn, reps=5):
+            with torch.inference_mode():
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t) / reps * 1e3
+
+        gather_ms, gathered = {}, {}
         for w, (eng, _, _) in meshed.items():
-            tp.local_shards(eng.params, mesh)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                tp.local_shards(eng.params, mesh)
-            torch.cuda.synchronize()
-            gather_ms[w] = (time.perf_counter() - t0) / 5 * 1e3
+            gather_ms[w] = _superblock_gathers_ms(
+                torch, cfg, mesh, eng.params, timed, cfg.param_dtype)
+            gathered[w] = _serve_gathered_bytes(torch, eng, prompts)
         del meshed, plain
         torch.cuda.empty_cache()
         ssm = mesh_serve_ssm(torch, mesh, read_ssd)
@@ -5563,7 +5616,8 @@ def mesh_serve(torch, read, read_ssd) -> dict:
         "device_count": count,
         "mesh_equals_none_bit_for_bit": {"bf16": True, "int8": True},
         "flash_launches_per_prefill": per_prefill,
-        "turns": turns, "local_shards_ms": gather_ms,
+        "turns": turns, "gather_ms_per_call": gather_ms,
+        "gathered_bytes": gathered,
         "peak_mem_gb": peak_gb, "b3_on_a_shard": shard, "ssm": ssm,
         "launches": {"flash_attention": launches,
                      "mamba2_ssd": ssm["launches"]["mamba2_ssd"]},

@@ -15,8 +15,9 @@ and with ``mesh=None`` in one process, then prints one JSON line:
    the most self time, the host's self ms, the count of synchronising
    CUDA runtime calls, and the device's busy ms beside the wall ms;
 3. the host ms of a mesh decode step's parts, each synchronised: the
-   whole step, its local shards, its cache's local tensors, and the
-   model's decode on them.
+   whole step, its ``ParamGather`` plan, the params' and the cache's
+   local tensors, and the model's decode on them under the step's
+   context (its per-superblock gathers along the data axes included).
 
 ``--collectives-only`` stops after (1); ``--env KEY=VALUE`` sets an
 environment variable of this process before its process group starts
@@ -124,9 +125,9 @@ def profiled(torch, eng, prompts) -> dict:
 
 def decode_parts(torch, eng, mesh, prompts) -> dict:
     """Host ms of a mesh decode step's parts, each ending in a
-    synchronize: the whole step, the local shards (gather along the data
-    axes and the identity dequantize), the cache's local tensors, and
-    the model's decode on them under the step's context."""
+    synchronize: the whole step, its ``ParamGather`` plan, the params'
+    and the cache's local tensors, and the model's decode on them under
+    the step's context (the per-superblock gathers included)."""
     from repro_torch.distributed import tp
     from repro_torch.launch import steps as ST
 
@@ -134,18 +135,19 @@ def decode_parts(torch, eng, mesh, prompts) -> dict:
         logits, caches = eng.prefill(prompts)
         cache = eng._expand_cache(caches, BATCH, PROMPT)
         tok = logits.argmax(-1).to(torch.int32)
-        params = ST._compute_params(eng.params, eng.cfg, mesh)
+        params = tp.to_local(eng.params)
         local = tp.to_local(cache)
 
         def model_only():
-            with ST._serving_on(mesh, eng.cfg, BATCH):
+            with ST._serving_on(mesh, eng.cfg, eng.params, BATCH):
                 ST.model_decode(params, eng.cfg, local, tok, PROMPT)
 
         parts = {
             "step": lambda: eng._decode_step(eng.model_params(), cache, tok,
                                              PROMPT),
-            "compute_params": lambda: ST._compute_params(eng.params,
-                                                         eng.cfg, mesh),
+            "param_gather_plan": lambda: ST.param_gather(
+                mesh, eng.params, eng.cfg.param_dtype),
+            "params_to_local": lambda: tp.to_local(eng.params),
             "cache_to_local": lambda: tp.to_local(cache),
             "model_decode": model_only,
         }

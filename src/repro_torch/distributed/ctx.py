@@ -18,11 +18,14 @@ heads, ``d_ff``, experts and the vocabulary (``distributed/tp.py``).
 With no split installed every rank holds every column, and the layers
 run as on one device.
 
-The mesh train step installs its :class:`ParamGather` too: which leaves
-of the params it hands the model are this rank's block along the data
-axes, and along which dimension.  The model gathers a superblock's
-leaves when it runs (``tp.gather_data``).  With none installed every
-leaf is whole along those axes.
+The mesh train step and the mesh serve steps install their
+:class:`ParamGather` too: which leaves of the params they hand the model
+are this rank's block along the data axes, and along which dimension.
+The model gathers a superblock's leaves when it runs
+(``tp.gather_data``), as the reference's ``lax.scan`` over superblocks
+lets GSPMD gather them inside the loop body: a rank holds one
+superblock's gathered leaves at a time.  With none installed every leaf
+is whole along those axes.
 """
 from __future__ import annotations
 
@@ -68,16 +71,21 @@ class ModelSplit:
 
 @dataclasses.dataclass(frozen=True)
 class ParamGather:
-    """The params of a mesh train step as this rank holds them along the
-    data axes (``pod`` × ``data``): ``dims`` maps a leaf's path in the
-    params tree (a tuple of keys) to the dimension that those axes shard
-    — in the leaf's stacked layout — over ``group``, ``count`` ranks
-    whose group rank is the block index; a leaf not in it is whole along
-    them."""
+    """The params of a mesh step (train, prefill or decode) as this rank
+    holds them along the data axes (``pod`` × ``data``): ``dims`` maps a
+    leaf's path in the params tree (a tuple of keys; a ``QTensor``'s
+    ``q`` and ``scale`` are leaves of their own) to the dimension that
+    those axes shard — in the leaf's stacked layout — over ``group``,
+    ``count`` ranks whose group rank is the block index; a leaf not in it
+    is whole along them.  ``dequantize``: the dtype each ``QTensor`` is
+    dequantized to right after its gather, so that no layer sees one
+    (the serve steps: ``cfg.param_dtype``); ``None``: none is (the train
+    step)."""
 
     group: Any
     count: int
     dims: dict
+    dequantize: Optional[torch.dtype] = None
 
 
 def shard_activation(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -5,13 +5,13 @@ the collectives that join the ranks' shards, each differentiable.
 The reference's ``jit`` lets GSPMD split the compute along the
 placements of ``make_param_shardings``.  The port splits it by hand.  A
 rank holds its ``model`` shard of each leaf — heads, ``d_ff`` columns,
-experts, vocabulary rows — as a plain tensor: the mesh server gathers
-every leaf along the data axes at once (:func:`local_shards`), the mesh
-train step one superblock at a time where the model uses it
-(:func:`gather_data`: the superblock's leaves packed into one buffer,
-one all-gather, and in the backward one reduce-scatter).  The layers
-compute on the shards, joined over the ``model`` group of the installed
-``ctx.ModelSplit`` by:
+experts, vocabulary rows — as a plain tensor.  The mesh server and the
+mesh train step alike gather the leaves along the data axes one
+superblock at a time where the model uses them (:func:`gather_data`:
+the superblock's leaves packed into one buffer, one all-gather, and in
+the train step's backward one reduce-scatter), as the reference's
+scanned ``jit`` does.  The layers compute on the shards, joined over the
+``model`` group of the installed ``ctx.ModelSplit`` by:
 
 * :func:`enter` — in front of a column-parallel product (``wq`` / ``wk``
   / ``wv``, ``wu`` / ``wg``, the experts, the vocabulary-parallel head):
@@ -86,25 +86,6 @@ def vocab_rows(cfg) -> int:
 # ---------------------------------------------------------------------------
 # parameters and caches
 # ---------------------------------------------------------------------------
-
-
-def local_shards(params: Any, mesh) -> Any:
-    """Each DTensor leaf of ``params`` (a ``QTensor``'s ``q`` and
-    ``scale`` too) gathered along the data axes only — every mesh axis
-    but ``model`` — as a plain tensor holding this rank's ``model``
-    shard; other leaves as they are."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    from .sharding import _map_with_path
-
-    def one(_, x):
-        if not isinstance(x, DTensor):
-            return x
-        keep = [p if name == "model" else Replicate()
-                for name, p in zip(mesh.axis_names, x.placements)]
-        return x.redistribute(x.device_mesh, keep).to_local()
-
-    return _map_with_path(one, params)
 
 
 def to_local(tree: Any) -> Any:
@@ -423,7 +404,7 @@ def vocab_embed(table: torch.Tensor, ids: torch.Tensor, split: ModelSplit,
 
 
 # ---------------------------------------------------------------------------
-# the params along the data axes (the mesh train step)
+# the params along the data axes (the mesh steps)
 # ---------------------------------------------------------------------------
 
 
@@ -435,7 +416,11 @@ _ALIGN = 16
 class _DataGather(torch.autograd.Function):
     """Forward: each leaf's blocks along its dimension over the data
     axes' group, joined — the leaves packed as bytes into one buffer, one
-    all-gather for them all, each leaf counted live until it is freed.
+    all-gather for them all, each leaf counted live until its storage is
+    freed (a leaf joined along its first dimension is a view of the
+    gathered buffer, and any view of it, a cache's too, keeps that
+    buffer and every such leaf of the superblock alive).  Under
+    ``torch.inference_mode`` (the serve steps) the forward alone runs.
     Backward: one reduce-scatter, in f32, of all the leaves' whole
     gradients — each rank's rows' gradients summed over the group, this
     rank's blocks kept."""
@@ -492,10 +477,12 @@ def _joined(shape: torch.Size, dim: int, count: int) -> tuple:
 
 
 def _count_live(t: torch.Tensor) -> None:
+    """Count ``t``'s bytes live until its storage dies: a view keeps the
+    storage, where the tensor object itself may die before it."""
     n = t.numel() * t.element_size()
     _GATHERED["live"] += n
     _GATHERED["peak"] = max(_GATHERED["peak"], _GATHERED["live"])
-    weakref.finalize(t, _release, n)
+    weakref.finalize(t.untyped_storage(), _release, n)
 
 
 def _release(n: int) -> None:
@@ -505,8 +492,8 @@ def _release(n: int) -> None:
 def gathered_bytes() -> dict:
     """``{"live", "peak"}``: the bytes of the data-axes gather's outputs
     alive now, and the most alive at once since :func:`reset_gathered`
-    (a tensor counts until it is freed, whoever holds it: a layer, or
-    autograd for the backward)."""
+    (a tensor counts until its storage is freed, whoever holds it or a
+    view of it: a layer, a cache, or autograd for the backward)."""
     return dict(_GATHERED)
 
 
@@ -520,9 +507,11 @@ def gather_data(tree: Any, path: tuple, *, layer: bool = False) -> Any:
     with each leaf that the installed ``ctx.ParamGather`` names gathered
     along the data axes, all in one collective (differentiable: their
     gradients are reduce-scattered back to this rank's blocks, again in
-    one); ``tree`` itself with none installed.  ``layer``: the leaves are
-    one layer of stacked leaves (the layer axis taken off, so each
-    dimension is one less)."""
+    one), and where the plan says so each ``QTensor`` then dequantized
+    (its ``q`` and ``scale`` gathered in that same collective); ``tree``
+    itself with none installed.  ``layer``: the leaves are one layer of
+    stacked leaves (the layer axis taken off, so each dimension is one
+    less)."""
     plan = ctx.param_gather()
     if plan is None:
         return tree
@@ -531,12 +520,16 @@ def gather_data(tree: Any, path: tuple, *, layer: bool = False) -> Any:
     picked = [(keys, t, plan.dims[path + keys] - int(layer))
               for keys, t in _leaves_with_path(tree)
               if path + keys in plan.dims]
-    if not picked:
+    if picked:
+        keys, leaves, dims = zip(*picked)
+        whole = dict(zip(keys, _DataGather.apply(dims, plan.group,
+                                                 plan.count, *leaves)))
+        tree = _map_with_path(lambda k, t: whole.get(k, t), tree)
+    if plan.dequantize is None:
         return tree
-    keys, leaves, dims = zip(*picked)
-    whole = dict(zip(keys, _DataGather.apply(dims, plan.group, plan.count,
-                                             *leaves)))
-    return _map_with_path(lambda k, t: whole.get(k, t), tree)
+    from repro_torch.quant.ptq import dequantize_params
+
+    return dequantize_params(tree, plan.dequantize)
 
 
 def gather_rows(t: torch.Tensor, split: RowSplit) -> torch.Tensor:

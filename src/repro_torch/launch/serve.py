@@ -8,8 +8,11 @@ A small but real engine on one card:
   placed by ``distributed.sharding.make_param_shardings``, the decode
   caches by ``make_cache_shardings``, and each rank computing its rows
   of ``data`` on its shard of ``model`` — heads, ``d_ff``, experts, the
-  vocabulary and the Mamba mixer's heads (``distributed/tp.py``).  The
-  hand-written kernels see only plain local tensors.
+  vocabulary and the Mamba mixer's heads (``distributed/tp.py``).  A
+  call gathers the params along the data axes one superblock at a time,
+  as the superblock runs (``tp.gather_data``), as the reference's
+  scanned ``jit`` does.  The hand-written kernels see only plain local
+  tensors.
 * Requests are processed in *waves* (static-batch continuous batching):
   a wave of B prompts is prefilled together — through the hand-written
   flash-attention kernel (each attention layer of the dense, MoE and
@@ -24,9 +27,11 @@ A small but real engine on one card:
 * ``int8_weights=True``: weight-only int8 (``repro_torch.quant``), the
   reference's regime.  The engine quantizes once, at construction, on the
   device, and holds int8 weights with f32 per-channel scales; each
-  prefill and decode call dequantizes them to ``cfg.param_dtype``.  The
-  reference's ``jit`` fuses that convert into the consumers; here it runs
-  eagerly and writes a transient copy of the weights a call.
+  prefill and decode call dequantizes them to ``cfg.param_dtype`` — on
+  a mesh a superblock's at a time, right after its gather, so that a
+  rank never holds the whole model dequantized.  The reference's ``jit``
+  fuses that convert into the consumers; here it runs eagerly and writes
+  a transient copy of the weights.
 
 Usage::
 
@@ -79,8 +84,9 @@ class ServeEngine:
     with the same arguments) the whole parameters — the same on every
     rank — are placed as DTensors by ``make_param_shardings`` (int8
     leaves and scales by ``quantized_param_shardings``) and each rank
-    keeps its shard.  A call gathers them along the data axes only and
-    computes on the rank's ``model`` shard; prompts go over the data axes
+    keeps its shard.  A call computes on the rank's ``model`` shard and
+    gathers each superblock's leaves along the data axes when it runs
+    (int8 ones dequantized right after); prompts go over the data axes
     where they divide them.  ``generate`` emits on every rank the tokens
     one device emits: the last-token logits are gathered to the whole
     (B, V) and every rank samples them alike."""
@@ -125,8 +131,8 @@ class ServeEngine:
     def model_params(self) -> dict:
         """The parameters a step takes: ``self.params``, or with int8
         weights a fresh copy dequantized to ``cfg.param_dtype``.  On a
-        mesh the placed tree as it is: the step takes its local shards
-        and dequantizes those."""
+        mesh the placed tree as it is: the step gathers and dequantizes
+        one superblock at a time."""
         if self.int8_weights and self.mesh is None:
             return dequantize_params(self.params, self.cfg.param_dtype)
         return self.params

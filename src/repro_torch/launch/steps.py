@@ -16,10 +16,12 @@ streamed (the fused MLP's gradient through its backward kernel).
 
 On a device mesh each rank computes its rows of the global batch on its
 shard of ``model`` (heads, ``d_ff``, experts, vocabulary, the Mamba
-mixer's heads; ``distributed/tp.py``): the serve steps (``mesh=``), whose logits come
-back whole, and :func:`make_sharded_train_step`, backward included,
-which gathers the params along the data axes one superblock at a time
-and hands each rank the gradient of its own shards.
+mixer's heads; ``distributed/tp.py``): the serve steps (``mesh=``), whose
+logits come back whole, and :func:`make_sharded_train_step`, backward
+included, which hands each rank the gradient of its own shards.  Both
+install a ``ctx.ParamGather`` (:func:`param_gather`) and hand the model
+the params' local tensors: the model gathers them along the data axes
+one superblock at a time, where it uses them (``tp.gather_data``).
 """
 from __future__ import annotations
 
@@ -218,10 +220,12 @@ def local_batch(mesh, batch: dict, grad_accum: int = 1) -> dict:
     return {name: rows(name, x) for name, x in batch.items()}
 
 
-def param_gather(mesh, params):
+def param_gather(mesh, params, dequantize=None):
     """The ``ctx.ParamGather`` of DTensor ``params`` on ``mesh``: each
     leaf's dimension that the data axes (``pod`` × ``data``) shard, by
-    its placements."""
+    its placements (a ``QTensor``'s ``q`` and ``scale`` each by its
+    own); ``dequantize``, the dtype a ``QTensor`` becomes after its
+    gather."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed import ctx, sharding as shd
@@ -239,7 +243,8 @@ def param_gather(mesh, params):
             raise ValueError(f"{'/'.join(keys)}: placements "
                              f"{p.placements} split the data axes apart")
         dims[keys] = split.pop()
-    return ctx.ParamGather(mesh.get_group(dp), shd.axis_size(mesh, dp), dims)
+    return ctx.ParamGather(mesh.get_group(dp), shd.axis_size(mesh, dp), dims,
+                           dequantize)
 
 
 def _model_split(mesh, kv_seq: bool = False):
@@ -354,19 +359,23 @@ def make_sharded_train_step(
 
 
 @contextlib.contextmanager
-def _serving_on(mesh, cfg: ModelConfig, global_batch: int, *,
+def _serving_on(mesh, cfg: ModelConfig, params, global_batch: int, *,
                 kv_seq: bool = False):
-    """The context of a serve step on ``mesh`` for a batch of
-    ``global_batch`` rows → its ``RowSplit``: the rows as
+    """The context of a serve step on ``mesh`` with DTensor ``params``
+    for a batch of ``global_batch`` rows → its ``RowSplit``: the rows as
     :func:`batch_rows` deals them (MoE capacity counts the global rows),
     the ``ModelSplit`` along which the layers split heads, ``d_ff``,
-    experts and the vocabulary (``distributed/tp.py``), and the
-    activation hook, which checks the widths the split gives."""
+    experts and the vocabulary (``distributed/tp.py``), the
+    ``ParamGather`` of ``params`` (:func:`param_gather`; int8 leaves
+    dequantized to ``cfg.param_dtype`` right after their gather), and
+    the activation hook, which checks the widths the split gives."""
     from repro_torch.distributed import ctx, sharding as shd
 
     rsplit = _row_split(mesh, global_batch)
     msplit = _model_split(mesh, kv_seq)
+    plan = param_gather(mesh, params, cfg.param_dtype)
     with ctx.data_rows(rsplit), ctx.model_shards(msplit), \
+            ctx.gathering_params(plan), \
             ctx.activation_sharding(shd.activation_hook(mesh, cfg)):
         yield rsplit
 
@@ -374,16 +383,6 @@ def _serving_on(mesh, cfg: ModelConfig, global_batch: int, *,
 def _rows_of(batch: dict) -> int:
     name, x = next(iter(batch.items()))
     return x.shape[SPLIT_AXIS.get(name, 0)]
-
-
-def _compute_params(params, cfg: ModelConfig, mesh):
-    """What a mesh step computes with: the local shards of ``params``
-    (``tp.local_shards``), int8 leaves dequantized to ``cfg.param_dtype``
-    (only this rank's shards)."""
-    from repro_torch.distributed import tp
-    from repro_torch.quant import dequantize_params
-
-    return dequantize_params(tp.local_shards(params, mesh), cfg.param_dtype)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
@@ -394,7 +393,13 @@ def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
     rank computes its rows (:func:`local_batch`) on its shard of
     ``model`` (:func:`_serving_on`), the logits are gathered to the whole
     batch, and the tight caches are the rank's own (its rows; under a
-    head split its heads), as ``tp.cache_from_prefill`` takes them."""
+    head split its heads), as ``tp.cache_from_prefill`` takes them.  The
+    model gets the params' local tensors — each leaf's block along the
+    data axes and its shard along ``model`` — and gathers a superblock's
+    leaves along the data axes when it runs, one collective a
+    superblock, freed before the next (int8 ones dequantized right
+    after), the embedding and the head where they are read; no cache it
+    returns holds a view of a gathered leaf."""
     if mesh is None:
         def prefill_step(params, batch):
             return model_prefill(params, cfg, batch)
@@ -403,9 +408,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
     from repro_torch.distributed import tp
 
     def prefill_step(params, batch):
-        with _serving_on(mesh, cfg, _rows_of(batch)) as rows:
-            logits, caches = model_prefill(_compute_params(params, cfg, mesh),
-                                           cfg, local_batch(mesh, batch))
+        with _serving_on(mesh, cfg, params, _rows_of(batch)) as rows:
+            logits, caches = model_prefill(tp.to_local(params), cfg,
+                                           local_batch(mesh, batch))
             return tp.gather_rows(logits, rows), caches
 
     return prefill_step
@@ -419,7 +424,9 @@ def make_decode_step(cfg: ModelConfig, mesh=None) -> Callable:
     ``cache`` is a tree of DTensors placed by ``make_cache_shardings``
     (whose local tensors the step updates) and ``token`` (B,) the global
     batch's; where the caches hold their positions in blocks along
-    ``model`` the attention layers take their softmax in blocks."""
+    ``model`` the attention layers take their softmax in blocks.  The
+    params are gathered along the data axes as in a prefill, every
+    superblock on every token, as the reference's jitted decode does."""
     if mesh is None:
         def decode_step(params, cache, token, pos):
             return model_decode(params, cfg, cache, token, pos)
@@ -429,9 +436,10 @@ def make_decode_step(cfg: ModelConfig, mesh=None) -> Callable:
 
     def decode_step(params, cache, token, pos):
         seq = tp.positions_on_model(cache, mesh)
-        with _serving_on(mesh, cfg, token.shape[0], kv_seq=seq) as rows:
+        with _serving_on(mesh, cfg, params, token.shape[0],
+                         kv_seq=seq) as rows:
             logits, _ = model_decode(
-                _compute_params(params, cfg, mesh), cfg, tp.to_local(cache),
+                tp.to_local(params), cfg, tp.to_local(cache),
                 local_batch(mesh, {"token": token})["token"], pos)
             return tp.gather_rows(logits, rows), cache
 

@@ -217,10 +217,16 @@ def encdec_loss(params: dict, cfg: ModelConfig,
 def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict):
     """Encode ``batch["frames"]``, cache the cross K/V of every decoder
     layer, and take the first decode step (BOS token 0 at position 0)
-    against a 1-long self cache → (logits (B, V) f32, cache)."""
+    against a 1-long self cache → (logits (B, V) f32, cache).  Under a
+    mesh serve step each decoder layer's ``cross_attn`` leaves are
+    gathered along the data axes for its keys and values
+    (``tp.gather_data``) and freed before the next layer's; the stacked
+    ``ck`` / ``cv`` are copies, no view of them."""
     memory = encode(params, cfg, batch["frames"])
     blocks = params["decoder"]["blocks"]
-    kvs = [_cross_kv(_layer(blocks, li)["cross_attn"], cfg, memory)
+    path = ("decoder", "blocks", "cross_attn")
+    kvs = [_cross_kv(tp.gather_data(_layer(blocks, li)["cross_attn"], path,
+                                    layer=True), cfg, memory)
            for li in range(cfg.dec_layers)]
     bsz = memory.shape[0]
     shape = (cfg.dec_layers, *kvs[0][0].shape[:2], 1, cfg.resolved_head_dim)
@@ -240,24 +246,39 @@ def encdec_decode(params: dict, cfg: ModelConfig, cache: dict,
     """One decoder step for ``token`` (B,) at position ``pos`` against
     ``cache`` ``{"ck", "cv": (Ld, B, Hkv, T, hd), "k", "v": (Ld, B, Hkv,
     S, hd)}`` → (logits (B, V) f32, cache): the self cache is the one
-    passed in, **updated in place**."""
-    h = embed_tokens(params["embed"], cfg, token.long())[:, None, :]
+    passed in, **updated in place**.  Under a mesh serve step the
+    embedding, each decoder layer's leaves, the final norm and
+    ``lm_head`` are gathered along the data axes where they are read
+    (``tp.gather_data``)."""
+    h = embed_tokens(tp.gather_data(params["embed"], ("embed",)), cfg,
+                     token.long())[:, None, :]
     h = shard_activation(h, "hidden")                          # (B, 1, D)
     blocks = params["decoder"]["blocks"]
     for li in range(cfg.dec_layers):
-        p = _layer(blocks, li)
-        a, _, _ = L.attention_decode(
-            p["self_attn"], cfg, L.rmsnorm(h, p["ln1"], cfg.norm_eps), pos,
-            cache["k"][li], cache["v"][li])
-        h = h + a
-        c, _, _ = L.attention_decode(
-            p["cross_attn"], cfg, L.rmsnorm(h, p["ln_x"], cfg.norm_eps), pos,
-            cache["ck"][li], cache["cv"][li], cross=True)
-        h = h + c
-        h = h + L.mlp_layer(p["mlp"], cfg,
-                            L.rmsnorm(h, p["ln2"], cfg.norm_eps))
-    h = L.rmsnorm(h, params["decoder"]["final_norm"], cfg.norm_eps)
-    return head_logits(h[:, 0], params["lm_head"], cfg), cache
+        h = _decoder_layer_decode(_layer(blocks, li), cfg, h, pos,
+                                  _layer(cache, li))
+    h = L.rmsnorm(h, tp.gather_data(params["decoder"]["final_norm"],
+                                    ("decoder", "final_norm")), cfg.norm_eps)
+    return head_logits(h[:, 0], tp.gather_data(params["lm_head"],
+                                               ("lm_head",)), cfg), cache
+
+
+def _decoder_layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor,
+                          pos: int, cache: dict) -> torch.Tensor:
+    """One decoder layer of a decode step against its views of the cache,
+    its leaves gathered along the data axes here (``tp.gather_data``), so
+    that they are freed when it returns."""
+    p = tp.gather_data(p, ("decoder", "blocks"), layer=True)
+    a, _, _ = L.attention_decode(
+        p["self_attn"], cfg, L.rmsnorm(h, p["ln1"], cfg.norm_eps), pos,
+        cache["k"], cache["v"])
+    h = h + a
+    c, _, _ = L.attention_decode(
+        p["cross_attn"], cfg, L.rmsnorm(h, p["ln_x"], cfg.norm_eps), pos,
+        cache["ck"], cache["cv"], cross=True)
+    h = h + c
+    return h + L.mlp_layer(p["mlp"], cfg,
+                           L.rmsnorm(h, p["ln2"], cfg.norm_eps))
 
 
 def init_cache(cfg: ModelConfig, batch: int, mem_len: int, max_len: int,

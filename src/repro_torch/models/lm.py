@@ -27,11 +27,15 @@ MoE layer (``models/moe.py``) or none.  The train step of
 ``launch/steps.py`` takes ``lm_loss`` for every family but the
 encoder–decoder: dense (dense, vlm, audio), MoE (the gates' gradient
 through the f32 router), SSM (the SSD's through its backward kernel) and
-the hybrid, which mixes them.  Its mesh step runs the same code on the
-rank's shards: the layers split along the installed ``ModelSplit``
-(``distributed/tp.py``), the chunked CE over this rank's vocabulary
-columns, and the leaves gathered along the data axes where they are used
-(``tp.gather_data``: a superblock's inside its checkpointed function).
+the hybrid, which mixes them.  Its mesh step and the mesh serve steps
+run the same code on the rank's shards: the layers split along the
+installed ``ModelSplit`` (``distributed/tp.py``), the chunked CE over
+this rank's vocabulary columns, and the leaves gathered along the data
+axes where they are used (``tp.gather_data``: a superblock's when it
+runs — in training inside its checkpointed function — and the
+embedding, the final norm and the head each where it is read), so that a
+rank holds one superblock's gathered leaves at a time, as the
+reference's ``lax.scan`` over superblocks does.
 """
 from __future__ import annotations
 
@@ -194,9 +198,14 @@ def head_logits(h: torch.Tensor, head: torch.Tensor,
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+    """Layer ``i`` of a stacked tree (views, no copies).  A ``NamedTuple``
+    leaf (an int8 ``QTensor``) is indexed field by field; a field of
+    extent 1 along the layer axis — the scale of a (layers, D) leaf,
+    taken over the layers — is every layer's."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(t[i if t.shape[0] > 1 else 0] for t in tree))
     return tree[i]
 
 
@@ -291,13 +300,14 @@ def backbone(params: dict, cfg: ModelConfig, h: torch.Tensor,
     activations are dropped and recomputed in the backward, as the
     reference's ``jax.checkpoint(body)`` does.
 
-    Where a mesh train step holds the leaves in blocks along the data
-    axes, a superblock's leaves are gathered when it runs
-    (``tp.gather_data``), inside the checkpointed function: the
-    recompute gathers them again and no gathered leaf is saved, so a
-    rank holds one superblock's at a time.  Without ``cfg.remat``
-    autograd keeps every superblock's gathered leaves for the
-    backward."""
+    Where a mesh step holds the leaves in blocks along the data axes, a
+    superblock's leaves are gathered when it runs (``tp.gather_data``)
+    and freed when it returns, so a rank holds one superblock's at a
+    time: in a prefill the caches it collects are stacked copies, no
+    view of a gathered leaf; in training the gather is inside the
+    checkpointed function, whose recompute gathers them again, so no
+    gathered leaf is saved.  Without ``cfg.remat`` autograd keeps every
+    superblock's gathered leaves for the backward."""
     pat = superblock_pattern(cfg)
     nsb = num_superblocks(cfg)
     grad = torch.is_grad_enabled()
@@ -542,22 +552,37 @@ def lm_decode(params: dict, cfg: ModelConfig, cache: dict,
               token: torch.Tensor, pos: int):
     """One decode step at absolute position ``pos`` for ``token`` (B,)
     (or (B, 1, D) embeds).  Returns (logits (B, V) f32, cache): the cache
-    is the one passed in, **updated in place**."""
+    is the one passed in, **updated in place**.  Under a mesh serve step
+    the embedding, each superblock's leaves, the final norm and the head
+    are gathered along the data axes where they are read
+    (``tp.gather_data``), every superblock on every token, as the
+    reference's jitted decode does."""
     pat = superblock_pattern(cfg)
     if cfg.embeds_input:
         h = token.to(cfg.param_dtype)
         if h.ndim == 2:
             h = h[:, None, :]
     else:
-        h = embed_tokens(params["embed"], cfg, token.long())[:, None, :]
+        h = embed_tokens(tp.gather_data(params["embed"], ("embed",)), cfg,
+                         token.long())[:, None, :]
     h = shard_activation(h, "hidden")                           # (B, 1, D)
     for li in range(num_superblocks(cfg)):
-        block_p = _layer(params["blocks"], li)
-        for i, spec in enumerate(pat):
-            h = _apply_block_decode(block_p[f"b{i}"], cfg, spec, h, pos,
-                                    _layer(cache[f"b{i}"], li))
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        h = _superblock_decode(_layer(params["blocks"], li), cfg, pat, h,
+                               pos, _layer(cache, li))
+    h = L.rmsnorm(h, tp.gather_data(params["final_norm"], ("final_norm",)),
+                  cfg.norm_eps)
     return head_logits(h[:, 0], _head_matrix(params), cfg), cache
+
+
+def _superblock_decode(block_p, cfg, pat, h, pos: int, cache: dict):
+    """One superblock of a decode step, its leaves gathered along the data
+    axes here (``tp.gather_data``), so that they are freed when it
+    returns, before the next superblock's are gathered."""
+    block_p = tp.gather_data(block_p, ("blocks",), layer=True)
+    for i, spec in enumerate(pat):
+        h = _apply_block_decode(block_p[f"b{i}"], cfg, spec, h, pos,
+                                cache[f"b{i}"])
+    return h
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

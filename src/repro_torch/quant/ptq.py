@@ -18,7 +18,10 @@ dimension, over the vocabulary; and the leaves the model keeps in f32
 
 The reference dequantizes inside ``jit``, where XLA fuses the convert
 into the consumer.  The port runs eagerly: :func:`dequantize_params`
-writes a transient copy of the weights in the dtype asked for.
+writes a transient copy of the weights in the dtype asked for.  On a
+mesh the serve steps dequantize one superblock at a time: its ``q`` and
+``scale`` gathered along the data axes in one buffer, then dequantized
+before any layer reads them (``tp.gather_data``).
 
 Usage::
 

@@ -519,3 +519,28 @@ def test_mamba_prefill_peak_holds_no_projection_per_layer(subproc,
         + s.num_heads(cfg.d_model)
     held = cfg.num_layers * rows * seq * cols * cfg.param_dtype.itemsize
     assert rec["peak_bytes_per_device"] < held / 4
+
+
+#: (shape, mesh) → the most bytes a device of the production mesh may
+#: hold at the peak of jamba-1.5-large-398b's serve step
+JAMBA_SERVE_PEAKS = {("prefill_32k", "single"): 80e9,
+                     ("prefill_32k", "multi"): 80e9,
+                     ("decode_32k", "single"): 20e9}
+
+
+@pytest.mark.parametrize("shape,mesh", list(JAMBA_SERVE_PEAKS))
+def test_jamba_serves_within_the_cards_memory(shape, mesh, subproc,
+                                              tmp_path):
+    """jamba-1.5-large-398b's serve steps gather their params along the
+    data axes one superblock (8 layers) at a time, as the reference's
+    scanned ``jit`` does, not a device's whole ``model`` shard (≈ 53 GB)
+    at once.  The dry-run's peak a device: ``prefill_32k`` on 16 × 16
+    47 681 532 608 bytes and on 2 × 16 × 16 38 964 540 192, under the
+    card's 80e9 (92 086 629 056 and 83 369 636 640 with every leaf
+    gathered at once); ``decode_32k`` on 16 × 16 15 433 446 048, under
+    20e9 (57 506 542 208)."""
+    rec = _port_cell(subproc, tmp_path, "jamba-1.5-large-398b", shape, mesh)
+    assert rec["ok"] and rec["entry"] == f"{shape.split('_')[0]}_step", rec
+    assert rec["peak_bytes_per_device"] < JAMBA_SERVE_PEAKS[shape, mesh]
+    assert rec["peak_bytes_per_device"] >= \
+        rec["memory_analysis"]["argument_size_in_bytes"]

@@ -295,8 +295,9 @@ def test_the_kernels_and_the_experts_run_on_a_model_shard(served, mesh):
 
 def test_int8_weights_on_a_mesh_serve_the_one_device_int8_tokens(served):
     """On (1, 2) the int8 engine — leaves and scales placed by
-    ``quantized_param_shardings``, each call dequantizing the rank's
-    shards — against the one-device int8 engine on the same weights."""
+    ``quantized_param_shardings``, each call dequantizing a superblock's
+    shards right after their gather — against the one-device int8
+    engine on the same weights."""
     one, _, runs = served
     want = one["int8"]
     for rank in runs["1x2"]:
