@@ -249,8 +249,8 @@ Phases, each printing one JSON object on a line of its own:
                   attention and 28 + 14 SSD launches a step, the drops per
                   layer, the card against the CPU at d_model 256 with
                   the card's routing replayed;
-22. ``train_resilient`` qwen2-0.5b at full width and depth (24 layers,
-                  d_model 896, tied 151936-token embedding) through
+22. ``train_resilient`` qwen2-0.5b at full width (d_model 896, tied
+                  151936-token embedding), 6 of its 24 layers, through
                   ``launch.train.train`` (batch 4 × 1024, 8 steps, a
                   checkpoint every 4, lr 1e-3, seed 3) twice under
                   ``build/train_resilient/``: clean, then crashed at step
@@ -258,12 +258,13 @@ Phases, each printing one JSON object on a line of its own:
                   bit; a third call for 10 steps on the crashed run's
                   directory runs only steps 8 and 9; the flash launches
                   are read after these three calls; the step-8
-                  checkpoint (≈ 4.9 GB: bf16 params, f32 moments, int32
+                  checkpoint (≈ 2.3 GB: bf16 params, f32 moments, int32
                   step) restored onto the card and the CPU equals an
                   uninterrupted hand-driven run's state bit for bit;
                   save (snapshot, write) and restore timed; free disk
                   checked first, the directory removed at the end.
-23. ``mesh_train`` the same qwen2-0.5b run through
+23. ``mesh_train`` the same qwen2-0.5b run at full depth (24 layers;
+                  its checkpoint ≈ 4.9 GB) through
                   ``launch.train.train`` on ``single_device_mesh()`` (a
                   1 × 1 ``data`` × ``model`` mesh: an NCCL world of one
                   on an in-memory store; params and AdamW state as
@@ -331,7 +332,23 @@ Phases, each printing one JSON object on a line of its own:
                   them; the predicted peak beside both peaks and
                   ``bound_s`` beside the measured ms.  The phase fails if
                   a tie fails or it takes over 120 s (the production
-                  meshes' modeled cells are the CPU tests').
+                  meshes' modeled cells are the CPU tests');
+26. ``examples``  the port's four examples, each ``main`` run in this
+                  process with its default arguments (the card), its
+                  printed lines to ``chiprun_out/chip_smoke/
+                  example_<name>.log``: ``quickstart_torch`` (build →
+                  compile → emit → run, bit-exact with the interpreter on
+                  the CPU → save/load), ``serve_batched_torch`` (lenet5
+                  behind ``ServeEngine``: a request, a burst of 32, 100
+                  at 200 offered qps; achieved qps, p50, p99),
+                  ``train_lm_torch`` (a 46.1M-param f32 llama, 300 steps
+                  of 8 × 256, a crash at 150; median step ms, tokens/s,
+                  first and last 10-loss means, the loss fall checked)
+                  and ``elastic_resilience_torch`` (qwen2-0.5b's smoke
+                  config crashed and restarted on a (2, 2) mesh and
+                  re-meshed to (4, 1), four spawned gloo ranks on the
+                  CPU, then restored onto the card's 1 × 1 mesh; each
+                  phase's seconds).
 
 The conv kernel's launch counters are zeroed just before phase 4 and read
 just after phase 5, and again just before phase 6 and after phase 7 (the
@@ -343,7 +360,8 @@ the SSD kernel's around phase 15, the attention kernel's around phase
 backward kernel the path runs, and around phase 24 the attention
 kernel's (read after llama's mesh engines' calls) and the SSD kernel's
 (zeroed before mamba2's mesh engine, read after its calls), each read
-just after the path's steps (the ``kernels`` line adds the counts of
+just after the path's steps, and around each example of phase 26 the
+conv and attention kernels' (the ``kernels`` line adds the counts of
 every path); the run
 fails if a kernel was never launched on its path, or if a plain version
 ever ran on a CUDA tensor there.  Then the ``nvidia-smi`` line, the
@@ -353,7 +371,9 @@ before it) and, last, ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero; with no CUDA device the script exits 2 and prints no
 result.
 
-Each phase prints a compact line; its whole result (per-shape rows, the
+Each phase prints a compact line, with its ``seconds`` (wall time since
+the previous phase line; ``build`` and ``dryrun`` time themselves); its
+whole result (per-shape rows, the
 ``nvcc`` logs, the profiler's top kernels) goes to
 ``chiprun_out/chip_smoke/<phase>.json``.  ``--ptxas`` adds each kernel's
 registers and spills to the ``build`` line (the conv, SSD and backward
@@ -362,6 +382,7 @@ kernels' are always there).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -396,7 +417,7 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "moe_serve", "hybrid_serve", "encdec_serve", "int8_serve",
           "lm_train", "lm_train_streamed", "moe_train", "ssm_train",
           "encdec_train", "hybrid_train", "train_resilient", "mesh_train",
-          "mesh_serve", "dryrun")
+          "mesh_serve", "dryrun", "examples")
 
 #: (name, batch, H, W, Cin, Cout, K, stride) — the main path's conv shapes
 MAIN_SHAPES = (
@@ -434,6 +455,8 @@ VERBOSE_KEYS = ("shapes", "top_kernels", "wall_ms_each",
 SHAPE_KEYS = ("shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
               "library_ms")
 _stdout_bytes = 0
+#: when the last phase line was printed: a phase's ``seconds`` run from it
+_phase_mark = time.perf_counter()
 
 
 def emit(obj) -> None:
@@ -452,9 +475,23 @@ def _compact(obj):
     return obj
 
 
+def phase_seconds() -> float:
+    """Seconds since the last phase line, and the mark reset to now."""
+    global _phase_mark
+    now = time.perf_counter()
+    seconds, _phase_mark = now - _phase_mark, now
+    return seconds
+
+
 def emit_phase(name: str, result) -> None:
     """``result`` in full to ``DETAIL_DIR/<name>.json``; on stdout one line
-    ``{name: result without VERBOSE_KEYS, "detail": path}``."""
+    ``{name: result without VERBOSE_KEYS, "detail": path}``.  Its
+    ``seconds``, where the phase does not time itself (``build``: the
+    ``nvcc`` runs; ``dryrun``: its ties), are the wall time since the
+    last phase line."""
+    seconds = phase_seconds()
+    if "seconds" not in result:
+        result = {**result, "seconds": seconds}
     os.makedirs(DETAIL_DIR, exist_ok=True)
     path = os.path.join(DETAIL_DIR, f"{name}.json")
     with open(path, "w") as f:
@@ -1215,7 +1252,6 @@ def _cli_rows(commands, main, cs):
     """Run ``python -m repro_torch``'s ``main`` on each argv in process
     (so the conv kernel's counters see its launches), its output
     captured; fails on the first that does not exit 0."""
-    import contextlib
     import io
 
     rows = []
@@ -4188,8 +4224,6 @@ def _train_card_vs_cpu(torch, cfg, dtype: str, cut: dict) -> dict:
     step, held to ``TRAIN_CPU_RULE``.  With MoE layers the CPU replays the
     card's routing choices (``_ReplayingChoices``: the gates recomputed
     from its own logits, so the router's gradient flows on both)."""
-    import contextlib
-
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import steps
     from repro_torch.models import lm
@@ -4497,10 +4531,14 @@ def int8_serve(torch, read) -> dict:
     return result
 
 
-#: crash-restart training: qwen2-0.5b at full width and depth (24 layers,
-#: d_model 896, tied 151936-token embedding) — the model of the
-#: reference's restart tests — through ``launch.train.train``
+#: crash-restart training: qwen2-0.5b at full width (d_model 896, tied
+#: 151936-token embedding) — the model of the reference's restart tests —
+#: through ``launch.train.train``, cut to ``RESILIENT_LAYERS`` of its 24
+#: layers: its checks hold at any depth, and ``mesh_train`` runs the same
+#: run at full depth (crash and restart bit for bit, the 4.9 GB
+#: checkpoint saved, restored across the mesh and ``mesh=None``, timed)
 RESILIENT_ARCH = "qwen2-0.5b"
+RESILIENT_LAYERS = 6
 RESILIENT_RUN = {"batch": 4, "seq": 1024, "steps": 8, "ckpt_every": 4,
                  "lr": 1e-3, "seed": 3}
 RESILIENT_FAIL_AT = (6,)
@@ -4542,16 +4580,39 @@ def restart_replays(clean: list, crashed: list, *, fail_at: int,
             and len(crashed) == len(clean) + replayed)
 
 
+@contextlib.contextmanager
+def config_cut(arch: str, **cut):
+    """``arch``'s registered config cut by ``cut`` (``with_``) for the
+    block: ``launch.train.train`` resolves its config by name, as
+    ``examples/train_lm_torch.py`` has its own resolved."""
+    import importlib
+
+    from repro_torch.configs import registry
+
+    mod = importlib.import_module(f"repro_torch.configs.{registry.ARCHS[arch]}")
+    full = mod.CONFIG
+    mod.CONFIG = full.with_(**cut)
+    try:
+        yield mod.CONFIG
+    finally:
+        mod.CONFIG = full
+
+
 def train_resilient(torch, read) -> dict:
-    """qwen2-0.5b trained through ``launch.train.train`` at full width and
-    depth: a clean run and a run crashed at step 6 (restarted from its
-    step-4 checkpoint) log the same losses bit for bit; a third call on
-    the crashed run's directory runs only the new steps; the step-8
-    checkpoint restores onto the card and the CPU equal to an
-    uninterrupted hand-driven run's state.  Timed: checkpoint save
+    """qwen2-0.5b at full width and ``RESILIENT_LAYERS`` layers trained
+    through ``launch.train.train``: a clean run and a run crashed at step
+    6 (restarted from its step-4 checkpoint) log the same losses bit for
+    bit; a third call on the crashed run's directory runs only the new
+    steps; the step-8 checkpoint restores onto the card and the CPU equal
+    to an uninterrupted hand-driven run's state.  Timed: checkpoint save
     (snapshot, write) and restore.  ``read()`` returns the path's launch
     counts: it is called after the three ``train`` calls, before the
     hand-driven run."""
+    with config_cut(RESILIENT_ARCH, num_layers=RESILIENT_LAYERS):
+        return _restart_run(torch, read)
+
+
+def _restart_run(torch, read) -> dict:
     import shutil
 
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -5795,6 +5856,109 @@ def dryrun(torch, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: the port's examples (``examples/*_torch.py``) in the order the
+#: ``examples`` phase runs them, each with the kernels its path launches
+#: on the card
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+EXAMPLES = (("quickstart_torch", ("conv2d_stream",)),
+            ("serve_batched_torch", ("conv2d_stream",)),
+            ("train_lm_torch", ("flash_attention", "flash_attention_bwd")),
+            ("elastic_resilience_torch",
+             ("flash_attention", "flash_attention_bwd")))
+
+
+def example_numbers(name: str, res: dict) -> dict:
+    """The key numbers of one example's run, from what its ``main`` put
+    in ``out``."""
+    if name == "quickstart_torch":
+        import numpy as np
+
+        return {"bit_exact": bool(np.array_equal(res["got"], res["want"])),
+                "output_shape": list(res["got"].shape)}
+    if name == "serve_batched_torch":
+        rep = res["load"]
+        return {"offered_qps": rep.offered_qps,
+                "achieved_qps": rep.achieved_qps, "p50_ms": rep.p50_ms,
+                "p99_ms": rep.p99_ms, "mean_batch": rep.mean_batch,
+                "rejected": rep.rejected,
+                "burst_batches": res["stats"]["batches"],
+                "burst_max_batch": res["stats"]["max_batch_seen"]}
+    if name == "train_lm_torch":
+        step_s = res["median_step_s"]
+        return {"median_step_ms": step_s * 1e3,
+                "tokens_per_s": res["tokens_per_step"] / step_s,
+                "first10_mean_loss": res["first"],
+                "last10_mean_loss": res["last"],
+                "final_step": res["final_step"],
+                "steps_run": len(res["losses"]),
+                "stragglers_flagged": len(res["straggler_flags"])}
+    ranks = res["ranks"]
+    return {"phase1_s": ranks[0]["seconds"][0],
+            "phase2_s": ranks[0]["seconds"][1],
+            "gloo_ranks_s": res["ranks_seconds"],
+            "phase3_s": res["phase3_seconds"],
+            "final_steps": [ranks[0]["phase1"]["final_step"],
+                            ranks[0]["phase2"]["final_step"],
+                            res["phase3"]["final_step"]],
+            "phase3_losses": res["phase3"]["losses"],
+            "watchdog_flagged": [s for s, _ in res["watchdog"].flagged]}
+
+
+def examples(torch) -> dict:
+    """Each of ``EXAMPLES``: its ``main`` in this process with its default
+    arguments (the CUDA card), its printed lines to
+    ``DETAIL_DIR/example_<name>.log``.  The conv and attention kernels'
+    counts are zeroed just before each example and read just after: the
+    run fails if an example does not return 0, if a kernel of its path
+    never launched, or if a plain version ran on a CUDA tensor.  The
+    gloo ranks of the elastic example's phases 1-2 are spawned processes
+    on the CPU; its phase 3 trains on the card."""
+    import importlib
+
+    from repro_torch.kernels import conv2d_stream as cs
+    from repro_torch.kernels import flash_attention as fa
+
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    os.makedirs(DETAIL_DIR, exist_ok=True)
+    rows = []
+    totals = {"conv2d_stream": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0}
+    for name, kernels in EXAMPLES:
+        mod = importlib.import_module(name)
+        log = os.path.join(DETAIL_DIR, f"example_{name}.log")
+        res: dict = {}
+        cs.reset_counts()          # counts: zero before this example
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            rc = mod.main([], out=res)
+        seconds = time.perf_counter() - t0
+        counts = {"conv2d_stream": cs.launches,                # read after
+                  "flash_attention": fa.launches,
+                  "flash_attention_bwd": fa.bwd_launches}
+        plain = (cs.plain_cuda_calls + fa.plain_cuda_calls
+                 + fa.bwd_plain_cuda_calls)
+        if rc != 0:
+            raise AssertionError(f"the {name} example exited {rc}")
+        if plain:
+            raise AssertionError(f"a plain version ran {plain} time(s) on a "
+                                 f"CUDA tensor in the {name} example")
+        never = [k for k in kernels if counts[k] < 1]
+        if never:
+            raise AssertionError(f"the {name} example never launched "
+                                 f"{never}")
+        for k in kernels:
+            totals[k] += counts[k]
+        with open(log) as f:
+            last = f.read().strip().splitlines()[-1]
+        rows.append({"example": name, "rc": rc, "seconds": seconds,
+                     "last_line": last,
+                     "launches": {k: counts[k] for k in kernels},
+                     **example_numbers(name, res)})
+    return {"examples": rows, "launches": totals}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5826,6 +5990,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import mamba2_ssd as ms
 
     t_all = time.perf_counter()
+    phase_seconds()                    # the device phase starts here
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     if "device" in phases:
@@ -5835,7 +6000,8 @@ def main(argv=None) -> int:
                          "count": torch.cuda.device_count(),
                          "torch": torch.__version__,
                          "cuda": torch.version.cuda,
-                         "nvcc": nvcc[-2:] if nvcc else None}})
+                         "nvcc": nvcc[-2:] if nvcc else None,
+                         "seconds": phase_seconds()}})
     # always from the checkout's sources, whatever a build directory
     # holds: one nvcc per kernel, all started together
     libraries = (cs.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY, fm.LIBRARY,
@@ -6031,6 +6197,12 @@ def main(argv=None) -> int:
         emit_phase("mesh_serve", served)
     if "dryrun" in phases:               # meta and subprocesses: no count
         emit_phase("dryrun", dryrun(torch, smi))
+    if "examples" in phases:       # each example's counts zeroed and read
+        ex = examples(torch)
+        launches += ex["launches"]["conv2d_stream"]
+        fa_launches += ex["launches"]["flash_attention"]
+        bwd_totals["attn"] += ex["launches"]["flash_attention_bwd"]
+        emit_phase("examples", ex)
     fb_launches, mb_launches = bwd_totals["attn"], bwd_totals["ssd"]
 
     if set(phases) != set(PHASES):

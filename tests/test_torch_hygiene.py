@@ -1,6 +1,6 @@
 """The port stands alone: no import of ``jax``, of ``ml_dtypes``, of the
 reference package or of the reference's ``benchmarks`` anywhere in
-``src/repro_torch`` or ``chip_smoke.py``; no silent
+``src/repro_torch``, ``chip_smoke.py`` or ``examples/*_torch.py``; no silent
 CPU path when the card is missing; the conv wrapper on a CPU tensor
 never touches the CUDA toolchain; no TPU constant in the port."""
 import ast
@@ -16,9 +16,13 @@ import torch
 
 from _torch_port import PORT_ROOT, REF_ROOT, REPO, compiled_pair
 
+#: the port's package, its card script and its examples
+EXAMPLES = ["examples/quickstart_torch.py", "examples/serve_batched_torch.py",
+            "examples/train_lm_torch.py",
+            "examples/elastic_resilience_torch.py"]
 PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in pathlib.Path(PORT_ROOT).rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py"] + EXAMPLES
 
 #: modules carried over from the reference with imports rewritten and
 #: nothing else that executes (comments and docstrings may differ)

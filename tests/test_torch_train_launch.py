@@ -246,3 +246,22 @@ def test_the_restart_phases_attention_shape_is_a_checked_backward_case():
         seq_q=run["seq"], seq_k=run["seq"], head_dim=d, dtype="bfloat16",
         aligned=True)
     assert plan.route == "wgmma"
+
+
+def test_the_restart_phase_cuts_the_depth_of_the_registered_config():
+    """``chip_smoke.py``'s ``train_resilient`` trains qwen2-0.5b at
+    ``RESILIENT_LAYERS`` layers through ``launch.train.train``, which
+    resolves its config by name: inside ``config_cut`` the name gives the
+    cut config, width kept, and after it the published one again."""
+    full = treg.get_config(chip_smoke.RESILIENT_ARCH)
+    assert full.num_layers == 24
+    with chip_smoke.config_cut(chip_smoke.RESILIENT_ARCH,
+                               num_layers=chip_smoke.RESILIENT_LAYERS) as cut:
+        got = treg.get_config(chip_smoke.RESILIENT_ARCH)
+        assert got is cut and got == full.with_(
+            num_layers=chip_smoke.RESILIENT_LAYERS)
+        run = TT.build_run(cfg=got, steps=1, batch=1, seq=8, ckpt_dir=None,
+                           device="cpu")
+        wq = run.state_template()["params"]["blocks"]["b0"]["attn"]["wq"]
+        assert wq.shape == (chip_smoke.RESILIENT_LAYERS, 896, 896)
+    assert treg.get_config(chip_smoke.RESILIENT_ARCH) is full
