@@ -69,9 +69,13 @@ Phases, each printing one JSON object on a line of its own:
                   prefill (16/8 heads of 64), Jamba's (64/8 heads of 128,
                   GQA group 8), the seamless encoder (16/16 heads of 64,
                   not causal), causal and not, a query offset, ragged
-                  lengths (100, 1000), D 40 and B 1 S 1; then timed at the
-                  model shapes beside the plain version, the roofline bound
-                  and ``F.scaled_dot_product_attention`` as yardstick;
+                  lengths (100, 1000), D 40 and B 1 S 1, and what a rank
+                  launches where only the query heads divide ``model`` =
+                  16 (llama3.2-1b 2 on 1 kv head, nemotron-4-15b 3 on 1,
+                  3 on 3 where a rank's heads straddle two kv heads); then
+                  timed at the model and rank shapes beside the plain
+                  version, the roofline bound and
+                  ``F.scaled_dot_product_attention`` as yardstick;
 8b. ``attn_bwd_check`` the hand-written attention backward kernel against
                   its plain version on the card, on (q, k, v, out, lse,
                   dout) with out and lse from the forward kernel: f32
@@ -90,7 +94,9 @@ Phases, each printing one JSON object on a line of its own:
                   (a skipped key tile, a stale ring slot, ...) failing the
                   rule, and a call timed beside the plain version, the
                   bound, the design's floor and SDPA's backward as
-                  yardstick, with each kernel's device ms and TFLOP/s;
+                  yardstick, with each kernel's device ms and TFLOP/s,
+                  there and at the rank shapes of ``attn_check`` (B 4, S
+                  4096);
 9. ``mlp_check``  the hand-written fused-MLP kernel against its plain
                   PyTorch version on the card, f32 (CUDA cores) within atol
                   = rtol = 5e-4 and bf16 (tensor cores, a cluster per row
@@ -1390,11 +1396,22 @@ ATTN_CASES = (
     ("seamless.decoder.train", 4, 16, 16, 1024, 1024, 64, True, 0),
     ("seamless.cross", 4, 16, 16, 1024, 4096, 64, False, 0),
     ("jamba.train.cut", 4, 8, 1, 4096, 4096, 128, True, 0),
+    # a rank's launch where only the query heads divide ``model`` = 16
+    # (``layers.head_case``'s ``QUERY``): prefill_32k's 2 rows a rank,
+    # the sequence cut to 4096; its query heads on the one kv head they
+    # read (llama3.2-1b 2 of 32 on 8, nemotron-4-15b 3 of 48 on 8), or
+    # one kv head a query head where they straddle two (6 on 3 at 2)
+    ("llama3.2-1b.rank16", 2, 2, 1, 4096, 4096, 64, True, 0),
+    ("nemotron-4-15b.rank16", 2, 3, 1, 4096, 4096, 128, True, 0),
+    ("straddle.ratio1", 2, 3, 3, 4096, 4096, 64, True, 0),
 )
-#: timed shapes: the prefill attention of the served models
+#: timed shapes: the prefill attention of the served models, and a
+#: rank's under the query-head split
 ATTN_TIMED = ("llama3.2-1b.prefill", "qwen2-0.5b.prefill", "yi-9b.d128",
               "olmoe.group1.d128", "granite-moe.prefill",
-              "jamba.prefill.g8.d128", "seamless.encoder")
+              "jamba.prefill.g8.d128", "seamless.encoder",
+              "llama3.2-1b.rank16", "nemotron-4-15b.rank16",
+              "straddle.ratio1")
 #: the CUDA-core kernel's ms at the timed shapes before the tensor-core
 #: redesign (chip_smoke.py's run on an NVIDIA H100 80GB HBM3, 700.00 W):
 #: constants, not measured in this run, so they go only into the phase's
@@ -1514,8 +1531,17 @@ ATTN_BWD_CASES = (
     ("jamba.train.cut", 4, 8, 1, 4096, 4096, 128, True, 0),
     ("qwen2-0.5b.train", 4, 14, 2, 1024, 1024, 64, True, 0),
     ATTN_BWD_UNALIGNED,
+    # a rank's train_4k microbatch (4 rows) where only the query heads
+    # divide ``model`` = 16, as in ``ATTN_CASES``
+    ("llama3.2-1b.train.rank16", 4, 2, 1, 4096, 4096, 64, True, 0),
+    ("nemotron-4-15b.train.rank16", 4, 3, 1, 4096, 4096, 128, True, 0),
+    ("straddle.ratio1.train", 4, 3, 3, 4096, 4096, 64, True, 0),
 )
 ATTN_BWD_HEADLINE = ("llama3.2-1b.train", "bfloat16")
+#: the bf16 shapes timed beside the bound, the plain version and SDPA's
+#: backward besides the headline: a rank's under the query-head split
+ATTN_BWD_TIMED = ("llama3.2-1b.train.rank16", "nemotron-4-15b.train.rank16",
+                  "straddle.ratio1.train")
 #: f32: the reference's own tolerance for its streaming backward
 #: (``tests/test_layers.py::TestStreamingBackward``, atol = rtol = 2e-4).
 #: bf16, per row: |err| ≤ 2e-2·|plain| + 1e-2·max(rowmax, 1e-3·max), where
@@ -1664,6 +1690,8 @@ def attn_bwd_check(torch) -> dict:
             if (name, dt_name) == ATTN_BWD_HEADLINE:
                 row["planted_faults"] = _planted_faults(
                     fa, q, k, v, out, lse, dout, got, want, bkw)
+            if (name, dt_name) == ATTN_BWD_HEADLINE or (
+                    name in ATTN_BWD_TIMED and dt_name == "bfloat16"):
                 row.update(_attn_bwd_times(torch, F, run, plain, q, k, v,
                                            out, lse, dout, got, b, hq, hkv,
                                            sq, sk, d, causal, q_offset))

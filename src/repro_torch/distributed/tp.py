@@ -14,14 +14,17 @@ scanned ``jit`` does.  The layers compute on the shards, joined over the
 ``model`` group of the installed ``ctx.ModelSplit`` by:
 
 * :func:`enter` — in front of a column-parallel product (``wq`` / ``wk``
-  / ``wv``, ``wu`` / ``wg``, the experts, the vocabulary-parallel head):
-  the identity, whose backward sums the rank's partial input gradient;
+  / ``wv``, ``wu`` / ``wg``, the experts, the vocabulary-parallel head),
+  and on a whole leaf of which a rank computes only its share (``wk`` /
+  ``wv`` where only the query heads split): the identity, whose backward
+  sums the rank's partial gradient;
 * :func:`sum_partial` — the sum of row-parallel partial outputs (the
   ``wo`` and ``wd`` products, the experts' combine, the embedding rows,
   the chunked CE's sums), whose backward passes the gradient on;
 * :func:`gather` — a tensor split along ``model`` made whole (the
-  vocabulary shards of the logits; the leaves of a layer every rank
-  computes whole), whose backward keeps this rank's block;
+  vocabulary shards of the logits; a decode step's query heads; the
+  leaves of a layer every rank computes whole), whose backward keeps
+  this rank's block;
 * :func:`gather_shared` — the same forward, for a tensor that every
   rank then uses in its own way (the Mamba mixer's ``B`` and ``C``,
   shared by every head): its backward sums every rank's gradient and
@@ -369,6 +372,24 @@ def own_block(t: torch.Tensor, dim: int,
         return t
     size = t.shape[dim] // split.count
     return t.narrow(dim, split.index * size, size)
+
+
+def kv_heads_read(t: torch.Tensor, heads_q: int, heads_kv: int,
+                  split: ModelSplit) -> torch.Tensor:
+    """The kv heads of ``t`` (B, ``heads_kv``, S, D) that this rank's
+    query heads ``[index·n, (index+1)·n)`` read, n = ``heads_q``/count:
+    query head h reads kv head h // G, G = ``heads_q``/``heads_kv``.
+    Where the rank's heads lie in one kv head (G % n == 0) or cover
+    whole groups (n % G == 0), a view of those kv heads, the GQA ratio
+    kept; else one kv head a query head (ratio 1).  Its gradient lands
+    in those heads of ``t``'s, zeros elsewhere."""
+    n = heads_q // split.count
+    group = heads_q // heads_kv
+    first = split.index * n
+    if group % n == 0 or n % group == 0:
+        return t.narrow(1, first // group, max(n // group, 1))
+    index = torch.arange(first, first + n, device=t.device) // group
+    return t.index_select(1, index)
 
 
 def combine_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,

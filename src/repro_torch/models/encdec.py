@@ -144,10 +144,12 @@ def encode(params: dict, cfg: ModelConfig,
 
 def _cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor):
     """One decoder layer's cross-attention keys and values of the memory,
-    (B, Hkv, T, hd) each — no RoPE; under a head split this rank's kv
-    heads (``layers.attention_leaves``)."""
+    (B, Hkv, T, hd) each — no RoPE; by ``layers.head_case``: this rank's
+    kv heads under ``HEADS``, every kv head under ``QUERY`` (from the
+    whole ``wk`` / ``wv``, entered: ``layers.attention_leaves``; the
+    layer then reads those its query heads read) and ``WHOLE``."""
     hd = cfg.resolved_head_dim
-    p, _ = L.attention_leaves(p, cfg)
+    p, _, _ = L.attention_leaves(p, cfg)
     k = memory @ p["wk"]
     v = memory @ p["wv"]
     if "bk" in p:
@@ -172,10 +174,11 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
     h = shard_activation(embed_tokens(embed, cfg, tokens.long(),
                                       _EmbedRows.apply), "hidden")
     positions = _positions(h)
-    # under a head split each layer's cross keys and values are this
-    # rank's heads: the memory's gradient from them, a partial, is summed
-    # over ``model`` once for all the layers
-    memory = tp.enter(memory, L.head_split(cfg))
+    # where the query heads split (``HEADS`` or ``QUERY``) a rank's
+    # cross-attention reads only its heads' share of each layer's cross
+    # keys and values: the memory's gradient from them, a partial, is
+    # summed over ``model`` once for all the layers
+    memory = tp.enter(memory, L.head_case(cfg)[1])
 
     def body(p, hh):
         a, _ = L.attention_layer(p["self_attn"], cfg,

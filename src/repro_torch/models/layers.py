@@ -338,40 +338,57 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
-def _head_splits(cfg: ModelConfig) -> tuple:
-    """(the query heads' split, the kv heads') — ``tp.split_along`` of
-    each count."""
-    return tp.split_along(cfg.num_heads), tp.split_along(cfg.num_kv_heads)
+#: the three ways a rank computes the attention along an installed
+#: ``ModelSplit`` (:func:`head_case`), as the rules place its leaves
+#: (``sharding.make_param_shardings``' ``q_ok`` and ``kv_ok``):
+#:
+#: * ``HEADS`` — both the query and the kv heads divide it: the rank's
+#:   H/tp query and Hkv/tp kv heads, on its shards, the GQA ratio kept;
+#: * ``QUERY`` — only the query heads divide it: the rank's H/tp query
+#:   heads on its ``wq`` / ``bq`` / ``wo`` shards, against the kv heads
+#:   those read, projected from the whole ``wk`` / ``wv`` / ``bk`` /
+#:   ``bv`` (``tp.kv_heads_read``);
+#: * ``WHOLE`` — neither: every leaf whole, as the rules replicate them,
+#:   and every head on every rank (as with no split installed).
+HEADS, QUERY, WHOLE = "heads", "query", "whole"
 
 
-def head_split(cfg: ModelConfig, splits: tuple | None = None):
-    """The installed ``ModelSplit`` where both the query and the kv heads
-    divide it (the rules' ``q_ok`` and ``kv_ok``: the attention layers
-    compute this rank's heads), else ``None``; ``splits``: what
-    :func:`_head_splits` gives, where the caller has it."""
-    q, kv = _head_splits(cfg) if splits is None else splits
-    return q if q is not None and kv is not None else None
+def head_case(cfg: ModelConfig) -> tuple:
+    """(case, split): ``HEADS`` or ``QUERY`` with the installed
+    ``ModelSplit`` — there the rank computes its query heads, and the
+    gradient of what enters their projections is a partial — or
+    ``(WHOLE, None)``.  Where the kv heads divide the split the query
+    heads do too (Hkv divides H)."""
+    q = tp.split_along(cfg.num_heads)
+    if q is None:
+        return WHOLE, None
+    return (HEADS if tp.split_along(cfg.num_kv_heads) else QUERY), q
 
 
 def attention_leaves(p: dict, cfg: ModelConfig):
-    """(leaves, split): the attention leaves as this rank computes with
-    them.  With a ``ModelSplit`` installed and both the query and the kv
-    heads dividing it (``make_param_shardings``' ``q_ok`` and ``kv_ok``),
-    the rank's shards as they are — H/tp query and Hkv/tp kv heads, the
-    GQA ratio kept — and the split, over which the ``wo`` product is
-    summed.  Otherwise the leaves the rules put on ``model`` gathered
-    along it, and ``None``: every rank computes every head."""
-    q, kv = splits = _head_splits(cfg)
-    split = head_split(cfg, splits)
-    if split is not None:
-        return p, split
-    out = {}
-    for name, t in p.items():
-        if name == "wo":
-            out[name] = tp.gather(t, -2, q)
-        else:
-            out[name] = tp.gather(t, -1, q if name in ("wq", "bq") else kv)
-    return out, None
+    """(leaves, case, split): the attention leaves as this rank computes
+    with them, by :func:`head_case`.  ``HEADS``: the rank's shards as
+    they are.  ``QUERY``: ``wq``, ``bq`` and ``wo`` the rank's shards;
+    ``wk``, ``wv``, ``bk`` and ``bv`` whole, entered through
+    ``tp.enter`` — the rank's heads give only its share of their
+    gradient, summed over ``model`` there.  ``WHOLE``: every leaf whole,
+    as the rules replicate them.  No leaf is gathered along ``model``.
+    ``split``: the installed split over which the ``wo`` product is
+    summed, ``None`` for ``WHOLE``."""
+    case, split = head_case(cfg)
+    if case == QUERY:
+        p = {name: tp.enter(t, split) if name in ("wk", "wv", "bk", "bv")
+             else t for name, t in p.items()}
+    return p, case, split
+
+
+def _kv_read(k, v, cfg: ModelConfig, case: str, split):
+    """(k, v) as the rank's query heads read them: under ``QUERY`` the
+    kv heads they read (``tp.kv_heads_read``), else as given."""
+    if case != QUERY:
+        return k, v
+    return tuple(tp.kv_heads_read(t, cfg.num_heads, cfg.num_kv_heads, split)
+                 for t in (k, v))
 
 
 def attention_layer(
@@ -391,14 +408,19 @@ def attention_layer(
     applies no RoPE to it (the positions are unrelated to the memory's)
     and returns the given (k, v).
 
-    Under a head split (:func:`attention_leaves`) the layer computes this
-    rank's heads: ``x`` enters the projections through ``tp.enter`` (its
-    gradient from this rank's heads is a partial, summed over ``model``)
-    and the ``wo`` product is summed over ``model``.  With ``kv_override``
-    the given keys and values are this rank's kv heads, whose source
-    entered the same way (``encdec.decode_train``'s memory)."""
+    Along a ``model`` split the layer computes by :func:`head_case`.
+    ``HEADS``: this rank's query and kv heads, and (k, v) hold its kv
+    heads.  ``QUERY``: this rank's query heads against the kv heads they
+    read (``tp.kv_heads_read``) of keys and values projected whole, and
+    (k, v) hold every kv head.  In both ``x`` enters the projections
+    through ``tp.enter`` (its gradient from this rank's heads is a
+    partial, summed over ``model``) and the ``wo`` product is summed over
+    ``model``.  ``WHOLE``: every head, as on one device.  With
+    ``kv_override`` the given keys and values are those (k, v) would be,
+    from a source that entered the same way (``encdec.decode_train``'s
+    memory)."""
     hd = cfg.resolved_head_dim
-    p, split = attention_leaves(p, cfg)
+    p, case, split = attention_leaves(p, cfg)
     x = tp.enter(x, split)
     q = x @ p["wq"]
     if "bq" in p:
@@ -420,16 +442,17 @@ def attention_layer(
         k = apply_rope(k, cos, sin)
     else:
         k, v = kv_override
+    k_read, v_read = _kv_read(k, v, cfg, case, split)
 
     if cfg.attn_impl == "blockwise":
         out = blockwise_attention(
-            q, k, v, causal=causal, q_offset=0,
+            q, k_read, v_read, causal=causal, q_offset=0,
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
             streaming_bwd=cfg.attn_streaming_bwd,
         )
     else:
         impl = ATTN_IMPLS[cfg.attn_impl]
-        out = impl(q, k, v, causal=causal, q_offset=0,
+        out = impl(q, k_read, v_read, causal=causal, q_offset=0,
                    block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
     return tp.sum_partial(_merge_heads(out) @ p["wo"], split), (k, v)
 
@@ -470,17 +493,23 @@ def attention_decode(
     the caches are the fixed encoder memory's keys and values: the query
     attends to all of them, with no RoPE and no cache write.
 
-    Under a head split (:func:`attention_leaves`) the caches hold this
-    rank's kv heads.  Where the caches' positions lie in blocks along
-    ``model`` instead (``ModelSplit.kv_seq``: the heads do not divide
-    it), every rank computes every head, the rank that holds position
-    ``pos`` writes the new key and value, and the softmax is taken in
-    blocks (:func:`_decode_attention_blocks`)."""
+    Along a ``model`` split the layer computes by :func:`head_case`.
+    ``HEADS``: the caches hold this rank's kv heads and it attends with
+    its query heads.  Otherwise the caches hold every kv head, and where
+    their positions lie in blocks along ``model`` (``ModelSplit.kv_seq``:
+    the kv heads do not divide it) the rank that holds position ``pos``
+    writes the new key and value, and the softmax is taken in blocks
+    (:func:`_decode_attention_blocks`) for every query head: ``QUERY``
+    gathers its heads' queries along ``model`` first — one (B, H, 1, hd)
+    a layer — and keeps its own heads of the result for its ``wo``
+    shard.  Where the caches are whole along ``model``, ``QUERY`` attends
+    with its query heads to the kv heads they read
+    (``tp.kv_heads_read``).  ``WHOLE`` computes every head."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
-    p, split = attention_leaves(p, cfg)
+    p, case, split = attention_leaves(p, cfg)
     seq = ctx.model_split()
-    seq = seq if seq is not None and seq.kv_seq and split is None else None
+    seq = seq if seq is not None and seq.kv_seq and case != HEADS else None
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
@@ -488,8 +517,13 @@ def attention_decode(
 
     def attend(length):
         if seq is None:
-            return decode_attention(q, k_cache, v_cache, length)
-        return _decode_attention_blocks(q, k_cache, v_cache, length, seq)
+            k_read, v_read = _kv_read(k_cache, v_cache, cfg, case, split)
+            return decode_attention(q, k_read, v_read, length)
+        if case == WHOLE:
+            return _decode_attention_blocks(q, k_cache, v_cache, length, seq)
+        every = _decode_attention_blocks(tp.gather(q, 1, split), k_cache,
+                                         v_cache, length, seq)
+        return tp.own_block(every, 1, split)
 
     if cross:
         width = k_cache.shape[2] * (1 if seq is None else seq.count)

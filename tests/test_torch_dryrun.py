@@ -342,10 +342,22 @@ def test_mamba_mixer_is_split_by_heads_along_model(subproc, tmp_path):
     assert 2 * calls[1]["flops"] - calls[0]["flops"] == ssd(0)
 
 
-def test_llama_gathers_its_attention_at_model_16(subproc, tmp_path):
-    """llama3.2-1b on the production 16 × 16 mesh: 8 kv heads do not
-    divide ``model`` = 16, so the attention leaves are gathered and every
-    rank's attention kernel computes all 32 query heads of its rows."""
+def _wq_wo_shards(cfg, tp: int = 16) -> set:
+    """The ``collective_by_shape`` keys of a ``wq`` or ``wo`` shard of one
+    layer gathered along ``model`` = tp."""
+    d, width = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim // tp
+    return {f"all-gather bfloat16[{d},{width}]",
+            f"all-gather bfloat16[{width},{d}]"}
+
+
+def test_llama_splits_its_query_heads_at_model_16(subproc, tmp_path):
+    """llama3.2-1b on the production 16 × 16 mesh: its 8 kv heads do not
+    divide ``model`` = 16 but its 32 query heads do, so, as the
+    reference's rules place the leaves, a rank computes its 2 query
+    heads against the one kv head they read (``layers.head_case``'s
+    ``QUERY``): the flash kernel's FLOPs are 16 launches at 2 query and 1
+    kv heads, no ``wq`` / ``wo`` shard is gathered along ``model``, and a
+    device computes under 2.5 × its share of the model FLOPs."""
     rec = _port_cell(subproc, tmp_path, "llama3.2-1b", "prefill_32k",
                      "single")
     cfg = get_config("llama3.2-1b")
@@ -353,17 +365,51 @@ def test_llama_gathers_its_attention_at_model_16(subproc, tmp_path):
     rows, s = SHAPES["prefill_32k"].global_batch // 16, 32_768
     call = rec["kernel_calls"]["flash_attention"]
     assert call["launches"] == cfg.num_layers
-    one = roofline.attention_work(rows, cfg.num_heads, cfg.num_kv_heads, s, s,
+    one = roofline.attention_work(rows, cfg.num_heads // 16, 1, s, s,
                                   cfg.resolved_head_dim, True, 0,
                                   cfg.param_dtype)
     assert call["flops"] == cfg.num_layers * one.flops
-    assert rec["collective_counts"]["all-gather"] > 0
+    assert call["bytes"] == cfg.num_layers * one.bytes
+    assert not _wq_wo_shards(cfg) & set(rec["collective_by_shape"])
     # the attention's S² products are the kernel's, counted once: the
     # plain version's full score matrices (2× the kernel's causal half)
     # would outweigh everything else the prefill multiplies
     products = rec["product_flops_by_dtype"]["bfloat16"]
     assert rec["hlo_flops_per_device"] == products + call["flops"]
-    assert products < call["flops"] / 4
+    assert rec["hlo_flops_per_device"] <= 2.5 * rec["model_flops_per_chip"]
+
+
+def test_llama_decode_moves_its_queries_not_its_weights_along_model(
+        subproc, tmp_path):
+    """llama3.2-1b ``decode_32k`` on 16 × 16: the caches hold their
+    positions in blocks along ``model``, so each layer gathers its ranks'
+    queries — (B, 32, 1, 64) of this rank's 8 rows — and no ``wq`` or
+    ``wo`` shard: under 16 MB a step on the ``model`` axis."""
+    rec = _port_cell(subproc, tmp_path, "llama3.2-1b", "decode_32k",
+                     "single")
+    cfg = get_config("llama3.2-1b")
+    assert not _wq_wo_shards(cfg) & set(rec["collective_by_shape"])
+    assert rec["collective_by_axis"]["model"]["bytes"] < 16e6
+
+
+def test_nemotron_prefill_runs_3_query_heads_on_1_kv_head(subproc,
+                                                          tmp_path):
+    """nemotron-4-15b ``prefill_32k`` on 16 × 16: 48 query and 8 kv
+    heads, so a rank's 3 query heads lie in one kv head (6 a group): B2's
+    FLOPs and bytes are its 32 launches at 3 query heads on 1 kv head of
+    128."""
+    rec = _port_cell(subproc, tmp_path, "nemotron-4-15b", "prefill_32k",
+                     "single")
+    cfg = get_config("nemotron-4-15b")
+    assert (cfg.num_heads // 16, cfg.num_heads // cfg.num_kv_heads) == (3, 6)
+    rows, s = SHAPES["prefill_32k"].global_batch // 16, 32_768
+    call = rec["kernel_calls"]["flash_attention"]
+    one = roofline.attention_work(rows, 3, 1, s, s, cfg.resolved_head_dim,
+                                  True, 0, cfg.param_dtype)
+    assert call["launches"] == cfg.num_layers
+    assert (call["flops"], call["bytes"]) == (cfg.num_layers * one.flops,
+                                              cfg.num_layers * one.bytes)
+    assert not _wq_wo_shards(cfg) & set(rec["collective_by_shape"])
 
 
 _BUILT_ON_A_DEVICE = """

@@ -4,10 +4,18 @@ tensor-parallel layers of ``distributed/tp.py``) on CPU gloo meshes of
 spawned ranks (``_torch_ranks.run_ranks``), at the smoke configs.
 
 The meshes are (1, 2), (1, 4), (2, 1) and (2, 2) over ``("data",
-"model")``.  The smoke configs have 4 query and 2 kv heads, so at
-``model`` = 2 each rank computes its heads, and at ``model`` = 4 every
-rank computes every head against a decode cache whose positions lie in
-blocks along ``model`` (``make_cache_shardings``' fallback).
+"model")``.  The attention computes by ``layers.head_case``.  The smoke
+configs have 4 query and 2 kv heads: at ``model`` = 2 each rank computes
+its query and kv heads (``HEADS``); at ``model`` = 4 only the query
+heads divide it (``QUERY``), so each rank computes its one query head
+against the kv head it reads, projected from the whole ``wk`` / ``wv``,
+and a decode step attends over a cache whose positions lie in blocks
+along ``model`` (``make_cache_shardings``' fallback) with every rank's
+queries gathered, keeping its own head's result.  ``straddle`` has 6
+query and 3 kv heads: at ``model`` = 2 a rank's 3 query heads read 2
+kv heads, one kv head a query head (``tp.kv_heads_read``'s ratio 1); at
+``model`` = 4 neither count divides it and every rank computes every
+head (``WHOLE``).  No attention leaf is gathered along ``model``.
 
 The reference's own mesh server fails on this jax
 (``test_serve.py::TestGenerate``, ROADMAP §C), so every mesh run is held
@@ -51,7 +59,9 @@ FRAMES = 16
 #: positions, which ``model`` = 4 does not divide — the cache replicates
 #: along ``model`` and every rank attends over every position.  ``gqa``:
 #: seamless with 2 kv heads, so that its cross-attention memory too lies
-#: in blocks of positions at ``model`` = 4.
+#: in blocks of positions at ``model`` = 4 (``QUERY``).  ``straddle``: 6
+#: query and 3 kv heads (``head_dim`` 16), a rank's query heads on two kv
+#: heads at ``model`` = 2.
 CASES = {
     "llama3.2-1b": ("llama3.2-1b", {}, MAX_LEN),
     "llama3.2-1b-streamed": ("llama3.2-1b", {"mlp_impl": "streamed"},
@@ -64,7 +74,12 @@ CASES = {
     "seamless-m4t-medium": ("seamless-m4t-medium", {}, MAX_LEN),
     "seamless-m4t-medium-gqa": ("seamless-m4t-medium", {"num_kv_heads": 2},
                                 MAX_LEN),
+    "straddle": ("llama3.2-1b", {"num_heads": 6, "num_kv_heads": 3,
+                                 "head_dim": 16}, MAX_LEN),
 }
+#: the VLM's prefill and decode steps on embeddings and M-RoPE positions
+#: (``ServeEngine.generate`` refuses an ``embeds_input`` config)
+VLM = "qwen2-vl-72b"
 
 
 def trace(eng, inputs, new):
@@ -112,9 +127,12 @@ from repro_torch.kernels import ref
 
 inp = torch.load(os.path.join(OUT, "inputs.pt"), weights_only=False)
 mesh = make_host_mesh(inp["shape"], ("data", "model"))
-seen = {"attn": [], "mlp": [], "experts": [], "ssd": [], "ssd_plain": []}
+from repro_torch.distributed import tp
+
+seen = {"attn": [], "mlp": [], "experts": [], "ssd": [], "ssd_plain": [],
+        "gather": []}
 real = (ops.flash_attention, ops.fused_mlp, torch.bmm, ops.mamba2_ssd,
-        ref.ssd_chunked)
+        ref.ssd_chunked, tp.gather)
 
 def attn(q, k, v, **kw):
     seen["attn"].append((q.shape[1], k.shape[1]))
@@ -136,8 +154,13 @@ def ssd_plain(x, *a, **kw):
     seen["ssd_plain"].append(x.shape[2])
     return real[4](x, *a, **kw)
 
+def gather(t, dim, split):
+    if split is not None:
+        seen["gather"].append(tuple(t.shape))
+    return real[5](t, dim, split)
+
 ops.flash_attention, ops.fused_mlp, torch.bmm = attn, mlp, bmm
-ops.mamba2_ssd, ref.ssd_chunked = ssd, ssd_plain
+ops.mamba2_ssd, ref.ssd_chunked, tp.gather = ssd, ssd_plain, gather
 out = {"coord": mesh.coordinate()}
 for name, case in inp["cases"].items():
     cfg = get_config(case["arch"], smoke=True).with_(dtype="float32",
@@ -155,10 +178,42 @@ for name, case in inp["cases"].items():
     if inp["int8"] and name == "llama3.2-1b":
         q8 = ServeEngine(cfg, device="cpu", mesh=mesh, int8_weights=True,
                          max_len=case["max_len"], params=case["params"])
+        for v in seen.values():
+            v.clear()
         res["int8"] = trace(q8, case["inputs"], inp["new"])
+        res["int8"]["seen"] = {k: sorted(set(v)) for k, v in seen.items()}
     out[name] = res
+vlm = inp["vlm"]
+cfg = get_config(VLM, smoke=True).with_(dtype="float32")
+eng = ServeEngine(cfg, device="cpu", mesh=mesh, max_len=MAX_LEN,
+                  params=vlm["params"])
+for v in seen.values():
+    v.clear()
+out[VLM] = vlm_trace(eng, vlm["embeds"], vlm["mrope_positions"],
+                     vlm["steps"])
+out[VLM]["seen"] = {k: sorted(set(v)) for k, v in seen.items()}
 torch.save(out, f"{OUT}/rank{RANK}.pt")
 """
+
+
+def vlm_trace(eng, embeds, mrope_positions, steps):
+    """The VLM's prefill on ``embeds`` (B, P, D) and ``mrope_positions``
+    (3, B, P), its caches laid out for decode, and a decode step for each
+    of ``steps`` (n, B, 1, D) → {"logits" (1 + n, B, V)}."""
+    import torch
+
+    plen = embeds.shape[1]
+    with torch.inference_mode():
+        logits, caches = eng._prefill_step(eng.model_params(), {
+            "embeds": torch.as_tensor(embeds),
+            "mrope_positions": torch.as_tensor(mrope_positions)})
+        cache = eng._expand_cache(caches, embeds.shape[0], plen)
+        every = [logits]
+        for i, emb in enumerate(steps):
+            logits, cache = eng._decode_step(eng.model_params(), cache,
+                                             torch.as_tensor(emb), plen + i)
+            every.append(logits)
+    return {"logits": torch.stack(every)}
 
 
 def _inputs(case: str):
@@ -201,11 +256,51 @@ def _reference_greedy(jcfg, jp, inputs, new, max_len):
     return out
 
 
-def _run_mesh(tmp, shape, cases):
+def _vlm_inputs():
+    """The VLM's prompt embeddings, M-RoPE positions and decode-step
+    embeddings (NumPy, seeded)."""
+    rng = np.random.default_rng(7)
+    return {"embeds": rng.standard_normal((ROWS, PROMPT, 64)).astype(
+                np.float32),
+            "mrope_positions": rng.integers(0, PROMPT, (3, ROWS, PROMPT))
+            .astype(np.int32),
+            "steps": rng.standard_normal((NEW - 1, ROWS, 1, 64)).astype(
+                np.float32)}
+
+
+def _reference_vlm(jcfg, jp, inp):
+    """The reference's unsharded ``lm_prefill`` and ``lm_decode`` on the
+    VLM's inputs, its caches zero-padded to ``MAX_LEN`` positions →
+    (1 + n, B, V) logits."""
+    from repro.models import lm as jlm
+
+    prefill, decode = (jax.jit(jlm.lm_prefill, static_argnums=1),
+                       jax.jit(jlm.lm_decode, static_argnums=1))
+    logits, caches = prefill(jp, jcfg, {
+        "embeds": jnp.asarray(inp["embeds"]),
+        "mrope_positions": jnp.asarray(inp["mrope_positions"])})
+    shapes = jax.eval_shape(
+        lambda: JS.model_init_cache(jcfg, ROWS, MAX_LEN))
+    cache = jax.tree.map(
+        lambda c, s: jnp.pad(c, [(0, a - b) for a, b in zip(s.shape,
+                                                            c.shape)]),
+        caches, shapes)
+    every = [np.asarray(logits)]
+    for i, emb in enumerate(inp["steps"]):
+        logits, cache = decode(jp, jcfg, cache, jnp.asarray(emb),
+                               jnp.asarray(PROMPT + i, jnp.int32))
+        every.append(np.asarray(logits))
+    return np.stack(every)
+
+
+def _run_mesh(tmp, shape, cases, vlm):
     torch.save({"shape": shape, "cases": cases, "new": NEW,
-                "int8": shape == (1, 2)}, os.path.join(tmp, "inputs.pt"))
+                "int8": shape in ((1, 2), (1, 4)), "vlm": vlm},
+               os.path.join(tmp, "inputs.pt"))
     world = shape[0] * shape[1]
-    run_ranks(inspect.getsource(trace) + SERVE_RANK, world, tmp)
+    run_ranks(f"VLM, MAX_LEN = {VLM!r}, {MAX_LEN}\n"
+              + inspect.getsource(trace) + inspect.getsource(vlm_trace)
+              + SERVE_RANK, world, tmp)
     return [load_rank(tmp, r) for r in range(world)]
 
 
@@ -218,9 +313,11 @@ def served(tmp_path_factory):
         _, _, _, _, tp = ref_and_port(arch, "float32", **kw)
         cases[name] = {"arch": arch, "kw": kw, "max_len": max_len,
                        "params": tp, "inputs": _inputs(name)}
+    jvlm, tvlm, jp_vlm, _, tp_vlm = ref_and_port(VLM, "float32")
+    vlm = dict(_vlm_inputs(), params=tp_vlm)
     with ThreadPoolExecutor(len(MESHES)) as pool:
         futures = {name: pool.submit(
-            _run_mesh, str(tmp_path_factory.mktemp(name)), shape, cases)
+            _run_mesh, str(tmp_path_factory.mktemp(name)), shape, cases, vlm)
             for name, shape in MESHES.items()}
         one, ref = {}, {}
         for name, (arch, kw, max_len) in CASES.items():
@@ -239,6 +336,12 @@ def served(tmp_path_factory):
                                 int8_weights=True,
                                 params=cases["llama3.2-1b"]["params"])
         one["int8"] = trace(q8, cases["llama3.2-1b"]["inputs"], NEW)
+        one[VLM] = vlm_trace(tserve.ServeEngine(tvlm, device="cpu",
+                                                max_len=MAX_LEN,
+                                                params=tp_vlm),
+                             vlm["embeds"], vlm["mrope_positions"],
+                             vlm["steps"])
+        ref[VLM] = _reference_vlm(jvlm, jp_vlm, vlm)
         runs = {name: f.result() for name, f in futures.items()}
     return one, ref, runs
 
@@ -272,13 +375,14 @@ def test_a_mesh_serves_the_one_device_and_the_reference_tokens(served, mesh,
 def test_the_kernels_and_the_experts_run_on_a_model_shard(served, mesh):
     """The wrappers' inputs on a rank of ``model`` = tp: B2 gets H/tp
     query and Hkv/tp kv heads where both divide tp (4/2 heads at tp 2),
-    every head where they do not (tp 4); B3 gets ``d_ff``/tp columns; the
+    H/tp query heads on the kv head they read where only the query heads
+    divide it (tp 4: one on one); B3 gets ``d_ff``/tp columns; the
     experts' ``bmm`` E/tp experts; B4 and its plain version (the CPU's)
     the Mamba mixer's H/tp heads, in mamba2-1.3b's prefill and in
     Jamba's."""
     _, _, runs = served
     tp = MESHES[mesh][1]
-    heads = [(4 // tp, 2 // tp)] if tp == 2 else [(4, 2)]
+    heads = [(4 // tp, 2 // tp)] if tp == 2 else [(1, 1)]
     for rank in runs[mesh]:
         for case in ("mamba2-1.3b", "jamba-1.5-large-398b"):
             cfg = treg.get_config(case, smoke=True)
@@ -291,6 +395,95 @@ def test_the_kernels_and_the_experts_run_on_a_model_shard(served, mesh):
         moe = rank["granite-moe-1b-a400m"]["seen"]
         assert moe["experts"] == [8 // tp]
         assert moe["attn"] == heads
+
+
+def _b2_heads(cfg, tp: int) -> tuple:
+    """(query heads, kv heads) that B2 gets on a rank of ``model`` = tp:
+    H/tp and Hkv/tp where both divide tp; where only H does, H/tp query
+    heads on the kv heads they read — one where they lie in one kv head,
+    H/tp/G where they cover whole groups of G = H/Hkv, else one a query
+    head; every head where neither divides tp."""
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    if hkv % tp == 0:
+        return h // tp, hkv // tp
+    if h % tp:
+        return h, hkv
+    n, g = h // tp, h // hkv
+    return n, (1 if g % n == 0 else n // g if n % g == 0 else n)
+
+
+def _attention_leaf_shapes(cfg, tp: int) -> set:
+    """A layer's attention leaves, whole and as a rank of ``model`` = tp
+    holds them (its query or kv heads' columns)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    out = set()
+    for heads in (cfg.num_heads, cfg.num_kv_heads):
+        for width in {heads * hd, heads * hd // tp}:
+            out |= {(d, width), (width, d), (width,)}
+    return out
+
+
+#: every case that attends, and the VLM
+ATTENDING = [c for c in CASES if CASES[c][0] != "mamba2-1.3b"] + [VLM]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_the_attention_computes_its_heads_and_gathers_no_leaf(served, mesh):
+    """Every case that attends, the VLM's too: B2 gets the heads of
+    :func:`_b2_heads` (in serving the encoder–decoder's B2 is its
+    encoder's), and ``tp.gather`` joins no attention leaf along
+    ``model`` — with int8 weights on (1, 2) and (1, 4) neither."""
+    _, _, runs = served
+    tp = MESHES[mesh][1]
+    for rank in runs[mesh]:
+        for case in ATTENDING:
+            arch, kw = (VLM, {}) if case == VLM else CASES[case][:2]
+            cfg = treg.get_config(arch, smoke=True).with_(**kw)
+            seen = rank[case]["seen"]
+            assert seen["attn"] == [_b2_heads(cfg, tp)], (mesh, case)
+            leaves = _attention_leaf_shapes(cfg, tp)
+            assert not leaves & set(seen["gather"]), (mesh, case)
+        if "int8" in rank["llama3.2-1b"]:
+            seen = rank["llama3.2-1b"]["int8"]["seen"]
+            cfg = treg.get_config("llama3.2-1b", smoke=True)
+            assert not _attention_leaf_shapes(cfg, tp) & set(seen["gather"])
+    assert [_b2_heads(treg.get_config("llama3.2-1b", smoke=True).with_(
+        **CASES["straddle"][1]), t) for t in (2, 4)] == [(3, 3), (6, 3)]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_the_vlm_serves_the_reference_logits_on_a_mesh(served, mesh):
+    """qwen2-vl's smoke config (4 query and 2 kv heads, M-RoPE) on
+    embeddings: the prefill's and every decode step's logits on every
+    rank at ``F32_TOL`` of the reference's unsharded ``lm_prefill`` and
+    ``lm_decode`` and of the one-device engine's."""
+    one, ref, runs = served
+    np.testing.assert_allclose(to_np(one[VLM]["logits"]), ref[VLM],
+                               **F32_TOL)
+    for rank in runs[mesh]:
+        got = to_np(rank[VLM]["logits"])
+        assert got.shape == ref[VLM].shape
+        np.testing.assert_allclose(got, ref[VLM], **F32_TOL)
+        np.testing.assert_allclose(got, to_np(one[VLM]["logits"]),
+                                   **F32_TOL)
+
+
+def test_int8_weights_on_a_model_axis_of_4_serve_the_one_device_tokens(
+        served):
+    """On (1, 4), where llama's query heads split and its kv heads do
+    not: the int8 ``wq`` and ``wo`` shards dequantized after the data
+    axes' gather, ``wk`` and ``wv`` whole; tokens, logits and every cache
+    leaf against the one-device int8 engine."""
+    one, _, runs = served
+    want = one["int8"]
+    for rank in runs["1x4"]:
+        got = rank["llama3.2-1b"]["int8"]
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        np.testing.assert_allclose(to_np(got["logits"]),
+                                   to_np(want["logits"]), **F32_TOL)
+        for path, leaf in want["cache"].items():
+            np.testing.assert_allclose(to_np(got["cache"][path]),
+                                       to_np(leaf), err_msg=path, **F32_TOL)
 
 
 def test_int8_weights_on_a_mesh_serve_the_one_device_int8_tokens(served):
@@ -350,7 +543,8 @@ def test_a_1x1_mesh_gives_the_one_device_bits(tmp_path):
     ``mesh=None``'s bit for bit."""
     inp = {name: (arch, kw, False, _inputs(name))
            for name, (arch, kw, _) in CASES.items()
-           if name not in ("llama3.2-1b-max26", "seamless-m4t-medium-gqa")}
+           if name not in ("llama3.2-1b-max26", "seamless-m4t-medium-gqa",
+                           "straddle")}
     inp["llama3.2-1b-int8"] = ("llama3.2-1b", {}, True,
                                _inputs("llama3.2-1b"))
     torch.save(inp, os.path.join(tmp_path, "inputs.pt"))

@@ -17,9 +17,15 @@ grad-accum tolerances (atol = rtol = 2e-5).
 
 The smoke configs have 4 query and 2 kv heads (seamless and olmoe 4 and
 4), ``d_ff`` 128 (the MoE's 32 a expert, 8 experts) and 256 vocabulary
-rows: at ``model`` = 2 every split is taken; at ``model`` = 4 llama's 2
-kv heads do not divide it, so its attention is gathered and computed
-whole, while olmoe's 4 split it."""
+rows: at ``model`` = 2 every split is taken.  The attention computes by
+``layers.head_case``: where both head counts divide ``model`` a rank
+computes its query and kv heads (``HEADS``: every config at 2, olmoe at
+4); where only the query heads do (``QUERY``: llama, qwen2-vl, Jamba and
+seamless with 2 kv heads at 4; ``straddle``, 6 query and 3 kv heads, at
+2) its query heads against the kv heads they read, projected from the
+whole ``wk`` / ``wv`` / ``bk`` / ``bv``, whose gradients are summed over
+``model``; where neither does (``WHOLE``) every rank computes every
+head.  No attention leaf is gathered along ``model``."""
 import inspect
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +49,9 @@ from _torch_port import REPO, flat, ref_and_port, to_np
 from _torch_ranks import load_rank, run_ranks
 
 ROWS, SEQ, FRAMES = 4, 32, 16
+#: 6 query and 3 kv heads: at ``model`` = 2 a rank's 3 query heads read 2
+#: kv heads
+STRADDLE = {"num_heads": 6, "num_kv_heads": 3, "head_dim": 16}
 PARAM_TOL = dict(atol=3e-4, rtol=1e-3)
 ACCUM_TOL = dict(atol=2e-5, rtol=2e-5)
 NU_RTOL = 1e-4
@@ -51,7 +60,10 @@ NU_RTOL = 1e-4
 #: ``padded``: 250 vocabulary rows padded to 256, so that the padded
 #: columns lie on the last rank of ``model``; ``rows3``: a global batch of
 #: 3 rows, which the data axis of 2 does not divide (every rank computes
-#: every row)
+#: every row); ``straddle``: :data:`STRADDLE`, at ``model`` = 2;
+#: ``seamless-m4t-medium-gqa``: 2 kv heads, its self- and
+#: cross-attention ``QUERY`` at ``model`` = 4; ``qwen2-vl-72b``: the VLM on
+#: embeddings and M-RoPE positions, with q / k / v biases
 CASES = {
     "llama3.2-1b": ("llama3.2-1b", {}, ROWS, (1,)),
     "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}, ROWS, (1,)),
@@ -66,10 +78,16 @@ CASES = {
     "router_unsummed": ("granite-moe-1b-a400m", {}, ROWS, (1,)),
     "bc_gathered": ("mamba2-1.3b", {}, ROWS, (1,)),
     "stat_partial": ("mamba2-1.3b", {}, ROWS, (1,)),
+    "straddle": ("llama3.2-1b", STRADDLE, ROWS, (1,)),
+    "kv_unsummed": ("llama3.2-1b", STRADDLE, ROWS, (1,)),
+    "seamless-m4t-medium-gqa": ("seamless-m4t-medium", {"num_kv_heads": 2},
+                                ROWS, (1,)),
+    "qwen2-vl-72b": ("qwen2-vl-72b", {}, ROWS, (1,)),
 }
 #: cases that run with a fault planted, to show that the checks catch it:
 #: case → (the model module whose ``tp`` it replaces, the fault's class)
-PLANTED = {"router_unsummed": ("moe", "RouterNotEntered"),
+PLANTED = {"kv_unsummed": ("layers", "KvNotEntered"),
+           "router_unsummed": ("moe", "RouterNotEntered"),
            "bc_gathered": ("mamba2", "BCGatheredAsLeaves"),
            "stat_partial": ("mamba2", "NormStatNotShared")}
 FAMILIES = ["llama3.2-1b", "granite-moe-1b-a400m", "mamba2-1.3b",
@@ -77,9 +95,10 @@ FAMILIES = ["llama3.2-1b", "granite-moe-1b-a400m", "mamba2-1.3b",
 #: mesh → (shape, cases)
 MESHES = {
     "1x2": ((1, 2), FAMILIES + ["padded", *PLANTED]),
-    "2x2": ((2, 2), FAMILIES + ["rows3", "accum"]),
+    "2x2": ((2, 2), FAMILIES + ["rows3", "accum", "straddle"]),
     "1x4": ((1, 4), ["llama3.2-1b", "olmoe-1b-7b", "mamba2-1.3b",
-                     "jamba-1.5-large-398b"]),
+                     "jamba-1.5-large-398b", "seamless-m4t-medium-gqa",
+                     "qwen2-vl-72b"]),
 }
 
 
@@ -190,6 +209,25 @@ class NormStatNotShared:
         return tp.sum_partial(t, split)
 
 
+class KvNotEntered:
+    """``distributed.tp`` as ``models/layers.py`` sees it, with a fault
+    planted: where only the query heads split, the whole ``wk``, ``wv``,
+    ``bk`` and ``bv`` — the layer's 2-D and 1-D ``enter`` — enter as
+    they are, so each rank updates them with its own heads' share of
+    their gradient instead of the sum over ``model``."""
+
+    def __getattr__(self, name):
+        from repro_torch.distributed import tp
+
+        return getattr(tp, name)
+
+    @staticmethod
+    def enter(t, split):
+        from repro_torch.distributed import tp
+
+        return t if t.ndim <= 2 else tp.enter(t, split)
+
+
 #: one mesh's steps on a rank: each case's params and AdamW state placed
 #: by the rules, one step a ``grad_accum`` on the rank's rows of the
 #: global batch, the wrappers' shapes and ``full_tensor`` calls recorded
@@ -200,7 +238,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import mamba2, moe
+from repro_torch.models import layers, mamba2, moe
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_flatten_with_path
 from torch.distributed.tensor import DTensor
@@ -224,7 +262,7 @@ for name, case in inp["cases"].items():
                                           grad_accum=accum)
         local = ST.local_batch(mesh, case["batch"], accum)
         seen = {"attn": [], "experts": [], "full": [], "ssd": [], "gather": []}
-        real, models_tp = spy_kernels(seen), (mamba2.tp, moe.tp)
+        real, models_tp = spy_kernels(seen), (mamba2.tp, moe.tp, layers.tp)
         if case["planted"]:
             module, fault = globals()[case["planted"][0]], case["planted"][1]
             module.tp = globals()[fault]()
@@ -232,7 +270,7 @@ for name, case in inp["cases"].items():
             p2, o2, m = step(params, opt, local)
         finally:
             unspy_kernels(real)
-            mamba2.tp, moe.tp = models_tp
+            mamba2.tp, moe.tp, layers.tp = models_tp
         state = {"params": p2, "opt": o2}
         res[accum] = {
             "rows": {k: tuple(v.shape) for k, v in local.items()},
@@ -261,6 +299,13 @@ def _batch(case: str, vocab: int, d_model: int) -> dict:
     if arch == "seamless-m4t-medium":
         b["frames"] = np.random.default_rng(5).standard_normal(
             (rows, FRAMES, d_model)).astype(np.float32)
+    if arch == "qwen2-vl-72b":            # stub embeddings for the tokens
+        rng = np.random.default_rng(5)
+        del b["tokens"]
+        b["embeds"] = rng.standard_normal((rows, SEQ, d_model)).astype(
+            np.float32)
+        b["mrope_positions"] = rng.integers(0, SEQ, (3, rows, SEQ)).astype(
+            np.int32)
     return b
 
 
@@ -304,7 +349,7 @@ def _run_mesh(tmp, shape, names):
     world = shape[0] * shape[1]
     run_ranks("".join(inspect.getsource(f) for f in (
         spy_kernels, unspy_kernels, RouterNotEntered, BCGatheredAsLeaves,
-        NormStatNotShared)) + STEP_RANK, world, tmp)
+        NormStatNotShared, KvNotEntered)) + STEP_RANK, world, tmp)
     return [load_rank(tmp, r) for r in range(world)]
 
 
@@ -368,11 +413,12 @@ def test_every_family_matches_the_reference_unsharded_step(trained, mesh,
 
 @pytest.mark.parametrize("case", MESHES["1x4"][1])
 def test_a_model_axis_of_4_matches_the_reference(trained, case):
-    """``model`` = 4: llama's attention gathered and computed whole (its 2
-    kv heads do not divide 4), olmoe's split (4 and 4 heads); the MLP,
-    the experts and the vocabulary split either way; the Mamba mixer of
-    mamba2-1.3b and Jamba on 2 of its 8 heads a rank (Jamba's attention
-    gathered, as llama's)."""
+    """``model`` = 4: llama's attention on a rank's one query head
+    against the kv head it reads (its 2 kv heads do not divide 4; as
+    qwen2-vl's, Jamba's and seamless-gqa's self- and cross-attention),
+    olmoe's on one query and one kv head (4 and 4 heads); the MLP, the
+    experts and the vocabulary split either way; the Mamba mixer of
+    mamba2-1.3b and Jamba on 2 of its 8 heads a rank."""
     ref, runs = trained
     for rank in runs["1x4"]:
         _check_against_reference(rank[case][1], ref[case][1])
@@ -393,6 +439,21 @@ def test_a_planted_unsummed_router_gradient_is_caught(trained):
         gaps = _nu_gaps(got, want)
         router = [p for p in gaps if p.endswith("['router']")]
         assert router and min(gaps[p] for p in router) > 100 * NU_RTOL, gaps
+        with pytest.raises(AssertionError):
+            _check_against_reference(got, want)
+
+
+def test_a_planted_unsummed_kv_gradient_is_caught(trained):
+    """The fault of :class:`KvNotEntered` on ``straddle`` at ``model`` =
+    2: the forward is unchanged, so the loss is the reference's, but each
+    rank updates the whole ``wk`` and ``wv`` with its heads' share of
+    their gradient.  The check every case passes refuses the step."""
+    ref, runs = trained
+    want = ref["straddle"][1]
+    for rank in runs["1x2"]:
+        got = rank["kv_unsummed"][1]
+        np.testing.assert_allclose(float(got["loss"]), want["loss"],
+                                   rtol=1e-5)
         with pytest.raises(AssertionError):
             _check_against_reference(got, want)
 
@@ -446,18 +507,66 @@ def test_the_mixer_computes_its_heads_and_gathers_no_leaf(trained):
 
 def test_the_kernels_and_the_experts_run_on_a_model_shard(trained):
     """The wrappers' inputs inside the step, backward included: B2 gets
-    H/tp query and Hkv/tp kv heads where both divide tp, every head
-    where they do not; the experts' ``bmm`` E/tp experts."""
+    H/tp query and Hkv/tp kv heads where both divide tp, H/tp query heads
+    on the kv heads they read where only the query heads divide it (one
+    on one at tp 4; ``straddle``'s 3 on 3 at tp 2, one kv head a query
+    head); the experts' ``bmm`` E/tp experts."""
     _, runs = trained
     for mesh, tp, case, heads in (("1x2", 2, "llama3.2-1b", (2, 1)),
-                                  ("1x4", 4, "llama3.2-1b", (4, 2)),
+                                  ("1x4", 4, "llama3.2-1b", (1, 1)),
                                   ("1x4", 4, "olmoe-1b-7b", (1, 1)),
+                                  ("1x4", 4, "jamba-1.5-large-398b", (1, 1)),
+                                  ("1x4", 4, "seamless-m4t-medium-gqa",
+                                   (1, 1)),
+                                  ("1x4", 4, "qwen2-vl-72b", (1, 1)),
+                                  ("2x2", 2, "straddle", (3, 3)),
                                   ("2x2", 2, "granite-moe-1b-a400m", (2, 1))):
         for rank in runs[mesh]:
             seen = rank[case][1]["seen"]
             assert seen["attn"] == [heads], (mesh, case)
             if "moe" in case:
                 assert seen["experts"] == [8 // tp]
+
+
+@pytest.mark.parametrize("case", ["llama3.2-1b", "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium-gqa", "qwen2-vl-72b",
+                                  "straddle"])
+def test_the_attention_splits_its_query_heads(trained, case):
+    """Where only the query heads divide ``model`` (tp 4; ``straddle`` at
+    tp 2 on 2 × 2): the step matches the reference's unsharded step, the
+    whole ``wk`` / ``wv`` / ``bk`` / ``bv`` — each rank computing only its
+    heads' share of their gradient, summed over ``model`` — after the
+    step and in both moments, at the tolerances of every leaf (``nu`` in
+    relative norm); and no attention leaf, whole or a rank's shard, is
+    gathered along ``model``."""
+    ref, runs = trained
+    mesh = "2x2" if case == "straddle" else "1x4"
+    tp = MESHES[mesh][0][1]
+    arch, kw = CASES[case][:2]
+    cfg = treg.get_config(arch, smoke=True).with_(**kw)
+    assert cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp
+    want = ref[case][1]
+    kv = [p for p in want["state"]
+          if p.rsplit("[", 1)[-1] in ("'wk']", "'wv']", "'bk']", "'bv']")]
+    # each in the params, mu and nu: 2 or, with biases, 4 leaves a layer
+    # stack's attention (the encoder–decoder has three such stacks)
+    assert len(kv) == 3 * (4 if cfg.qkv_bias else 2) * (
+        3 if cfg.family == "encdec" else 1), kv
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    leaves = set()
+    for heads in (cfg.num_heads, cfg.num_kv_heads):
+        for width in (heads * hd, heads * hd // tp):
+            leaves |= {(d, width), (width, d), (width,)}
+    for rank in runs[mesh]:
+        got = rank[case][1]
+        for path in kv:
+            np.testing.assert_allclose(to_np(got["full"][path]),
+                                       want["state"][path], err_msg=path,
+                                       **PARAM_TOL)
+        gaps = _nu_gaps(got, want)
+        assert max(gaps[p] for p in kv if p.startswith("['opt'].nu")) \
+            <= NU_RTOL
+        assert not leaves & set(got["seen"]["gather"]), (mesh, case)
 
 
 def test_the_step_never_makes_a_leaf_whole(trained):
