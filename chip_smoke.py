@@ -5560,6 +5560,7 @@ def _serve_gathered_bytes(torch, eng, prompts) -> dict:
     which must be back at their value before it; raises if either
     fails."""
     from repro_torch.distributed import sharding as shd, tp
+    from repro_torch.launch.steps import place_token
     from repro_torch.models import lm
 
     leaves = [(keys, t.numel() * t.element_size())
@@ -5577,8 +5578,9 @@ def _serve_gathered_bytes(torch, eng, prompts) -> dict:
                 cache = eng._expand_cache(caches, *prompts.shape)
                 del caches
             else:
+                token = logits.argmax(-1).to(torch.int32)
                 eng._decode_step(eng.model_params(), cache,
-                                 logits.argmax(-1).to(torch.int32),
+                                 place_token(eng.mesh, token),
                                  prompts.shape[1])
             got = tp.gathered_bytes()
             peak, live = got["peak"] - before, got["live"] - before
@@ -5760,6 +5762,7 @@ def dryrun_tie(name: str, device: str) -> dict:
                  "collective_s": st.collective_s()}
         dist.destroy_process_group()
         return {"argument_bytes": st.argument_bytes,
+                "unread_argument_bytes": st.unread_argument_bytes,
                 "peak_bytes": st.peak_bytes, **terms, "bound_s": max(terms.values()),
                 "dominant": max(terms, key=terms.get),
                 "kernel_calls": st.kernel_calls}
@@ -5822,8 +5825,9 @@ def _finish(proc: subprocess.Popen, what: str, timeout: float) -> str:
 def dryrun(torch, smi: str) -> dict:
     """Each of ``DRYRUN_TIES`` traced on a world of one
     (``launch.dryrun.build_step`` under its ``StepCounter``, on the host's
-    CPU) and run on the card: the predicted argument bytes must equal the
-    bytes the card's allocator was asked for before the step
+    CPU) and run on the card: the predicted argument bytes — those the
+    step reads, and those it does not (none, in these steps) — must
+    equal the bytes the card's allocator was asked for before the step
     (``requested_bytes``, less the mesh's own), with
     ``torch.cuda.memory_allocated()`` (its blocks) beside them; the
     predicted peak against both peaks; ``bound_s`` against the measured
@@ -5853,15 +5857,18 @@ def dryrun(torch, smi: str) -> dict:
         mesh_, before, first = card["with_mesh"], card["before"], \
             card["first_call"]
         requested = before["requested"] - mesh_["requested"]
-        if pred["argument_bytes"] != requested:
+        built = pred["argument_bytes"] + pred["unread_argument_bytes"]
+        if built != requested:
             raise AssertionError(
                 f"{name}: predicted argument bytes {pred['argument_bytes']}"
-                f" != {requested} requested of the card's allocator "
+                f" read + {pred['unread_argument_bytes']} unread != "
+                f"{requested} requested of the card's allocator "
                 f"({before['requested']} less {mesh_['requested']} with "
                 "the mesh alone)")
         ties.append({
             "name": name,
             "predicted_argument_bytes": pred["argument_bytes"],
+            "predicted_unread_argument_bytes": pred["unread_argument_bytes"],
             "requested_bytes_by_arguments": requested,
             "memory_allocated_by_arguments":
                 before["allocated"] - mesh_["allocated"],

@@ -5,12 +5,16 @@ Each cell runs ``repro_torch.launch.dryrun.run_cell`` in its own
 process (its fake process group is process-global) on the ``src/`` of
 ``--root`` (default: this checkout), so that two trees can be set side
 by side.  The numbers are modeled for an H100 SXM from its data sheet
-(``launch/roofline.py``), for rank 0 of the 16 × 16 mesh; no card is
-needed.
+(``launch/roofline.py``), for rank ``--rank`` (default 0) of the 16 × 16
+mesh, or of ``--mesh-shape`` (``REPRO_MESH_SHAPE``); no card is needed.
 
     PYTHONPATH=src python scripts/dryrun_rows.py                # every cell
     python scripts/dryrun_rows.py --root ../parent --cells llama3.2-1b:prefill_32k
     python scripts/dryrun_rows.py --json rows.json --jobs 3
+    python scripts/dryrun_rows.py --cells granite-moe-1b-a400m:prefill_32k \
+        --rank 255
+    python scripts/dryrun_rows.py --cells seamless-m4t-medium:decode_32k \
+        --mesh-shape 4,2
 
 Prints a Markdown table and, with ``--json``, writes every row.
 """
@@ -32,18 +36,23 @@ CELLS = tuple(f"{arch}:{shape}" for arch in (
 _CELL = """
 import json, sys, tempfile
 from repro_torch.launch import dryrun
-rec = dryrun.run_cell({arch!r}, {shape!r}, "single", tempfile.mkdtemp())
+rec = dryrun.run_cell({arch!r}, {shape!r}, "single", tempfile.mkdtemp(),
+                      rank={rank})
 print(json.dumps(rec))
 """
 
 
-def run_cell(root: str, cell: str) -> dict:
+def run_cell(root: str, cell: str, rank: int = 0,
+             mesh_shape: str | None = None) -> dict:
     """``run_cell``'s record of ``cell`` (``arch:shape``) on ``root``'s
-    tree, in a subprocess."""
+    tree for ``rank`` of the mesh (``mesh_shape``: ``REPRO_MESH_SHAPE``),
+    in a subprocess."""
     arch, shape = cell.split(":")
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    if mesh_shape:
+        env["REPRO_MESH_SHAPE"] = mesh_shape
     r = subprocess.run([sys.executable, "-c",
-                        _CELL.format(arch=arch, shape=shape)],
+                        _CELL.format(arch=arch, shape=shape, rank=rank)],
                        env=env, capture_output=True, text=True, cwd=root)
     if r.returncode:
         return {"arch": arch, "shape": shape, "ok": False,
@@ -64,6 +73,8 @@ def row(rec: dict) -> dict:
         "cell": f"{rec['arch']} {rec['shape']}",
         "mesh": rec["mesh_shape"],
         "flops": rec["hlo_flops_per_device"],
+        "bytes": rec["hlo_bytes_per_device"],
+        "argument_bytes": rec["memory_analysis"]["argument_size_in_bytes"],
         "model_flops_per_chip": rec["model_flops_per_chip"],
         "ratio": rec["hlo_flops_per_device"] / rec["model_flops_per_chip"],
         "b2_flops": attn.get("flops", 0.0),
@@ -80,19 +91,21 @@ def row(rec: dict) -> dict:
 
 def table(rows: list) -> str:
     out = ["| cell | FLOPs a device (× model) | B2 FLOPs (launches) | B2′ FLOPs "
-           "| peak GB | collectives | `model` MB / all MB | bound s (by) |",
-           "| --- | --- | --- | --- | --- | --- | --- | --- |"]
+           "| bytes | argument bytes | peak GB | collectives "
+           "| `model` MB / all MB | bound s (by) |",
+           "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
     for r in rows:
         if "error" in r:
             out.append(f"| {r['cell']} | failed: {r['error']!r} |"
-                       + " |" * 6)
+                       + " |" * 8)
             continue
         coll = ", ".join(f"{n} {k}" for k, n in sorted(
             r["collectives"].items()))
         out.append(
             f"| {r['cell']} | {r['flops']:.4g} ({r['ratio']:.2f}×) "
             f"| {r['b2_flops']:.4g} ({r['b2_launches']}) "
-            f"| {r['b2p_flops']:.4g} | {r['peak_gb']:.4g} | {coll} "
+            f"| {r['b2p_flops']:.4g} | {r['bytes']:.0f} "
+            f"| {r['argument_bytes']} | {r['peak_gb']:.4g} | {coll} "
             f"| {r['model_axis_mb']:.4g} / {r['collective_mb']:.4g} "
             f"| {r['bound_s']:.4g} ({r['dominant'].removesuffix('_s')}) |")
     return "\n".join(out)
@@ -107,9 +120,13 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=2,
                     help="cells at once (each takes a few GB of host memory)")
     ap.add_argument("--json", default=None, help="write every row here")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="data,model, e.g. 4,2 (default: 16 × 16)")
     args = ap.parse_args(argv)
     with ThreadPoolExecutor(args.jobs) as pool:
-        recs = list(pool.map(lambda c: run_cell(args.root, c), args.cells))
+        recs = list(pool.map(lambda c: run_cell(
+            args.root, c, args.rank, args.mesh_shape), args.cells))
     rows = [row(r) for r in recs]
     print(table(rows))
     if args.json:

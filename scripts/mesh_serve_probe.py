@@ -86,6 +86,8 @@ def collectives(torch, mesh) -> dict:
 def profiled(torch, eng, prompts) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.steps import place_token
+
     with torch.inference_mode():
         logits, caches = eng.prefill(prompts)
         cache = eng._expand_cache(caches, BATCH, PROMPT)
@@ -100,7 +102,8 @@ def profiled(torch, eng, prompts) -> dict:
                 t1 = time.perf_counter()
                 for i in range(STEPS):
                     logits, cache = eng._decode_step(
-                        eng.model_params(), cache, tok, PROMPT + i)
+                        eng.model_params(), cache,
+                        place_token(eng.mesh, tok), PROMPT + i)
                     tok = logits.argmax(-1).to(torch.int32)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
@@ -135,6 +138,7 @@ def decode_parts(torch, eng, mesh, prompts) -> dict:
         logits, caches = eng.prefill(prompts)
         cache = eng._expand_cache(caches, BATCH, PROMPT)
         tok = logits.argmax(-1).to(torch.int32)
+        placed = ST.place_token(mesh, tok)
         params = tp.to_local(eng.params)
         local = tp.to_local(cache)
 
@@ -143,8 +147,8 @@ def decode_parts(torch, eng, mesh, prompts) -> dict:
                 ST.model_decode(params, eng.cfg, local, tok, PROMPT)
 
         parts = {
-            "step": lambda: eng._decode_step(eng.model_params(), cache, tok,
-                                             PROMPT),
+            "step": lambda: eng._decode_step(eng.model_params(), cache,
+                                             placed, PROMPT),
             "param_gather_plan": lambda: ST.param_gather(
                 mesh, eng.params, eng.cfg.param_dtype),
             "params_to_local": lambda: tp.to_local(eng.params),

@@ -47,6 +47,7 @@ over a group of one and leaves the values as they are.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Any, Optional
 
@@ -59,6 +60,9 @@ from .ctx import ModelSplit, RowSplit
 #: the data-axes gather's bytes alive now and the most alive at once
 #: since :func:`reset_gathered`
 _GATHERED = {"live": 0, "peak": 0}
+#: guards ``_GATHERED``: a storage may die on the process group's worker
+#: thread, which runs its finalizer there
+_GATHERED_LOCK = threading.Lock()
 
 #: cache leaves whose dimension 3 is positions (k / v: (L, B, Hkv, S, hd))
 KV_LEAVES = ("k", "v", "ck", "cv")
@@ -501,26 +505,34 @@ def _count_live(t: torch.Tensor) -> None:
     """Count ``t``'s bytes live until its storage dies: a view keeps the
     storage, where the tensor object itself may die before it."""
     n = t.numel() * t.element_size()
-    _GATHERED["live"] += n
-    _GATHERED["peak"] = max(_GATHERED["peak"], _GATHERED["live"])
+    with _GATHERED_LOCK:
+        _GATHERED["live"] += n
+        _GATHERED["peak"] = max(_GATHERED["peak"], _GATHERED["live"])
     weakref.finalize(t.untyped_storage(), _release, n)
 
 
 def _release(n: int) -> None:
-    _GATHERED["live"] -= n
+    with _GATHERED_LOCK:
+        _GATHERED["live"] -= n
 
 
 def gathered_bytes() -> dict:
     """``{"live", "peak"}``: the bytes of the data-axes gather's outputs
     alive now, and the most alive at once since :func:`reset_gathered`
     (a tensor counts until its storage is freed, whoever holds it or a
-    view of it: a layer, a cache, or autograd for the backward)."""
-    return dict(_GATHERED)
+    view of it: a layer, a cache, or autograd for the backward).  The
+    process group may hold a collective's output a moment after the call
+    returns — gloo's worker thread drops its work, and with it the
+    gathered buffer, only after it has woken the caller — so right after
+    a step ``live`` may still count its last gather."""
+    with _GATHERED_LOCK:
+        return dict(_GATHERED)
 
 
 def reset_gathered() -> None:
     """Start the peak of :func:`gathered_bytes` from what is alive now."""
-    _GATHERED["peak"] = _GATHERED["live"]
+    with _GATHERED_LOCK:
+        _GATHERED["peak"] = _GATHERED["live"]
 
 
 def gather_data(tree: Any, path: tuple, *, layer: bool = False) -> Any:

@@ -199,8 +199,9 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     """(step, args): the step the port runs for ``shape`` on ``mesh`` and
     its arguments as this rank holds them — params (and the optimizer
     state, the decode caches) placed by the sharding rules, the batch
-    (the rank's rows for the train step, the global batch the serve
-    steps take), a decode step's position at the cache's last one.  On
+    (the rank's rows for the train step, the global batch a prefill
+    takes), a decode step's token placed by ``make_batch_shardings`` and
+    its position at the cache's last one.  On
     ``meta`` they are shapes only; on a device, params drawn from
     seed 0 as ``steps.model_init`` draws them, a batch of random tokens
     and zeroed caches: the step a card runs, to set beside its count."""
@@ -239,7 +240,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         cfg, shape.global_batch, shape.seq_len, device=device)
     cache = shd.distribute_tree(cache,
                                 shd.make_cache_shardings(mesh, cache, cfg))
-    token = fill({"token": d["token"]})["token"]
+    token = ST.place_token(mesh, fill({"token": d["token"]})["token"])
     return step, (placed, cache, token, shape.seq_len - 1)
 
 

@@ -40,9 +40,15 @@ What each op is charged (:class:`GraphStats`):
   no plain version: it records one launch with the kernel's own work
   (``kernels/work.py``) through ``kernels.work.record_kernel``, which
   calls :meth:`StepCounter.count_kernel`.
+* **Arguments.** A storage handed to the step counts only if an op of
+  the step reads it, as the reference's ``jax.jit`` (``keep_unused``
+  left ``False``) drops the parameters its program never reads: the
+  encoder's params from an encoder–decoder's decode step.  Those it
+  never reads are kept apart (``unread_argument_bytes``).
 * **Peak.** The live bytes of the storages during the step, on top of
-  the arguments: a storage is added when an op first returns it and
-  taken off when it dies (a weakref finalizer).  These are the bytes the
+  the arguments it reads (live from the start): a storage is added when
+  an op first returns it and taken off when it dies (a weakref
+  finalizer).  These are the bytes the
   tensors ask for — on the card ``torch.cuda.memory_stats()``'s
   ``requested_bytes``; the caching allocator holds them in blocks of 512
   bytes and more, which ``torch.cuda.memory_allocated`` counts.
@@ -233,6 +239,8 @@ class GraphStats:
     #: kernel name → {"launches", "flops", "bytes", "seconds"}
     kernel_calls: dict = dataclasses.field(default_factory=dict)
     argument_bytes: int = 0
+    #: the arguments' storages the step never read
+    unread_argument_bytes: int = 0
     output_bytes: int = 0
     peak_bytes: int = 0
 
@@ -273,6 +281,7 @@ class GraphStats:
             "total_collective_bytes": self.total_collective_bytes,
             "kernel_calls": {k: dict(v) for k, v in self.kernel_calls.items()},
             "argument_bytes": self.argument_bytes,
+            "unread_argument_bytes": self.unread_argument_bytes,
             "output_bytes": self.output_bytes,
             "peak_bytes": self.peak_bytes,
         }
@@ -290,7 +299,11 @@ class StepCounter(TorchDispatchMode):
         super().__init__()
         self.stats = GraphStats()
         self._owned: dict = {}
+        #: the bytes alive besides the arguments read, now and at most
         self._live = 0
+        self._top = 0
+        #: the arguments' storages not read yet → their bytes
+        self._unread: dict = {}
 
     # -- storages and the peak ---------------------------------------------
 
@@ -309,12 +322,14 @@ class StepCounter(TorchDispatchMode):
         n = st.nbytes()
         self._owned[key] = n
         self._live += n
-        self.stats.peak_bytes = max(self.stats.peak_bytes, self._live)
+        self._top = max(self._top, self._live)
+        self.stats.peak_bytes = self.stats.argument_bytes + self._top
         weakref.finalize(st, self._release, key)
         return n
 
     def _release(self, key) -> None:
         self._live -= self._owned.pop(key, 0)
+        self._unread.pop(key, None)
 
     def _storages(self, trees) -> list:
         """The distinct storages' bytes of the tensors in ``trees`` (a
@@ -332,12 +347,27 @@ class StepCounter(TorchDispatchMode):
         return out
 
     def arguments(self, *trees) -> None:
-        """The step's arguments: their storages' bytes (this rank's local
-        shards) are live from the start."""
-        held = self._storages(trees)
-        for local, _ in held:
-            self._hold(local)
-        self.stats.argument_bytes = sum(n for _, n in held)
+        """The step's arguments, this rank's local shards.  A storage of
+        theirs counts in ``argument_bytes``, and is live from the start,
+        once an op of the step reads it (:meth:`_read`); until then it is
+        in ``unread_argument_bytes``.  The caller holds them through the
+        step."""
+        for local, n in self._storages(trees):
+            st = local.untyped_storage()
+            self._owned[st._cdata] = 0        # never the step's own
+            self._unread[st._cdata] = n
+            weakref.finalize(st, self._release, st._cdata)
+        self.stats.unread_argument_bytes = sum(self._unread.values())
+
+    def _read(self, tensors) -> None:
+        """The step reads ``tensors``: an argument's storage among them
+        counts from now on."""
+        for t in tensors:
+            n = self._unread.pop(t.untyped_storage()._cdata, None)
+            if n is not None:
+                self.stats.argument_bytes += n
+                self.stats.unread_argument_bytes -= n
+                self.stats.peak_bytes = self.stats.argument_bytes + self._top
 
     def outputs(self, *trees) -> None:
         """The step's results: their storages' bytes."""
@@ -360,6 +390,8 @@ class StepCounter(TorchDispatchMode):
             return out
         outs = _tensors(out)
         if kind != "alloc":
+            if self._unread:
+                self._read(_tensors(args) + _tensors(list(kwargs.values())))
             self._charge(func, kind, args, kwargs, outs)
         for t in outs:
             self._hold(t)

@@ -163,7 +163,9 @@ class ServeEngine:
         from ``torch.multinomial`` on a generator seeded with ``seed``:
         deterministic for a seed, but not the tokens the reference's
         ``jax.random.categorical`` draws for it.  The decode caches are
-        updated in place."""
+        updated in place; on a mesh every rank samples the whole batch
+        alike, and the decode step takes the token placed by
+        ``make_batch_shardings`` (``steps.place_token``)."""
         cfg = self.cfg
         bsz, plen = prompts.shape
         if plen + max_new > self.max_len:
@@ -187,8 +189,9 @@ class ServeEngine:
         token = self._sample(logits, temperature, gen)
         out[:, 0] = token.cpu().numpy()
         for i in range(1, max_new):
-            logits, cache = self._decode_step(self.model_params(), cache,
-                                              token, plen + i - 1)
+            logits, cache = self._decode_step(
+                self.model_params(), cache, ST.place_token(self.mesh, token),
+                plen + i - 1)
             token = self._sample(logits, temperature, gen)
             out[:, i] = token.cpu().numpy()
         synchronize(dev)

@@ -416,31 +416,54 @@ def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
     return prefill_step
 
 
+def place_token(mesh, token: torch.Tensor):
+    """A decode step's ``token`` — the global batch's, the same on every
+    rank — as the step on ``mesh`` takes it: a DTensor placed by
+    ``make_batch_shardings``, its local tensor this rank's rows, cut
+    locally (no collective); ``token`` itself with no mesh."""
+    if mesh is None:
+        return token
+    from repro_torch.distributed import sharding as shd
+
+    return shd.distribute(
+        token, shd.make_batch_shardings(mesh, {"token": token})["token"])
+
+
 def make_decode_step(cfg: ModelConfig, mesh=None) -> Callable:
     """``decode_step(params, cache, token, pos) -> (logits (B, V) f32,
     cache)``, the cache updated in place.
 
     On ``mesh`` the params are placed as for :func:`make_prefill_step`,
     ``cache`` is a tree of DTensors placed by ``make_cache_shardings``
-    (whose local tensors the step updates) and ``token`` (B,) the global
-    batch's; where the caches hold their positions in blocks along
-    ``model`` the attention layers take their softmax in blocks.  The
-    params are gathered along the data axes as in a prefill, every
-    superblock on every token, as the reference's jitted decode does."""
+    (whose local tensors the step updates) and ``token`` a DTensor placed
+    by ``make_batch_shardings`` (:func:`place_token`), as the reference's
+    jitted decode takes them: the rank reads its own rows of the token
+    and of the caches.  ``pos`` stays a Python int, where the
+    reference's is an int32 argument: the attention reads it on the host.
+    Where the caches hold their positions in blocks along ``model`` the
+    attention layers take their softmax in blocks.  The params are
+    gathered along the data axes as in a prefill, every superblock on
+    every token, as the reference's jitted decode does; the logits are
+    gathered to the whole batch."""
     if mesh is None:
         def decode_step(params, cache, token, pos):
             return model_decode(params, cfg, cache, token, pos)
 
         return decode_step
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.distributed import tp
 
     def decode_step(params, cache, token, pos):
+        if not isinstance(token, DTensor):
+            raise TypeError("a decode step on a mesh takes its token placed "
+                            "by make_batch_shardings (steps.place_token)")
         seq = tp.positions_on_model(cache, mesh)
         with _serving_on(mesh, cfg, params, token.shape[0],
                          kv_seq=seq) as rows:
-            logits, _ = model_decode(
-                tp.to_local(params), cfg, tp.to_local(cache),
-                local_batch(mesh, {"token": token})["token"], pos)
+            logits, _ = model_decode(tp.to_local(params), cfg,
+                                     tp.to_local(cache), token.to_local(),
+                                     pos)
             return tp.gather_rows(logits, rows), cache
 
     return decode_step

@@ -270,7 +270,12 @@ def _decoder_layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor,
                           pos: int, cache: dict) -> torch.Tensor:
     """One decoder layer of a decode step against its views of the cache,
     its leaves gathered along the data axes here (``tp.gather_data``), so
-    that they are freed when it returns."""
+    that they are freed when it returns.  The cross-attention reads the
+    memory's keys and values from the cache, so its kv projections are
+    neither gathered nor read, as the reference's jitted decode drops the
+    params it never reads."""
+    p = dict(p, cross_attn={k: t for k, t in p["cross_attn"].items()
+                            if k not in ("wk", "wv", "bk", "bv")})
     p = tp.gather_data(p, ("decoder", "blocks"), layer=True)
     a, _, _ = L.attention_decode(
         p["self_attn"], cfg, L.rmsnorm(h, p["ln1"], cfg.norm_eps), pos,

@@ -31,7 +31,8 @@ positions are reckoned over the whole batch.  So the capacity comes from
 the global token count, and each rank's positions are offset by the
 choices of every expert on the ranks before it, in row order: one
 all-gather of the per-expert counts (int32) over the data-parallel
-group.  A rank then keeps and drops exactly the pairs the reference
+group, then on every rank the same exclusive running sum over the
+ranks.  A rank then keeps and drops exactly the pairs the reference
 drops on the global batch.
 
 Under autograd (training) the layer differentiates as it stands, to the
@@ -100,14 +101,18 @@ def global_tokens(n: int) -> int:
 def _earlier_ranks(onehot: torch.Tensor):
     """(E, 1) int32: the choices of each expert on the data-parallel
     ranks that hold earlier rows of the batch; ``None`` when the rows are
-    not split."""
+    not split.  Every rank runs the same ops, as the reference's one
+    ``cumsum`` over the global tokens gives every device one program:
+    the ranks' counts gathered into (R, E), their exclusive running sum
+    over the ranks, and this rank's row of it."""
     split = ctx.row_split()
     if split is None or split.count == 1:
         return None
     counts = onehot.sum(dim=1, dtype=torch.int32)              # (E,)
-    every = [torch.empty_like(counts) for _ in range(split.count)]
-    dist.all_gather(every, counts, group=split.group)
-    return sum(every[:split.index], torch.zeros_like(counts))[:, None]
+    every = counts.new_empty((split.count, counts.shape[0]))   # (R, E)
+    dist.all_gather_into_tensor(every.view(-1), counts, group=split.group)
+    earlier = torch.cumsum(every, dim=0, dtype=torch.int32) - every
+    return earlier[split.index][:, None]
 
 
 def route(p: dict, cfg: ModelConfig, xf: torch.Tensor):

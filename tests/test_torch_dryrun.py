@@ -138,33 +138,38 @@ print(json.dumps(rec))
     return _last_json(subproc(code, env=env, timeout=timeout))
 
 
-def test_decode_argument_bytes_equal_the_references(subproc, tmp_path):
-    """qwen2-0.5b decode_32k on the (4, 2) mesh: a device's argument bytes
-    (its shards of the params and the caches, the token, the position)
-    as the reference's ``memory_analysis`` gives them on 8 forced host
-    devices, and as the port's counter holds them.  They differ by 380
-    bytes, named here (ROADMAP.md §C): the port's decode step takes the
-    global batch's 128 int32 tokens (512 bytes) where the reference's
-    takes this device's 32 (128 bytes), and its position is a Python int
-    where the reference's is a 4-byte int32 argument."""
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "seamless-m4t-medium"])
+def test_decode_argument_bytes_equal_the_references(arch, subproc, tmp_path):
+    """decode_32k on the (4, 2) mesh: a device's argument bytes — the
+    shards of the params it reads and of the caches, the token, the
+    position — as the reference's ``memory_analysis`` gives them on 8
+    forced host devices, and as the port's counter holds them.  The
+    port's decode step takes this device's rows of the token, as the
+    reference's does, and counts only the arguments it reads, as the
+    reference's ``jax.jit`` (``keep_unused=False``) keeps only those: the
+    encoder–decoder's decode reads neither the encoder's params nor its
+    cross-attention's kv projections.  They differ by the position's 4
+    bytes, named here (ROADMAP.md, differences the port keeps): a Python
+    int in the port, a 4-byte int32 argument in the reference."""
     ref_dir = tmp_path / "ref"
     code = f"""
 import sys
 from repro.launch.dryrun import main
-sys.exit(main(["--arch", "qwen2-0.5b", "--shape", "decode_32k",
+sys.exit(main(["--arch", {arch!r}, "--shape", "decode_32k",
                "--mesh", "single", "--out", {str(ref_dir)!r}]))
 """
     r = subproc(code, env={
         "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
         "REPRO_MESH_SHAPE": "4,2"}, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
-    ref = json.load(open(ref_dir / "qwen2-0_5b__decode_32k__single.json"))
-    port = _port_cell(subproc, tmp_path / "port", "qwen2-0.5b", "decode_32k",
+    safe = arch.replace(".", "_")
+    ref = json.load(open(ref_dir / f"{safe}__decode_32k__single.json"))
+    port = _port_cell(subproc, tmp_path / "port", arch, "decode_32k",
                       "single", {"REPRO_MESH_SHAPE": "4,2"})
     want = ref["memory_analysis"]["argument_size_in_bytes"]
     got = port["memory_analysis"]["argument_size_in_bytes"]
-    tokens_global, tokens_local, pos = 128 * 4, 128 // 4 * 4, 4
-    assert got == want + tokens_global - tokens_local - pos
+    pos = 4
+    assert got == want - pos
     assert port["cache_bytes"] == ref["cache_bytes"]
     assert port["peak_bytes_per_device"] >= got
 
@@ -274,10 +279,10 @@ def test_invariants_at_full_width(arch, shape, subproc, tmp_path):
     """On the production mesh: the counted FLOPs a device are at least
     the model's share less the embedding lookup's and, in a prefill, the
     head's at every position but the last (no undercount), the peak
-    holds the arguments, and rank 0 and the last rank count the same
-    (SPMD) but for the MoE routing's sum over earlier ranks, named here.
-    (The cell's ``data`` × ``model`` is ``pick_tp``'s, as the
-    reference's.)"""
+    holds the arguments, and rank 0 and the last rank count the same in
+    every key (SPMD) — the MoE routing's running sum over the ranks too,
+    which every rank takes over all of them.  (The cell's ``data`` ×
+    ``model`` is ``pick_tp``'s, as the reference's.)"""
     first = _port_cell(subproc, tmp_path / "first", arch, shape, "single")
     assert first["ok"] and first["chips"] == 256, first
     cfg = get_config(arch)
@@ -292,19 +297,10 @@ def test_invariants_at_full_width(arch, shape, subproc, tmp_path):
     last = _port_cell(subproc, tmp_path / "last", arch, shape, "single",
                       rank=255)
     assert last["rank"] == 255
-    for key in ("hlo_flops_per_device", "collective_by_kind", "kernel_calls",
-                "memory_analysis", "peak_bytes_per_device"):
+    for key in ("hlo_flops_per_device", "hlo_bytes_per_device",
+                "collective_by_kind", "kernel_calls", "memory_analysis",
+                "peak_bytes_per_device"):
         assert last[key] == first[key], key
-    # the one difference: MoE routing adds the expert counts of the ranks
-    # that hold earlier rows (models/moe.py:_earlier_ranks), an (E,)
-    # int32 add for each — none on rank 0, one per other data rank on
-    # the last rank
-    data = first["mesh_shape"][0]
-    moe_layers = 0 if cfg.moe is None else \
-        cfg.num_layers // cfg.moe.moe_period
-    earlier = (data - 1) * 3 * cfg.moe.num_experts * 4 if cfg.moe else 0
-    assert last["hlo_bytes_per_device"] - first["hlo_bytes_per_device"] \
-        == moe_layers * earlier
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +434,8 @@ for arch, kind in (("llama3.2-1b", "prefill"), ("qwen2-0.5b", "train")):
                               make_host_mesh((1, 1), ("data", "model")))
     _, stats = D.count_step(step, *args)
     dist.destroy_process_group()
-    out[arch] = [held.stats.argument_bytes, stats.argument_bytes, finite,
+    out[arch] = [held.stats.unread_argument_bytes, stats.argument_bytes,
+                 stats.unread_argument_bytes, finite,
                  dict(stats.collective_bytes)]
 print(json.dumps(out))
 """
@@ -447,12 +444,15 @@ print(json.dumps(out))
 def test_a_step_built_on_a_device_holds_the_predicted_arguments(subproc):
     """``build_step`` on the CPU (a gloo world of one, params drawn,
     random tokens) runs, and holds the argument bytes that its meta twin
-    on a fake world of one counts: what ``chip_smoke.py``'s ``dryrun``
-    phase holds against the card's allocator.  A world of one moves no
-    collective bytes."""
+    on a fake world of one counts, every one of them read by the step:
+    what ``chip_smoke.py``'s ``dryrun`` phase holds against the card's
+    allocator.  (A counter that runs no step has read nothing: all its
+    arguments' bytes are unread.)  A world of one moves no collective
+    bytes."""
     got = _last_json(subproc(_BUILT_ON_A_DEVICE, timeout=300))
-    for arch, (real, meta, finite, coll) in got.items():
+    for arch, (real, meta, unread, finite, coll) in got.items():
         assert real == meta > 0, arch
+        assert unread == 0, arch
         assert finite, arch
         assert coll == {}, arch
 

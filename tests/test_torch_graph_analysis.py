@@ -259,6 +259,27 @@ def test_peak_follows_the_storages_that_live():
     assert stats.peak_bytes == 3 * n
 
 
+def test_an_argument_the_step_never_reads_is_not_counted():
+    """As the reference's ``jax.jit`` drops a parameter its program never
+    reads: an argument counts, and is live from the start, only if an op
+    of the step reads it — ``y``, read by the step's last op, counts in
+    the peak from the start; ``z``, whose shape alone the step reads,
+    counts nowhere but in ``unread_argument_bytes``."""
+    n = 1024 * 4
+
+    def f(x, y, z):
+        a = x + 1
+        b = a * 2
+        del a
+        assert z.shape == (1024,)
+        return b + y
+
+    _, stats = count_step(f, _meta(1024), _meta(1024), _meta(1024))
+    assert stats.argument_bytes == 2 * n
+    assert stats.unread_argument_bytes == n
+    assert stats.peak_bytes == 2 * n + 2 * n
+
+
 # ---------------------------------------------------------------------------
 # the kernels' meta branches
 # ---------------------------------------------------------------------------

@@ -90,6 +90,7 @@ def trace(eng, inputs, new):
     import torch
 
     from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import place_token
     from repro_torch.tree import tree_flatten_with_path
 
     frames = eng.cfg.family == "encdec"
@@ -102,7 +103,8 @@ def trace(eng, inputs, new):
         every = [logits]
         for i in range(1, new):
             tok = logits.argmax(-1).to(torch.int32)
-            logits, cache = eng._decode_step(eng.model_params(), cache, tok,
+            logits, cache = eng._decode_step(eng.model_params(), cache,
+                                             place_token(eng.mesh, tok),
                                              plen + i - 1)
             every.append(logits)
     logits = torch.stack(every)
@@ -202,6 +204,8 @@ def vlm_trace(eng, embeds, mrope_positions, steps):
     of ``steps`` (n, B, 1, D) → {"logits" (1 + n, B, V)}."""
     import torch
 
+    from repro_torch.launch.steps import place_token
+
     plen = embeds.shape[1]
     with torch.inference_mode():
         logits, caches = eng._prefill_step(eng.model_params(), {
@@ -210,8 +214,9 @@ def vlm_trace(eng, embeds, mrope_positions, steps):
         cache = eng._expand_cache(caches, embeds.shape[0], plen)
         every = [logits]
         for i, emb in enumerate(steps):
-            logits, cache = eng._decode_step(eng.model_params(), cache,
-                                             torch.as_tensor(emb), plen + i)
+            logits, cache = eng._decode_step(
+                eng.model_params(), cache,
+                place_token(eng.mesh, torch.as_tensor(emb)), plen + i)
             every.append(logits)
     return {"logits": torch.stack(every)}
 

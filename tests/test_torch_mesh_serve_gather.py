@@ -20,11 +20,14 @@ greedy (its own mesh server fails on this jax, ROADMAP §C).
 
 On (2, 1), where every rank holds half of each leaf the rules shard
 along ``data``, ``tp.gathered_bytes()`` bounds what a rank holds: the
-peak of a prefill and of one decode step is at most one superblock's
-leaves plus the largest leaf outside the blocks, and at least one
-superblock's leaves that the rules shard; afterwards the live bytes are
-back where they were.  A cache that keeps a view of a gathered leaf
-fails that last check."""
+peak of a prefill and of each of five decode steps in a row, with gc
+off, is at most one superblock's leaves plus the largest leaf outside
+the blocks, and at least one superblock's leaves that the rules shard;
+after each call the live bytes are back where they were, once gloo's
+worker thread has let go of the call's last gathered buffer, which it
+drops only after it has woken the caller.  A cache that keeps a view of
+a gathered leaf fails that last check, and so does a reference cycle
+that holds one."""
 import inspect
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -40,6 +43,10 @@ from _torch_ranks import load_rank, run_ranks
 from test_torch_mesh_serve import _reference_greedy
 
 ROWS, PROMPT, NEW, FRAMES = 2, 16, 4, 16
+#: decode steps measured one after another on (2, 1), and the most
+#: seconds a rank waits after a call for the process group to drop the
+#: call's last gathered buffer (``tp.gathered_bytes``)
+DECODES, SETTLE_S = 5, 1.0
 MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
 FAMILIES = ["llama3.2-1b", "olmoe-1b-7b", "mamba2-1.3b",
             "jamba-1.5-large-398b", "seamless-m4t-medium"]
@@ -56,6 +63,7 @@ def run_steps(eng, prefill, decode, x, new):
     import torch
 
     from repro_torch.distributed import tp
+    from repro_torch.launch.steps import place_token
     from repro_torch.tree import tree_flatten_with_path
 
     frames = eng.cfg.family == "encdec"
@@ -67,7 +75,7 @@ def run_steps(eng, prefill, decode, x, new):
         cache = eng._expand_cache(caches, x.shape[0], plen)
         every = [logits]
         for i in range(1, new):
-            tok = logits.argmax(-1).to(torch.int32)
+            tok = place_token(eng.mesh, logits.argmax(-1).to(torch.int32))
             logits, cache = decode(eng.model_params(), cache, tok,
                                    plen + i - 1)
             every.append(logits)
@@ -82,11 +90,15 @@ def run_steps(eng, prefill, decode, x, new):
 #: and of a decode step, and a prefill with a cache viewing a gathered
 #: leaf
 GATHER_SERVE_RANK = """
+import gc
+import time
+
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.registry import get_config
 from repro_torch.distributed import ctx, tp
-from repro_torch.distributed.sharding import _map_with_path
+from repro_torch.distributed.sharding import (_leaves_with_path,
+                                              _map_with_path)
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import ServeEngine
@@ -120,30 +132,82 @@ def oracle(cfg):
                             kv_seq=seq) as rows, ctx.gathering_params(None):
             logits, _ = ST.model_decode(
                 whole_along_data(params, cfg), cfg, tp.to_local(cache),
-                ST.local_batch(mesh, {"token": token})["token"], pos)
+                token.to_local(), pos)
             return tp.gather_rows(logits, rows), cache
 
     return prefill, decode
 
 
+def settled(before):
+    # the live gathered bytes once they are back at ``before``, waiting at
+    # most SETTLE_S: gloo's worker thread drops a collective's output
+    # (here the step's last gathered buffer) only after it has woken the
+    # caller (tp.gathered_bytes)
+    deadline = time.monotonic() + SETTLE_S
+    while tp.gathered_bytes()["live"] != before and \
+            time.monotonic() < deadline:
+        time.sleep(1e-3)
+    return tp.gathered_bytes()["live"]
+
+
+def measured(call):
+    # the gathered bytes of one call, with gc off: a reference cycle
+    # holding a gathered leaf would keep it alive
+    tp.reset_gathered()
+    before = tp.gathered_bytes()["live"]
+    result = call()
+    return result, {"peak": tp.gathered_bytes()["peak"], "before": before,
+                    "live": settled(before)}
+
+
 def gathered(eng, x):
     frames = eng.cfg.family == "encdec"
     batch = {"frames" if frames else "tokens": x}
+    plen = 1 if frames else x.shape[1]
     out = {"dims": sorted(ST.param_gather(mesh, eng.params).dims)}
-    with torch.inference_mode():
-        tp.reset_gathered()
-        before = tp.gathered_bytes()["live"]
-        logits, caches = eng._prefill_step(eng.model_params(), batch)
-        out["prefill"] = dict(tp.gathered_bytes(), before=before)
-        cache = eng._expand_cache(caches, x.shape[0],
-                                  1 if frames else x.shape[1])
-        tp.reset_gathered()
-        before = tp.gathered_bytes()["live"]
-        eng._decode_step(eng.model_params(), cache,
-                         logits.argmax(-1).to(torch.int32),
-                         1 if frames else x.shape[1])
-        out["decode"] = dict(tp.gathered_bytes(), before=before)
+    gc.disable()
+    try:
+        with torch.inference_mode():
+            (logits, caches), out["prefill"] = measured(
+                lambda: eng._prefill_step(eng.model_params(), batch))
+            cache = eng._expand_cache(caches, x.shape[0], plen)
+            token = ST.place_token(mesh, logits.argmax(-1).to(torch.int32))
+            out["decode"] = [measured(lambda: eng._decode_step(
+                eng.model_params(), cache, token, plen))[1]
+                for _ in range(DECODES)]
+    finally:
+        gc.enable()
     return out
+
+
+def cycled(eng, x):
+    # a planted fault: a decode step's first gathered leaf kept in a
+    # reference cycle, which only gc frees
+    real, planted = tp.gather_data, []
+
+    def gather_data(tree, path, **kw):
+        got = real(tree, path, **kw)
+        if not planted:
+            loop = {"leaf": _leaves_with_path(got)[0][1]}
+            loop["loop"] = loop
+            planted.append(True)
+        return got
+
+    with torch.inference_mode():
+        logits, caches = eng._prefill_step(eng.model_params(), {"tokens": x})
+        cache = eng._expand_cache(caches, *x.shape)
+        token = ST.place_token(mesh, logits.argmax(-1).to(torch.int32))
+        gc.disable()
+        tp.gather_data = gather_data
+        try:
+            _, got = measured(lambda: eng._decode_step(
+                eng.model_params(), cache, token, x.shape[1]))
+        finally:
+            tp.gather_data = real
+            gc.enable()
+        gc.collect()
+        got["collected"] = settled(got["before"])
+    return got
 
 
 def pinned(eng, x):
@@ -163,7 +227,7 @@ def pinned(eng, x):
         with torch.inference_mode():
             before = tp.gathered_bytes()["live"]
             _, caches = eng._prefill_step(eng.model_params(), {"tokens": x})
-            return {"before": before, "live": tp.gathered_bytes()["live"]}
+            return {"before": before, "live": settled(before)}
     finally:
         lm.backbone = real
 
@@ -181,6 +245,7 @@ for name, case in inp["cases"].items():
         res["gathered"] = gathered(eng, x)
         if name == "llama3.2-1b":
             res["pinned"] = pinned(eng, x)
+            res["cycled"] = cycled(eng, x)
     out[name] = res
 torch.save(out, f"{OUT}/rank{RANK}.pt")
 """
@@ -197,7 +262,8 @@ def _run_mesh(tmp, shape, cases):
     torch.save({"shape": shape, "cases": cases},
                os.path.join(tmp, "inputs.pt"))
     world = shape[0] * shape[1]
-    code = (f"PROMPT, NEW = {PROMPT}, {NEW}\n"
+    code = (f"PROMPT, NEW, DECODES, SETTLE_S = {PROMPT}, {NEW}, "
+            f"{DECODES}, {SETTLE_S}\n"
             + inspect.getsource(run_steps) + GATHER_SERVE_RANK)
     run_ranks(code, world, tmp)
     return [load_rank(tmp, r) for r in range(world)]
@@ -264,17 +330,28 @@ def test_the_greedy_tokens_are_the_references(served, arch):
                                           err_msg=mesh)
 
 
+#: leaves of an encoder–decoder's decoder layer that its decode step
+#: never reads: the cross-attention's kv projections (the memory's keys
+#: and values are in the cache)
+UNREAD_IN_DECODE = tuple(f"decoder/blocks/cross_attn/{k}"
+                         for k in ("wk", "wv", "bk", "bv"))
+
+
 def _bounds(params, arch: str, dims: list) -> dict:
     """kind → (bytes of the largest superblock's leaves that the rules
     shard along ``data``, of the largest superblock's leaves plus the
     largest leaf outside the blocks), each leaf whole; kinds: the
     prefill, and the decode step (the encoder–decoder's decoder layers
-    alone)."""
+    alone, less the leaves its decode step never reads, which the
+    prefill's decode step does not gather either)."""
     cfg = treg.get_config(arch, smoke=True)
     sharded = {"/".join(k) for k in dims}
 
     def size(t):
         return t.numel() * t.element_size()
+
+    def read(k):
+        return k not in UNREAD_IN_DECODE
 
     if cfg.family == "encdec":
         stacks = {"encoder/blocks/": cfg.enc_layers,
@@ -283,43 +360,65 @@ def _bounds(params, arch: str, dims: list) -> dict:
         from repro_torch.models import lm
         stacks = {"blocks/": lm.num_superblocks(cfg)}
     per = {prefix: (sum(size(v) for k, v in flat(params)
-                        if k.startswith(prefix) and k in sharded) // n,
+                        if k.startswith(prefix) and k in sharded
+                        and read(k)) // n,
                     sum(size(v) for k, v in flat(params)
-                        if k.startswith(prefix)) // n)
+                        if k.startswith(prefix)) // n,
+                    sum(size(v) for k, v in flat(params)
+                        if k.startswith(prefix) and read(k)) // n)
            for prefix, n in stacks.items()}
     outside = max(size(v) for k, v in flat(params)
                   if not any(k.startswith(p) for p in stacks))
     decode = per.get("decoder/blocks/", per.get("blocks/"))
-    return {"prefill": (max(lo for lo, _ in per.values()),
-                        max(hi for _, hi in per.values()) + outside),
-            "decode": (decode[0], decode[1] + outside)}
+    return {"prefill": (max(lo for lo, _, _ in per.values()),
+                        max(hi for _, hi, _ in per.values()) + outside),
+            "decode": (decode[0], decode[2] + outside)}
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_a_rank_holds_one_superblock_gathered_at_a_time(served, arch):
-    """On (2, 1) the most gathered bytes alive at once in a prefill and in
-    one decode step (``tp.gathered_bytes``, counted until each gathered
-    leaf's storage is freed) lie between one superblock's leaves that
-    the rules shard and one superblock's leaves plus the largest leaf
-    outside the blocks; after each call the live bytes are back at their
-    value before it: no cache holds a gathered leaf."""
+    """On (2, 1), with gc off, a prefill and then ``DECODES`` decode steps
+    one after another: in each call the most gathered bytes alive at
+    once (``tp.gathered_bytes``, counted until each gathered leaf's
+    storage is freed) lie between one superblock's leaves that the rules
+    shard and one superblock's leaves plus the largest leaf outside the
+    blocks; after each call the live bytes are back at their value
+    before it, once gloo's worker thread has dropped the call's last
+    gathered buffer (at most ``SETTLE_S`` later): no cache and no
+    reference cycle holds a gathered leaf."""
     runs, _, params = served
     for rank in runs["2x1"]:
         got = rank[arch]["gathered"]
         bounds = _bounds(params[arch], arch, got["dims"])
-        for kind in ("prefill", "decode"):
+        assert len(got["decode"]) == DECODES
+        for kind, calls in (("prefill", [got["prefill"]]),
+                            ("decode", got["decode"])):
             lo, hi = bounds[kind]
-            peak = got[kind]["peak"] - got[kind]["before"]
-            assert got[kind]["live"] == got[kind]["before"], kind
-            assert 0 < lo <= peak <= hi, (kind, lo, peak, hi)
+            for i, call in enumerate(calls):
+                peak = call["peak"] - call["before"]
+                assert call["live"] == call["before"], (kind, i, call)
+                assert 0 < lo <= peak <= hi, (kind, i, lo, peak, hi)
 
 
 def test_a_cache_that_views_a_gathered_leaf_fails_the_live_check(served):
     """A planted fault: a prefill whose caches keep one row of the first
     superblock's gathered ``wq`` (a view, whose storage is the
     superblock's gathered buffer) leaves live bytes above their value
-    before the call — the check above would fail."""
+    before the call, ``SETTLE_S`` after it — the check above would fail."""
     runs, _, _ = served
     for rank in runs["2x1"]:
         got = rank["llama3.2-1b"]["pinned"]
         assert got["live"] > got["before"], got
+
+
+def test_a_gathered_leaf_in_a_reference_cycle_fails_the_live_check(served):
+    """A planted fault: a decode step that keeps its first gathered leaf
+    in a reference cycle, with gc off, leaves live bytes above their
+    value before the call ``SETTLE_S`` after it — the check above would
+    fail — and they come back once ``gc.collect()`` has freed the cycle:
+    the hold was the cycle's."""
+    runs, _, _ = served
+    for rank in runs["2x1"]:
+        got = rank["llama3.2-1b"]["cycled"]
+        assert got["live"] > got["before"], got
+        assert got["collected"] == got["before"], got
