@@ -158,18 +158,24 @@ Phases, each printing one JSON object on a line of its own:
                   the bound and the design's floor (device ms per call
                   and per kernel), also under 2, 4, 8 and 16 heads a tile
                   block (no library call computes an SSD backward);
-12. ``lm_serve``  the LM server at full width: llama3.2-1b and qwen2-0.5b
-                  (random bf16 weights from a seed, on the card) generate
-                  32 tokens greedily for 4 prompts of 1024; prefill logits
-                  are held against the same engine with
-                  ``attn_impl="blockwise"``; five prefills under the
-                  profiler split the card's time between attention,
-                  matmuls and the rest, beside their own wall time;
-                  llama3.2-1b also runs one prefill and 8 decode steps
-                  with ``mlp_impl="streamed"`` (the fused-MLP kernel, one
-                  launch per layer and call, and one flash launch per
-                  layer of the prefill), logits held against the dense
-                  engine, and its prefill split the same way;
+12. ``lm_serve``  the LM server at full width and depth: llama3.2-1b,
+                  qwen2-0.5b, yi-9b and nemotron-4-15b (random bf16
+                  weights from a seed, on the card; each engine freed
+                  before the next) generate 32 tokens greedily for 4
+                  prompts of 1024; prefill logits are held against the
+                  same engine with ``attn_impl="blockwise"`` (yi-9b and
+                  nemotron also in f32, on f32 weights of the same
+                  seed); five prefills under the profiler split the
+                  card's time between attention, matmuls and the rest,
+                  beside their own wall time; llama3.2-1b and nemotron
+                  also run one prefill and 8 decode steps with
+                  ``mlp_impl="streamed"`` (the fused-MLP kernel, one
+                  launch per layer and call — nemotron's ungated
+                  squared-ReLU route — and one flash launch per layer of
+                  the prefill), logits held against the dense engine,
+                  and the prefill split the same way; then ``python -m
+                  repro_torch.launch.serve --arch nemotron-4-15b`` in a
+                  process of its own, on the card: exit 0, its stats;
 13. ``ssm_serve`` mamba2-1.3b at full width and depth (random bf16 weights
                   from a seed) generates 32 tokens greedily for 4 prompts of
                   1024 (one SSD launch per layer of a prefill); one decode
@@ -205,10 +211,23 @@ Phases, each printing one JSON object on a line of its own:
                   ``max_len`` by ``_expand_cache``, twice, the same tokens;
                   at depth 2 + 2 and batch 2 the card's prefill and four
                   decode steps against the port's own CPU run;
-16b. ``int8_serve`` llama3.2-1b at full width and depth served with
+16a. ``vlm_serve`` qwen2-vl-72b's backbone at full width, 16 of its 80
+                  layers (the 80 hold ≈ 143 GB of bf16 weights): seeded
+                  (4, 1024, 8192) embeddings with (3, 4, 1024) M-RoPE
+                  streams (text, a 28 × 28 image, text) through
+                  ``steps.make_prefill_step`` (16 flash launches), then 32
+                  ``make_decode_step`` steps, each fed a seeded (4, 1,
+                  8192) embedding, twice, the same tokens; prefill logits
+                  against ``attn_impl="blockwise"``; at depth 2, d_model
+                  256 and batch 2 the card's prefill and four decode
+                  steps against the port's own CPU run;
+16b. ``int8_serve`` llama3.2-1b and nemotron-4-15b at full width and
+                  depth served with
                   ``ServeEngine(int8_weights=True)`` (quantized once on the
                   card, dequantized to bf16 in each call), 4 × 1024-token
-                  prompts + 32 greedy tokens: ``quantize_params`` on the
+                  prompts + 32 greedy tokens: its quantization equals
+                  ``quantize_params`` of the weights drawn again, leaf by
+                  leaf, and for llama ``quantize_params`` on the
                   card gives the CPU's bits (q and scale) on one
                   superblock's leaves and the embedding; its prefill
                   logits and tokens equal those of a bf16 engine handed
@@ -248,7 +267,8 @@ Phases, each printing one JSON object on a line of its own:
                   mapping (8 rows of 4096 stub frames and 1024 targets):
                   144 forward and 72 backward attention launches a step
                   (12 encoder, 12 decoder self- and 12 cross-attention
-                  layers); the card against the CPU at depth 2 + 2;
+                  layers); the card against the CPU at depth 2 + 2
+                  and d_model 256;
 21. ``hybrid_train`` Jamba's superblock at a width cut (d_model 1024, 8/1
                   heads of 128, d_ff 2048; the published width's training
                   state does not fit one card), as ``lm_train``'s: 4 + 2
@@ -362,8 +382,9 @@ just after phase 5, and again just before phase 6 and after phase 7 (the
 just before and after phase 12, the SSD kernel's just before and after
 phase 13; the attention kernel's again around each of phases 14-16 and
 the SSD kernel's around phase 15, the attention kernel's around phase
-16b, around each train phase (17-23) the counts of every forward and
-backward kernel the path runs, and around phase 24 the attention
+16a and around each model of phase 16b, around each train phase
+(17-23) the counts of every forward and backward kernel the path runs,
+and around phase 24 the attention
 kernel's (read after llama's mesh engines' calls) and the SSD kernel's
 (zeroed before mamba2's mesh engine, read after its calls), each read
 just after the path's steps, and around each example of phase 26 the
@@ -420,7 +441,8 @@ PHASES = ("device", "build", "kernel_check", "main_path", "serve",
           "frontends", "cli", "attn_check", "attn_bwd_check", "mlp_check",
           "mlp_bwd_check", "mlp_probe",
           "ssd_check", "ssd_bwd_check", "lm_serve", "ssm_serve",
-          "moe_serve", "hybrid_serve", "encdec_serve", "int8_serve",
+          "moe_serve", "hybrid_serve", "encdec_serve", "vlm_serve",
+          "int8_serve",
           "lm_train", "lm_train_streamed", "moe_train", "ssm_train",
           "encdec_train", "hybrid_train", "train_resilient", "mesh_train",
           "mesh_serve", "dryrun", "examples")
@@ -3090,19 +3112,32 @@ def _ssd_bwd_times(torch, run, plain, inputs, got, b, l, h, p, n) -> dict:
 # phase 12: the LM server at full width
 # ---------------------------------------------------------------------------
 
-LM_MODELS = ("llama3.2-1b", "qwen2-0.5b")
+#: the dense models served at full width and depth; ``INT8_ARCHS``,
+#: ``MESH_SERVE_ARCH`` and ``DRYRUN_TIES`` read the first
+LM_MODELS = ("llama3.2-1b", "qwen2-0.5b", "yi-9b", "nemotron-4-15b")
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
 #: prefill logits, "cuda" vs "blockwise" attention, bf16 through every
 #: layer: the two sum in another order, so a few bf16 outputs of
 #: attention differ in the last bit and the difference grows layer by
 #: layer — allowed: 2 % of the largest |logit| plus 0.02
 LM_LOGIT_RTOL_OF_MAX, LM_LOGIT_ATOL = 0.02, 0.02
+#: the models whose "cuda" and "blockwise" engines also run in f32, on
+#: weights drawn in f32 from the same seed, held to the same rule: the
+#: gap bf16 rounding leaves out
+LM_F32_ARCHS = ("yi-9b", "nemotron-4-15b")
 
 
-#: the dense model that also serves with ``mlp_impl="streamed"`` (the
-#: fused-MLP kernel): one prefill and STREAMED_STEPS decode steps, logits
-#: held against the ``"dense"`` engine by the rule above
-STREAMED_ARCH, STREAMED_STEPS = "llama3.2-1b", 8
+#: the dense models that also serve with ``mlp_impl="streamed"`` (the
+#: fused-MLP kernel; nemotron-4-15b through its ungated squared-ReLU
+#: route): one prefill and STREAMED_STEPS decode steps, logits held
+#: against the ``"dense"`` engine by the rule above; the streamed
+#: prefill's split over STREAMED_REPS prefills (nemotron's takes ≈ 2.3 s)
+STREAMED_ARCHS, STREAMED_STEPS = ("llama3.2-1b", "nemotron-4-15b"), 8
+STREAMED_REPS = 3
+#: ``python -m repro_torch.launch.serve`` run once, as a user runs it:
+#: its defaults (the card, 4 prompts of 64, 32 new tokens), in a process
+#: of its own once ``lm_serve``'s engines are freed
+SERVE_CLI_ARGS, SERVE_CLI_LIMIT_S = ("--arch", "nemotron-4-15b"), 300
 
 
 #: substrings of cuBLAS' kernel names (``nvjet_*`` on Hopper with CUDA 12.8)
@@ -3170,20 +3205,24 @@ def _prefill_breakdown(torch, prefill, *, reps: int = 5,
 def lm_serve(torch) -> dict:
     import numpy as np
 
+    from repro_torch.configs.base import count_params
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import ServeEngine
 
     rows = []
     for arch in LM_MODELS:
+        t_arch = time.perf_counter()
         cfg = get_config(arch)
         rng = np.random.default_rng(0)
         prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                                dtype=np.int32)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         eng = ServeEngine(cfg, max_len=LM_PROMPT + LM_NEW, seed=0)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        params_gb = _tree_nbytes(eng.params) / 1e9
 
         before = fa.launches
         out, cold = eng.generate(prompts, max_new=LM_NEW)
@@ -3205,6 +3244,7 @@ def lm_serve(torch) -> dict:
                                 params=eng.params)
         ref_logits, _ = blockwise.prefill(prompts)
         torch.cuda.synchronize()
+        # the head is (D, padded_vocab); the logits are cut to vocab_size
         if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
@@ -3212,19 +3252,19 @@ def lm_serve(torch) -> dict:
         err = float((logits - ref_logits).abs().max())
         scale = float(ref_logits.abs().max())
         allowed = LM_LOGIT_RTOL_OF_MAX * scale + LM_LOGIT_ATOL
-        if err > allowed:
-            raise AssertionError(
-                f"{arch}: prefill logits cuda vs blockwise differ by {err} "
-                f"(allowed {allowed})")
         same_first = float((logits.argmax(-1) == ref_logits.argmax(-1))
                            .float().mean())
+        del blockwise, ref_logits
         breakdown = _prefill_breakdown(torch, lambda: eng.prefill(prompts))
         streamed = (_streamed_mlp(torch, eng, cfg, prompts)
-                    if arch == STREAMED_ARCH else None)
+                    if arch in STREAMED_ARCHS else None)
         rows.append({
             "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "heads": [cfg.num_heads, cfg.num_kv_heads],
-            "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "act": cfg.act, "gated_mlp": cfg.gated_mlp,
+            "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+            "params_b": count_params(cfg) / 1e9, "params_gb": params_gb,
             "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
             "init_s": init_s,
             "cold": dataclasses.asdict(cold), "warm": dataclasses.asdict(warm),
@@ -3234,9 +3274,64 @@ def lm_serve(torch) -> dict:
             "prefill_breakdown": breakdown, "streamed_mlp": streamed,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         })
-        del eng, blockwise, logits, ref_logits
+        del eng, logits
         torch.cuda.empty_cache()
-    return {"models": rows}
+        # after the bf16 engine is freed: nemotron's f32 weights are 62 GB
+        rows[-1]["f32_vs_blockwise"] = (_f32_gap(torch, cfg, prompts)
+                                        if arch in LM_F32_ARCHS else None)
+        rows[-1]["seconds"] = time.perf_counter() - t_arch
+        if err > allowed:
+            raise AssertionError(
+                f"{arch}: prefill logits cuda vs blockwise differ by {err} "
+                f"(allowed {allowed}; in f32: "
+                f"{rows[-1]['f32_vs_blockwise']})")
+    return {"models": rows, "serve_cli": serve_cli()}
+
+
+def _f32_gap(torch, cfg, prompts) -> dict:
+    """``cfg``'s prefill logits in f32, "cuda" against "blockwise", on
+    weights drawn in f32 from the engine's seed: the gap the two
+    attentions leave when no layer rounds to bf16."""
+    from repro_torch.launch.serve import ServeEngine
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32 = cfg.with_(dtype="float32")
+    eng = ServeEngine(f32, max_len=prompts.shape[1], seed=0)
+    logits, _ = eng.prefill(prompts)
+    ref, _ = ServeEngine(f32.with_(attn_impl="blockwise"),
+                         max_len=prompts.shape[1],
+                         params=eng.params).prefill(prompts)
+    torch.cuda.synchronize()
+    err = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    out = {"max_abs": err, "max_logit": scale,
+           "allowed": LM_LOGIT_RTOL_OF_MAX * scale + LM_LOGIT_ATOL,
+           "argmax_agreement": float((logits.argmax(-1) == ref.argmax(-1))
+                                     .float().mean()),
+           "seconds": time.perf_counter() - t0}
+    del eng, logits, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_cli() -> dict:
+    """``python -m repro_torch.launch.serve`` + ``SERVE_CLI_ARGS`` in a
+    process of its own, with no ``--device`` (the card): exit 0 and its
+    stats line, the tokens it emitted."""
+    t0 = time.perf_counter()
+    proc = _python(None, cpu_only=False,
+                   argv=["-m", "repro_torch.launch.serve", *SERVE_CLI_ARGS])
+    what = "python -m repro_torch.launch.serve " + " ".join(SERVE_CLI_ARGS)
+    out = _finish(proc, what, SERVE_CLI_LIMIT_S)
+    lines = out.splitlines()
+    stats = json.loads(lines[0])
+    if set(stats) != {"prefill_s", "decode_s", "tokens_out",
+                      "tokens_per_s"} or stats["tokens_out"] != 4 * 32:
+        raise AssertionError(f"{what}: stats line {lines[0]!r}")
+    return {"argv": list(SERVE_CLI_ARGS), "rc": proc.returncode,
+            "stats": stats, "stdout": lines[1:],
+            "seconds": time.perf_counter() - t0}
 
 
 def _logit_gap(a, b, rtol_of_max, atol, what):
@@ -3270,8 +3365,9 @@ def _streamed_mlp(torch, eng, cfg, prompts) -> dict:
     """``mlp_impl="streamed"`` on the engine's weights: one prefill and
     STREAMED_STEPS decode steps, fused-MLP launches counted per call,
     logits held against the ``"dense"`` engine step by step (both fed the
-    dense engine's greedy tokens), and warm prefill / decode-step times
-    beside the dense ones."""
+    dense engine's greedy tokens), the warm prefill's split and wall over
+    STREAMED_REPS prefills (the dense one's is the row's), and the decode
+    steps' times beside the dense ones."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_mlp as fm
     from repro_torch.launch.serve import ServeEngine
@@ -3320,10 +3416,8 @@ def _streamed_mlp(torch, eng, cfg, prompts) -> dict:
         "fused_mlp_launches_per_step": per_step,
         "max_logit_gap_vs_dense": max(g["max_abs"] for g in gaps),
         "logit_gaps_vs_dense": gaps,
-        "prefill_ms": {"streamed": _prefill_ms(torch, st, prompts),
-                       "dense": _prefill_ms(torch, eng, prompts)},
         "prefill_breakdown": _prefill_breakdown(
-            torch, lambda: st.prefill(prompts),
+            torch, lambda: st.prefill(prompts), reps=STREAMED_REPS,
             classes=(("attention", "flash_attention"), ("mlp", "fused_mlp"))),
         "decode_step_ms": step_ms,
     }
@@ -3882,6 +3976,203 @@ def encdec_serve(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16a: the vision-language backbone on embeddings
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-72b"
+#: full width, the first 16 of the published 80 layers: the 80 hold
+#: ≈ 143 GB of bf16 weights, the card 80 GB; 16 and the (8192 × 152064)
+#: head hold ≈ 31 GB
+VLM_LAYERS = 16
+#: each prompt's image: a grid of patches, one M-RoPE (t, h, w) each
+VLM_GRID = (28, 28)
+#: the card against the port's own CPU run: depth 2, d_model 256, the
+#: published 64/8 heads of 128 (M-RoPE's sections 16/24/24 cover half a
+#: head of 128), d_ff, vocabulary and qkv bias; batch 2, a prefill and
+#: ENCDEC_CPU_STEPS decode steps
+VLM_CPU_CUT = {"num_layers": 2, "d_model": 256, "head_dim": 128}
+
+
+def mrope_streams(rng, batch: int, seq: int, grid=VLM_GRID):
+    """(3, B, S) int32 M-RoPE positions of prompts laid out as Qwen2-VL
+    lays them: text of a seeded length, one image of ``grid`` patches,
+    text to the end.  Text takes the same position on the three axes; the
+    image's patches (t, h, w) = (p, p + row, p + column) from the position
+    p after the text before it; the text after it goes on from p +
+    max(grid)."""
+    import numpy as np
+
+    gh, gw = grid
+    n = gh * gw
+    row, col = np.divmod(np.arange(n), gw)
+    out = np.empty((3, batch, seq), np.int32)
+    for b in range(batch):
+        p = int(rng.integers(16, seq - n - 16))
+        out[:, b, :p] = np.arange(p)
+        out[0, b, p:p + n] = p
+        out[1, b, p:p + n] = p + row
+        out[2, b, p:p + n] = p + col
+        out[:, b, p + n:] = p + max(gh, gw) + np.arange(seq - p - n)
+    return out
+
+
+def _vlm_generate(torch, eng, batch: dict, step_embeds):
+    """A prefill of ``batch`` (embeddings and M-RoPE streams) through
+    ``steps.make_prefill_step``, its caches laid into ``max_len``, then
+    one decode step through ``make_decode_step`` for each (B, 1, D)
+    embedding of ``step_embeds`` → ((B, 1 + steps) greedy tokens, stats
+    as ``ServeStats``' fields, the prefill's logits)."""
+    import numpy as np
+
+    bsz, plen = batch["embeds"].shape[:2]
+    steps = step_embeds.shape[0]
+    out = np.zeros((bsz, 1 + steps), np.int32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first, caches = eng._prefill_step(eng.params, batch)
+        cache = eng._expand_cache(caches, bsz, plen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out[:, 0] = first.argmax(-1).cpu().numpy()
+        for i in range(steps):
+            logits, cache = eng._decode_step(eng.params, cache,
+                                             step_embeds[i], plen + i)
+            out[:, 1 + i] = logits.argmax(-1).cpu().numpy()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                 "tokens_out": bsz * steps,
+                 "tokens_per_s": bsz * steps / max(t2 - t1, 1e-9)}, first
+
+
+def vlm_serve(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs.base import count_params
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import to_tensor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import ServeEngine
+
+    published = get_config(VLM_ARCH)
+    cfg = published.with_(num_layers=VLM_LAYERS)
+    rng = np.random.default_rng(0)
+    embeds_np = rng.standard_normal((LM_BATCH, LM_PROMPT, cfg.d_model),
+                                    dtype=np.float32)
+    mrope_np = mrope_streams(rng, LM_BATCH, LM_PROMPT)
+    steps_np = rng.standard_normal((LM_NEW, LM_BATCH, 1, cfg.d_model),
+                                   dtype=np.float32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, max_len=LM_PROMPT + LM_NEW, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = _tree_nbytes(eng.params) / 1e9
+    dev = eng.device
+    batch = {"embeds": to_tensor(embeds_np, dev).to(cfg.param_dtype),
+             "mrope_positions": to_tensor(mrope_np, dev)}
+    step_embeds = to_tensor(steps_np, dev).to(cfg.param_dtype)
+
+    before = fa.launches
+    out, cold, logits = _vlm_generate(torch, eng, batch, step_embeds)
+    per_prefill = fa.launches - before
+    if per_prefill != cfg.num_layers:
+        raise AssertionError(
+            f"{VLM_ARCH}: {per_prefill} flash launches in a prefill and "
+            f"{LM_NEW} decode steps, want {cfg.num_layers} (one per layer "
+            "of the prefill)")
+    if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{VLM_ARCH}: logits {tuple(logits.shape)} "
+                             "not finite of the expected shape")
+    if out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{VLM_ARCH}: tokens out of range")
+    out2, warm, _ = _vlm_generate(torch, eng, batch, step_embeds)
+    if not np.array_equal(out, out2):
+        raise AssertionError(f"{VLM_ARCH}: greedy decode not repeatable")
+
+    blockwise = ServeEngine(cfg.with_(attn_impl="blockwise"),
+                            max_len=LM_PROMPT + LM_NEW, params=eng.params)
+    with torch.inference_mode():
+        ref, _ = blockwise._prefill_step(blockwise.params, batch)
+    gap = _logit_gap(logits, ref, LM_LOGIT_RTOL_OF_MAX, LM_LOGIT_ATOL,
+                     f"{VLM_ARCH} prefill cuda vs blockwise")
+    gap["argmax_agreement"] = float((logits.argmax(-1) == ref.argmax(-1))
+                                    .float().mean())
+    del blockwise, ref
+
+    def prefill():
+        with torch.inference_mode():
+            return eng._prefill_step(eng.params, batch)
+
+    breakdown = _prefill_breakdown(torch, prefill)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng, batch, logits
+    torch.cuda.empty_cache()
+
+    # depth 2, d_model 256: the card against the port's own CPU run, on
+    # embeddings of the cut's width and the first prompts' streams
+    cfg2 = published.with_(**VLM_CPU_CUT)
+    max_len = LM_PROMPT + ENCDEC_CPU_STEPS
+    card = ServeEngine(cfg2, max_len=max_len, seed=1)
+    host = ServeEngine(cfg2, device="cpu", max_len=max_len,
+                       params=_tree_to(card.params, "cpu"))
+    sub = {"embeds": torch.from_numpy(rng.standard_normal(
+               (MOE_CPU_BATCH, LM_PROMPT, cfg2.d_model), dtype=np.float32)),
+           "mrope_positions": torch.from_numpy(
+               np.ascontiguousarray(mrope_np[:, :MOE_CPU_BATCH]))}
+    steps_np = rng.standard_normal(
+        (ENCDEC_CPU_STEPS, MOE_CPU_BATCH, 1, cfg2.d_model), dtype=np.float32)
+    gaps, agree = [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lc, cc = card._prefill_step(card.params,
+                                    _tree_to(sub, card.device))
+        lh, ch = host._prefill_step(host.params, sub)
+        cc = card._expand_cache(cc, MOE_CPU_BATCH, LM_PROMPT)
+        ch = host._expand_cache(ch, MOE_CPU_BATCH, LM_PROMPT)
+        for i in range(ENCDEC_CPU_STEPS + 1):
+            what = f"{VLM_ARCH} depth 2 card vs cpu, step {i}"
+            gaps.append(_logit_gap(lc.cpu(), lh, LM_LOGIT_RTOL_OF_MAX,
+                                   LM_LOGIT_ATOL, what))
+            agree.append(float((lc.argmax(-1).cpu() == lh.argmax(-1))
+                               .float().mean()))
+            if i == ENCDEC_CPU_STEPS:
+                break
+            e = torch.from_numpy(steps_np[i])
+            lc, cc = card._decode_step(card.params, cc,
+                                       e.to(card.device), LM_PROMPT + i)
+            lh, ch = host._decode_step(host.params, ch, e, LM_PROMPT + i)
+    if agree[0] != 1.0:
+        raise AssertionError(f"{VLM_ARCH} depth 2: prefill argmax differs "
+                             "between the card and the CPU")
+    return {
+        "arch": VLM_ARCH, "layers": cfg.num_layers,
+        "cut": {"num_layers": [published.num_layers, VLM_LAYERS]},
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+        "mrope_sections": list(cfg.mrope_sections),
+        "vocab": cfg.vocab_size, "params_b": count_params(cfg) / 1e9,
+        "published_params_b": count_params(published) / 1e9,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_NEW,
+        "image_grid": list(VLM_GRID), "init_s": init_s,
+        "cold": cold, "warm": warm,
+        "flash_launches_per_prefill": per_prefill,
+        "logits_vs_blockwise": gap,
+        "depth2_card_vs_cpu": {
+            "cut": VLM_CPU_CUT, "batch": MOE_CPU_BATCH,
+            "steps": ENCDEC_CPU_STEPS,
+            "cpu_and_card_seconds": time.perf_counter() - t0,
+            "max_abs": max(g["max_abs"] for g in gaps),
+            "allowed": min(g["allowed"] for g in gaps),
+            "argmax_agreement": agree, "decode_gaps": gaps},
+        "prefill_breakdown": breakdown, "weights_gb": weights_gb,
+        "peak_mem_gb": peak,
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the dense LM's train step
 # ---------------------------------------------------------------------------
 
@@ -3945,10 +4236,13 @@ STREAMED_TRAIN_ARCH = TRAIN_ARCH
 #: (``src/repro/launch/specs.py:43-49``): train_4k's 4096 stub frames a
 #: row and a quarter as many targets, ``TRAIN_ROWS`` rows as
 #: ``TRAIN_ACCUM`` microbatches; the card against the CPU at depth 2 + 2
-#: (``ENCDEC_CPU_DEPTH``), published width and vocab, 2 × 256 frames and
-#: 64 targets
+#: (``ENCDEC_CPU_DEPTH``) and d_model 256 (16 heads of the published 64,
+#: d_ff and vocab as published), 2 × 256 frames and 64 targets — the
+#: other train phases' CPU cut; at the published d_model 1024 the check
+#: took ≈ 100 s of the run's 1200
 ENCDEC_TRAIN_ARCH = ENCDEC_ARCH
 ENCDEC_DEC_FRAC = 4
+ENCDEC_TRAIN_CPU_WIDTH = {"d_model": 256, "head_dim": 64}
 #: Jamba's superblock, trained on one card only at a width cut: the
 #: published one holds ≈ 44 B parameters, the serving cut ≈ 24.6 B (49 GB
 #: of bf16 weights), and training adds f32 gradients, two f32 moments and
@@ -4048,7 +4342,8 @@ def encdec_train(torch) -> tuple:
 
     cfg = get_config(ENCDEC_TRAIN_ARCH)
     n = cfg.enc_layers + 2 * cfg.dec_layers
-    cut = {**ENCDEC_CPU_DEPTH, "rows": TRAIN_CPU_ROWS, "frames": 256}
+    cut = {**ENCDEC_CPU_DEPTH, **ENCDEC_TRAIN_CPU_WIDTH,
+           "rows": TRAIN_CPU_ROWS, "frames": 256}
     return _train(torch, cfg, launches=_per_step(attn=n),
                   classes=TRAIN_CLASSES[:2], cut=cut)
 
@@ -4400,10 +4695,12 @@ def _tree_to(tree, device):
 # int8-weight serving and crash-restart training
 # ---------------------------------------------------------------------------
 
-#: the int8 server: ``lm_serve``'s first model, batch, prompts and new
-#: tokens, ``ServeEngine(int8_weights=True)`` beside a bf16 engine on the
-#: same seeded weights
-INT8_ARCH = LM_MODELS[0]
+#: the int8 servers: ``lm_serve``'s first model and nemotron-4-15b, with
+#: its batch, prompts and new tokens, ``ServeEngine(int8_weights=True)``
+#: beside a bf16 engine on the same seeded weights; the card's
+#: quantization against the CPU's on the first alone (at nemotron's size
+#: the sample would copy gigabytes to the host)
+INT8_ARCHS = (LM_MODELS[0], "nemotron-4-15b")
 #: per-call dequantize timing: warm calls, each synchronised
 INT8_DEQ_REPS = 5
 
@@ -4431,14 +4728,32 @@ def qtensor_mismatches(a, b) -> list:
             if x.dtype != y.dtype or not torch.equal(x, y.to(x.device))]
 
 
-def int8_serve(torch, read) -> dict:
-    """llama3.2-1b at full width and depth served with int8 weights: the
-    card's quantization against the CPU's on the same tensors, the int8
+def quantized_mismatches(qtree, params, path: str = "") -> list:
+    """The paths ``qtensor_mismatches(qtree, quantize_params(params))``
+    names, each leaf of ``params`` quantized alone and dropped before the
+    next: the whole quantized copy of nemotron-4-15b is another 15.6 GB."""
+    from repro_torch.quant import quantize_params
+
+    if isinstance(params, dict):
+        if not isinstance(qtree, dict) or set(qtree) != set(params):
+            return [f"{path} structure"]
+        return [p for k in sorted(params)
+                for p in quantized_mismatches(qtree[k], params[k],
+                                              f"{path}[{k!r}]")]
+    return [path + p for p in qtensor_mismatches(qtree,
+                                                 quantize_params(params))]
+
+
+def int8_serve(torch, read, arch: str, cpu_check: bool) -> dict:
+    """``arch`` at full width and depth served with int8 weights: the int8
     engine against a bf16 engine handed the dequantized weights (bit for
-    bit), and its bytes, times and greedy agreement beside a bf16 engine
-    on the original weights, in this run.  ``read()`` returns the path's
-    launch count: it is called after the int8 engine's own calls, before
-    the bf16 engines it is compared with run."""
+    bit), its quantization against ``quantize_params`` of the same weights
+    drawn again and, with ``cpu_check``, the card's quantization against
+    the CPU's on the same tensors; and its bytes, times and greedy
+    agreement beside a bf16 engine on the original weights, in this run.
+    ``read()`` returns the path's launch count: it is called after the
+    int8 engine's own calls, before the bf16 engines it is compared with
+    run.  At most the int8 weights and one bf16 copy are held at a time."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -4449,30 +4764,34 @@ def int8_serve(torch, read) -> dict:
     from repro_torch.quant import dequantize_params, quantize_params
 
     torch.cuda.empty_cache()
-    cfg = get_config(INT8_ARCH)
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
     max_len = LM_PROMPT + LM_NEW
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
 
     # the int8 engine alone on the card: construction, memory, generate
     base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     q8 = ServeEngine(cfg, max_len=max_len, seed=0, int8_weights=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     held_gb = (torch.cuda.memory_allocated() - base) / 1e9
     torch.cuda.reset_peak_memory_stats()
     before = fa.launches
     logits8, _ = q8.prefill(prompts)
     per_prefill = fa.launches - before
     if per_prefill != cfg.num_layers:
-        raise AssertionError(f"int8 prefill: {per_prefill} flash launches, "
-                             f"want {cfg.num_layers} (one per layer)")
+        raise AssertionError(f"{arch} int8 prefill: {per_prefill} flash "
+                             f"launches, want {cfg.num_layers} (one per "
+                             "layer)")
     out8, cold8 = q8.generate(prompts, max_new=LM_NEW)
     out8b, warm8 = q8.generate(prompts, max_new=LM_NEW)
     if not np.array_equal(out8, out8b):
-        raise AssertionError("int8 greedy generate not repeatable")
+        raise AssertionError(f"{arch}: int8 greedy generate not repeatable")
     peak8_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     prefill8_ms = _prefill_ms(torch, q8, prompts)
     launches = read()                  # the int8 path's own: read after
@@ -4488,23 +4807,7 @@ def int8_serve(torch, read) -> dict:
         del d
     deq_ms = deq_ms[1:]
 
-    # the weights it quantized: the same generator, drawn again
-    params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
-                              cfg)
-    engine_vs_direct = qtensor_mismatches(q8.params, quantize_params(params))
-    # 1. the card's quantization against the CPU's on the same tensors
-    # one superblock: each stacked leaf's first layer, its layer axis kept
-    sample = {"blocks": tree_map(lambda t: t[0:1], params["blocks"]),
-              "embed": params["embed"]}
-    card_q = quantize_params(sample)
-    card_vs_cpu = qtensor_mismatches(
-        quantize_params(_tree_to(sample, "cpu")), card_q)
-    if engine_vs_direct or card_vs_cpu:
-        raise AssertionError(
-            f"quantization bits: engine vs direct {engine_vs_direct[:5]}, "
-            f"card vs CPU {card_vs_cpu[:5]}")
-
-    # 2. a bf16 engine handed the dequantized weights: the same bits
+    # 1. a bf16 engine handed the dequantized weights: the same bits
     deq = ServeEngine(cfg, max_len=max_len,
                       params=dequantize_params(q8.params, cfg.param_dtype))
     logits_d, _ = deq.prefill(prompts)
@@ -4512,13 +4815,34 @@ def int8_serve(torch, read) -> dict:
     same_logits = bool(torch.equal(logits8, logits_d))
     if not same_logits or not np.array_equal(out8, out_d):
         raise AssertionError(
-            "int8 engine vs bf16 engine on the dequantized weights: "
-            f"logits equal {same_logits}, tokens equal "
+            f"{arch}: int8 engine vs bf16 engine on the dequantized "
+            f"weights: logits equal {same_logits}, tokens equal "
             f"{np.array_equal(out8, out_d)}")
     if tuple(logits8.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
             torch.isfinite(logits8).all()):
-        raise AssertionError("int8 logits not finite of the expected shape")
+        raise AssertionError(f"{arch}: int8 logits not finite of the "
+                             "expected shape")
     del deq, logits_d
+    torch.cuda.empty_cache()
+
+    # 2. the weights it quantized: the same generator, drawn again
+    params = steps.model_init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    engine_vs_direct = quantized_mismatches(q8.params, params)
+    card_vs_cpu = card_q = None
+    if cpu_check:
+        # 3. the card's quantization against the CPU's on the same
+        # tensors: one superblock (each stacked leaf's first layer, its
+        # layer axis kept) and the embedding
+        sample = {"blocks": tree_map(lambda t: t[0:1], params["blocks"]),
+                  "embed": params["embed"]}
+        card_q = quantize_params(sample)
+        card_vs_cpu = qtensor_mismatches(
+            quantize_params(_tree_to(sample, "cpu")), card_q)
+    if engine_vs_direct or card_vs_cpu:
+        raise AssertionError(
+            f"{arch} quantization bits: engine vs direct "
+            f"{engine_vs_direct[:5]}, card vs CPU {(card_vs_cpu or [])[:5]}")
 
     # 4. beside the bf16 engine on the original weights, in this run
     fp = ServeEngine(cfg, max_len=max_len, params=params)
@@ -4530,7 +4854,7 @@ def int8_serve(torch, read) -> dict:
     result = {
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
-        "init_s": init_s,
+        "init_s": init_s, "init_peak_gb": init_peak_gb,
         "weight_gb": {"int8_with_scales": _tree_nbytes(q8.params) / 1e9,
                       "bf16": _tree_nbytes(params) / 1e9},
         "int8_held_gb": held_gb, "int8_peak_gb": peak8_gb,
@@ -4544,7 +4868,10 @@ def int8_serve(torch, read) -> dict:
         "dequantize_ms_each": deq_ms,
         "flash_launches_per_prefill": per_prefill,
         "launches": {"flash_attention": launches},
-        "card_vs_cpu_quantization": {
+        "engine_vs_direct_quantization": {
+            "tensors": len(tree_flatten_with_path(q8.params)),
+            "mismatches": engine_vs_direct},
+        "card_vs_cpu_quantization": None if card_q is None else {
             "tensors": len(tree_flatten_with_path(card_q)),
             "mismatches": card_vs_cpu},
         "int8_equals_dequantized_bf16_engine": True,
@@ -4553,6 +4880,7 @@ def int8_serve(torch, read) -> dict:
             (out8[:, 0] == out_fp[:, 0]).mean()),
         "logits_max_abs_vs_bf16_weights": gap,
         "logits_max_abs": float(logits_fp.abs().max()),
+        "seconds": time.perf_counter() - t_arch,
     }
     del q8, fp, params, logits8, logits_fp
     torch.cuda.empty_cache()
@@ -5796,8 +6124,10 @@ def dryrun_tie(name: str, device: str) -> dict:
             "step_ms": ms}
 
 
-def _python(code: str, *, cpu_only: bool) -> subprocess.Popen:
-    """``python -c code`` from the checkout's root, its output piped."""
+def _python(code: str | None, *, cpu_only: bool,
+            argv=None) -> subprocess.Popen:
+    """``python -c code`` (or ``python`` with ``argv``) from the
+    checkout's root, its output piped."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + \
         env.get("PYTHONPATH", "")
@@ -5805,7 +6135,8 @@ def _python(code: str, *, cpu_only: bool) -> subprocess.Popen:
         env.pop(k, None)
     if cpu_only:
         env["CUDA_VISIBLE_DEVICES"] = ""
-    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+    args = ["-c", code] if argv is None else list(argv)
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
@@ -6150,12 +6481,21 @@ def main(argv=None) -> int:
         emit_phase("encdec_serve", encdec_serve(torch))
         fa_launches += read_after(fa, "flash_attention",        # after
                                   "encoder-decoder")
-    fa.reset_counts()                  # counts: zero before the int8 path
+    fa.reset_counts()                  # counts: zero before the VLM path
+    if "vlm_serve" in phases:
+        emit_phase("vlm_serve", vlm_serve(torch))
+        fa_launches += read_after(fa, "flash_attention",        # after
+                                  "vision-language")
     if "int8_serve" in phases:
-        int8 = int8_serve(torch, read=lambda: read_after(   # read after
-            fa, "flash_attention", "int8"))
-        fa_launches += int8["launches"]["flash_attention"]
-        emit_phase("int8_serve", int8)
+        int8 = []
+        for i, arch in enumerate(INT8_ARCHS):
+            fa.reset_counts()      # counts: zero before this int8 path
+            int8.append(int8_serve(
+                torch, read=lambda: read_after(                 # read after
+                    fa, "flash_attention", "int8"),
+                arch=arch, cpu_check=i == 0))
+            fa_launches += int8[-1]["launches"]["flash_attention"]
+        emit_phase("int8_serve", {"models": int8})
     def read_bwd(mod, name: str, path: str) -> int:
         """``read_after`` for a module's backward kernel."""
         if mod.bwd_launches < 1 or mod.bwd_plain_cuda_calls:

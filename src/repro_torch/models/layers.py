@@ -58,7 +58,9 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None,
     full = tuple(shape) if stack is None else (stack, *shape)
     w = torch.randn(full, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * scale).to(dtype)
+    # scaled in place: one f32 copy of the leaf at a time (nemotron-4-15b's
+    # stacked ``wu`` is 19 GB in f32)
+    return w.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

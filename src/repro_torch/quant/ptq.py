@@ -56,11 +56,8 @@ class QTensor(NamedTuple):
         return torch.int8
 
 
-def _quantize_leaf(x):
-    # quantize matrices only; keep vectors/scalars (norms, biases) exact
-    if not isinstance(x, torch.Tensor) or x.ndim < 2 or \
-            not x.is_floating_point():
-        return x
+def _quantize_matrix(x):
+    """(int8 q, f32 scale) of ``x``, the scale over its axis −2."""
     xf = x.to(torch.float32)
     # per-output-channel absmax over the contraction axis (-2)
     amax = xf.abs().amax(dim=-2, keepdim=True)
@@ -69,6 +66,25 @@ def _quantize_leaf(x):
     # otherwise than the reference's (and the CPU's) division
     scale = torch.clamp(amax, min=1e-12) / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_leaf(x):
+    # quantize matrices only; keep vectors/scalars (norms, biases) exact
+    if not isinstance(x, torch.Tensor) or x.ndim < 2 or \
+            not x.is_floating_point():
+        return x
+    if x.ndim == 2:
+        return QTensor(*_quantize_matrix(x))
+    # a stacked leaf one layer at a time: the scale is taken over axis −2
+    # alone, so the bits are the whole leaf's, and the f32 temporaries
+    # are a layer's (nemotron-4-15b's (32, 6144, 24576) ``wu`` would take
+    # 19 GB for each)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((*x.shape[:-2], 1, x.shape[-1]),
+                        dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(x):
+        q[i], scale[i] = _quantize_matrix(layer)
     return QTensor(q, scale)
 
 

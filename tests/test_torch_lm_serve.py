@@ -1,7 +1,9 @@
 """The LM serving path of the port (configs → layers → ``lm_prefill`` /
 ``lm_decode`` → ``ServeEngine.generate``) held against the reference on
-the CPU, at the smoke configs of llama3.2-1b and qwen2-0.5b (2 layers,
-d_model 64; qwen2 has QKV biases and tied embeddings).
+the CPU, at the smoke configs of llama3.2-1b, qwen2-0.5b, yi-9b and
+nemotron-4-15b (2 layers, d_model 64; qwen2 has QKV biases and tied
+embeddings, nemotron the ungated squared-ReLU MLP), and qwen2-vl-72b's
+M-RoPE backbone on embeddings.
 
 Both packages get the same parameters: the reference draws them, they
 cross as NumPy through ``lm_params_from_numpy``.  The reference runs
@@ -36,9 +38,10 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as tlm
 
+import chip_smoke
 from _torch_port import compiled_pair  # noqa: F401  (sets torch threads)
 
-ARCHS = ["llama3.2-1b", "qwen2-0.5b"]
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "yi-9b", "nemotron-4-15b"]
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=0.08, rtol=0.03)
 
@@ -304,6 +307,80 @@ def test_vlm_prefill_with_mrope():
     tl, _ = tlm.lm_prefill(tp, tcfg, {"embeds": torch.from_numpy(emb),
                                       "mrope_positions": torch.from_numpy(mpos)})
     np.testing.assert_allclose(_np(tl), _np(jl), **F32_TOL)
+
+
+def test_vlm_prefill_then_four_decode_steps_on_embeddings():
+    """qwen2-vl smoke with no mesh, in f32: a prefill of embeddings with
+    (3, B, S) M-RoPE streams laid out as ``chip_smoke.vlm_serve`` lays
+    them (text, an image's (t, h, w) grid, text), then four decode steps,
+    each fed a (B, 1, D) embedding, against the reference's unsharded
+    ``lm_prefill`` / ``lm_decode``: logits at every step and the caches
+    after the last."""
+    jcfg = jreg.get_config("qwen2-vl-72b", smoke=True).with_(
+        dtype="float32", attn_impl="pallas")
+    tcfg = treg.get_config("qwen2-vl-72b", smoke=True).with_(dtype="float32")
+    j_prefill, j_decode = _jitted(jcfg)
+    jp = jlm.init_params(jax.random.key(2), jcfg)
+    tp = tlm.lm_params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                                  device="cpu")
+    rng = np.random.default_rng(12)
+    b, s, steps = 2, 64, 4
+    emb = rng.standard_normal((b, s, 64)).astype(np.float32)
+    mpos = chip_smoke.mrope_streams(rng, b, s, grid=(4, 6))
+    jl, jc = j_prefill(jp, jcfg, {"embeds": jnp.asarray(emb),
+                                  "mrope_positions": jnp.asarray(mpos)})
+    tl, tc = tlm.lm_prefill(tp, tcfg, {
+        "embeds": torch.from_numpy(emb),
+        "mrope_positions": torch.from_numpy(mpos.copy())})
+    rows = [(_np(tl), _np(jl))]
+    rows += [(_np(tc["b0"][kv]), _np(jc["b0"][kv])) for kv in ("k", "v")]
+    jcache = jax.tree.map(
+        lambda a: jnp.pad(a, [(0, 0)] * 3 + [(0, steps), (0, 0)]), jc)
+    tcache = tlm.init_cache(tcfg, b, s + steps, device="cpu")
+    for kv in ("k", "v"):
+        tcache["b0"][kv][:, :, :, :s] = tc["b0"][kv]
+    for i in range(steps):
+        e = rng.standard_normal((b, 1, 64)).astype(np.float32)
+        jl, jcache = j_decode(jp, jcfg, jcache, jnp.asarray(e),
+                              jnp.asarray(s + i, jnp.int32))
+        tl, _ = tlm.lm_decode(tp, tcfg, tcache, torch.from_numpy(e), s + i)
+        rows.append((_np(tl), _np(jl)))
+    rows += [(_np(tcache["b0"][kv]), _np(jcache["b0"][kv]))
+             for kv in ("k", "v")]
+    assert rows[0][0].shape == (b, tcfg.vocab_size)
+    for got, want in rows:
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_mrope_streams_lay_out_text_an_image_and_text():
+    """``chip_smoke.mrope_streams``: text alike on the three axes, the
+    image's patches at (p, p + row, p + column), the text after it from
+    p + max(grid), each row's text length drawn from the generator."""
+    gh, gw = 3, 5
+    got = chip_smoke.mrope_streams(np.random.default_rng(1), 4, 60,
+                                   grid=(gh, gw))
+    assert got.shape == (3, 4, 60) and got.dtype == np.int32
+    starts = set()
+    for b in range(4):
+        t, h, w = got[:, b]
+        # the patch after the first is the first t off the text's count
+        p = int(np.argmax(t != np.arange(60))) - 1
+        starts.add(p)
+        np.testing.assert_array_equal(got[:, b, :p],
+                                      np.broadcast_to(np.arange(p), (3, p)))
+        img = slice(p, p + gh * gw)
+        np.testing.assert_array_equal(t[img], p)
+        np.testing.assert_array_equal(h[img], p + np.arange(gh * gw) // gw)
+        np.testing.assert_array_equal(w[img], p + np.arange(gh * gw) % gw)
+        rest = 60 - p - gh * gw
+        np.testing.assert_array_equal(
+            got[:, b, p + gh * gw:],
+            np.broadcast_to(p + max(gh, gw) + np.arange(rest), (3, rest)))
+    assert len(starts) > 1
+    np.testing.assert_array_equal(
+        got, chip_smoke.mrope_streams(np.random.default_rng(1), 4, 60,
+                                      grid=(gh, gw)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -5,7 +5,8 @@ reference's ``repro.quant.ptq`` on the CPU, at smoke configs.
 ``quantize_params`` / ``dequantize_params`` / ``quantization_error`` are
 held bit for bit against the reference's functions on the same
 parameters (the reference draws them; they cross as NumPy through
-``lm_params_from_numpy``), for the dense (llama3.2-1b, qwen2-0.5b), MoE
+``lm_params_from_numpy``), for the dense (llama3.2-1b, qwen2-0.5b,
+nemotron-4-15b's ungated MLP), MoE
 (granite-moe) and SSM (mamba2) families, in f32 and bf16.  The int8
 forward is the reference's ``test_quant.py::test_quantized_forward_close``
 recipe, ``lm_prefill(dequantize_params(quantize_params(p)))``, held
@@ -31,7 +32,8 @@ import chip_smoke
 from _torch_port import (BF16_TOL, F32_TOL, flat, ref_and_port, ref_lm_steps,
                          to_np, tokens)
 
-ARCHS = ["llama3.2-1b", "qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-1.3b"]
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-1.3b",
+         "nemotron-4-15b"]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -291,7 +293,8 @@ def _prompts(cfg, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3.2-1b",
-                                  "granite-moe-1b-a400m", "mamba2-1.3b"])
+                                  "granite-moe-1b-a400m", "mamba2-1.3b",
+                                  "nemotron-4-15b"])
 def test_int8_engine_equals_a_bf16_engine_on_the_dequantized_weights(arch):
     """The int8 engine holds int8 weights, generates deterministically,
     and gives the prefill logits and greedy tokens of a bf16 engine handed
@@ -358,6 +361,35 @@ def test_int8_engine_on_the_default_device_needs_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         tserve.ServeEngine(treg.get_config("qwen2-0.5b", smoke=True),
                            int8_weights=True)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 5), (2, 3, 8, 5)])
+def test_stacked_leaves_quantize_layer_by_layer_as_the_whole(shape):
+    """A stacked leaf is quantized one layer at a time: the bits of the
+    whole leaf's arithmetic (the scale is taken over axis −2 alone), in
+    f32 and bf16."""
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(shape)
+                         .astype(np.float32) * 3)
+    for dt in (torch.float32, torch.bfloat16):
+        got = TQ.quantize_params({"w": x.to(dt)})["w"]
+        q, scale = TQ._quantize_matrix(x.to(dt))
+        assert got.scale.shape == (*shape[:-2], 1, shape[-1])
+        assert torch.equal(got.q, q) and torch.equal(got.scale, scale)
+
+
+def test_quantized_mismatches_quantizes_leaf_by_leaf():
+    """``chip_smoke.quantized_mismatches(q, p)`` names what
+    ``qtensor_mismatches(q, quantize_params(p))`` names."""
+    _, _, _, _, tp = ref_and_port("nemotron-4-15b", "bfloat16")
+    q = TQ.quantize_params(tp)
+    assert chip_smoke.quantized_mismatches(q, tp) == []
+    q["lm_head"].q[1, 2] += 1
+    q["final_norm"] = q["final_norm"] + 1
+    want = chip_smoke.qtensor_mismatches(q, TQ.quantize_params(tp))
+    assert want == ["['final_norm']", "['lm_head'].q"]
+    assert chip_smoke.quantized_mismatches(q, tp) == want
+    del q["lm_head"]
+    assert chip_smoke.quantized_mismatches(q, tp) == [" structure"]
 
 
 def test_card_check_helpers():
